@@ -1,0 +1,12 @@
+"""kaldi_cnn_tpu_torch: the PyTorch + CUDA port of kaldi_cnn_tpu.
+
+A second package beside the JAX one, with the same module layout and
+names.  It imports torch and never jax.  Each Pallas TPU kernel on the
+ported path is a hand-written CUDA C++ kernel for Hopper (``csrc/``),
+built with nvcc at first use and bound with ctypes; each has a plain
+PyTorch version that CPU tensors take (``ops/``).
+
+Ported so far: the serving path of the WSJ-style CNN recipe (fbank ->
+CNN acoustic model -> top-K best-path decode -> WER); see
+``recipes/wsj.py``.
+"""

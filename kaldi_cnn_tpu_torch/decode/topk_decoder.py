@@ -1,0 +1,678 @@
+"""Batched top-K beam search over a CSR-packed HCLG, best path only.
+
+Port of ``kaldi_cnn_tpu/decode/topk_decoder.py`` (``TopKGraph``,
+``_recombine_topk``, ``_lookup`` and the best-path part of
+``TpuTopKDecoder``) to PyTorch (ref: src/decoder/lattice-faster-decoder.cc
+ProcessEmitting / ProcessNonemitting / PruneActiveTokens):
+
+  tokens   = K active (state, cost) pairs per utterance, kept sorted by
+             state so that membership lookup is a binary search;
+  expand   = windowed gather of each active state's out-arcs from the
+             CSR packing, plus a dense relaxation of the few high-degree
+             hub states' arcs;
+  recombine= one sort by a packed (dst, cost) int64 key + dedup mask;
+  prune    = beam cutoff + top-K (beam + max-active), ranked with an
+             acoustic lookahead;
+  eps      = the same expand/recombine on the eps arcs, iterated to the
+             eps-DAG depth;
+  backptrs = one resolution pass per frame; the host walks them back.
+
+``vmap`` over utterances is an explicit leading batch dimension, and
+``lax.scan`` over frames is a Python loop of tensor ops on the device.
+Lattice emission, the on-device backtrace and the mesh are not ported
+yet.  ``TopKGraph`` is the JAX package's numpy packing, copied because
+importing it from ``kaldi_cnn_tpu.decode`` would import jax.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from kaldi_cnn_tpu_torch.decode.graph import CompiledGraph
+
+BIG = np.float32(1e30)
+INVALID = np.int32(2**31 - 1)
+_BIG = float(BIG)            # the same constants as torch scalars
+_INVALID = int(INVALID)
+
+
+# ---------------------------------------------------------------------------
+# Graph packing (numpy, host)
+# ---------------------------------------------------------------------------
+
+class TopKGraph:
+    """Two-tier CSR packing of a CompiledGraph.
+
+    Arc tables are sorted by source state (full CSR, arc multiset and
+    state numbering unchanged).  States whose out-degree fits the caps
+    are expanded with a fixed gather window per frame; the few states
+    that exceed them (LM backoff / word-loop hubs with 10^4-10^5 arcs)
+    are marked as *hubs* and get a dense relaxation instead: every hub
+    arc is a candidate every frame, its source cost looked up in the
+    active set.  That is exactly the cost the reference pays when a hub
+    is active (ProcessEmitting walks all its arcs) — but here the hub
+    arc set is static, so the tensor shapes are fixed per graph.
+    """
+
+    def __init__(self, g: CompiledGraph, max_emit: int = 16,
+                 max_eps: int = 8):
+        assert max_emit >= 1 and max_eps >= 2
+        S = g.num_states
+        self.num_states = S
+        self.start = g.start
+
+        # full CSR over all emitting arcs (vectorized: 10^6-10^7 arc
+        # graphs pack in milliseconds)
+        e_order = np.argsort(np.asarray(g.e_src, np.int64), kind="stable")
+        e_src_a = np.asarray(g.e_src, np.int64)[e_order]
+        self.e_src = e_src_a.astype(np.int32)
+        self.e_dst = g.e_dst[e_order]
+        self.e_pdf = g.e_pdf[e_order]
+        self.e_w = g.e_weight[e_order]
+        self.e_ilabel = g.e_ilabel[e_order]
+        self.e_olabel = g.e_olabel[e_order]
+        self.e_off = np.searchsorted(
+            e_src_a, np.arange(S + 1)).astype(np.int32)
+
+        n_order = np.argsort(np.asarray(g.n_src, np.int64), kind="stable")
+        n_src_a = np.asarray(g.n_src, np.int64)[n_order]
+        self.n_src = n_src_a.astype(np.int32)
+        self.n_dst = g.n_dst[n_order]
+        self.n_w = g.n_weight[n_order]
+        self.n_olabel = g.n_olabel[n_order]
+        self.n_off = np.searchsorted(
+            n_src_a, np.arange(S + 1)).astype(np.int32)
+
+        # hub classification (per arc family)
+        e_deg = self.e_off[1:] - self.e_off[:-1]
+        n_deg = self.n_off[1:] - self.n_off[:-1]
+        self.e_is_hub = (e_deg > max_emit)
+        self.n_is_hub = (n_deg > max_eps)
+        self.e_hub_arcs = np.concatenate(
+            [np.arange(self.e_off[s], self.e_off[s + 1])
+             for s in np.nonzero(self.e_is_hub)[0]] or
+            [np.zeros(0, np.int64)]).astype(np.int32)
+        self.n_hub_arcs = np.concatenate(
+            [np.arange(self.n_off[s], self.n_off[s + 1])
+             for s in np.nonzero(self.n_is_hub)[0]] or
+            [np.zeros(0, np.int64)]).astype(np.int32)
+        self.max_emit_deg = int(e_deg[~self.e_is_hub].max()) \
+            if (~self.e_is_hub).any() and len(self.e_src) else 0
+        self.max_eps_deg = int(n_deg[~self.n_is_hub].max()) \
+            if (~self.n_is_hub).any() and len(self.n_src) else 0
+
+        self.final = np.asarray(g.final, np.float32)
+        self.eps_depth = self._eps_depth()
+        self._build_lookahead()
+        self._build_hub_aux()
+        self._build_eps_incsr()
+
+    def _build_hub_aux(self) -> None:
+        """Per-hub-state auxiliary tables: hub arcs are relaxed densely
+        every frame, but their SOURCES are a handful of distinct hub
+        states — looking up those few states once and broadcasting via a
+        static arc->hub-state index replaces a 10^5-query binary search
+        per frame.  Hub arc DESTINATIONS are static too, so their
+        acoustic-lookahead table rows are pre-gathered here; at runtime
+        the lookahead becomes a small-table gather over the P-row
+        acoustic vector instead of a random gather over the [S, W+1]
+        table."""
+        for fam in ("e", "n"):
+            arcs = getattr(self, f"{fam}_hub_arcs")
+            srcs = getattr(self, f"{fam}_src")[arcs] if len(arcs) else \
+                np.zeros(0, np.int32)
+            states, sid = np.unique(srcs, return_inverse=True)
+            setattr(self, f"{fam}_hub_states", states.astype(np.int32))
+            setattr(self, f"{fam}_hub_sid", sid.astype(np.int32))
+        dsts = self.n_dst[self.n_hub_arcs] if len(self.n_hub_arcs) else \
+            np.zeros(0, np.int64)
+        self.n_hub_la_pdf = self.la_pdf[dsts]
+        self.n_hub_la_w = self.la_w[dsts]
+
+    def _build_eps_incsr(self, max_in: int = 8) -> None:
+        """CSR of eps arcs BY DESTINATION, for backpointer resolution:
+        each surviving token checks only its own eps in-arcs (a bounded
+        window) instead of the whole expansion being scattered through
+        segment-min reductions.  States whose eps in-degree exceeds the
+        cap (e.g. an LM backoff state fed by many word-ends) keep a
+        dense in-hub arc table."""
+        A = len(self.n_src)
+        order = np.argsort(np.asarray(self.n_dst, np.int64),
+                           kind="stable")
+        dst_sorted = np.asarray(self.n_dst, np.int64)[order]
+        off = np.searchsorted(dst_sorted, np.arange(self.num_states + 1))
+        deg = off[1:] - off[:-1]
+        self.ni_is_hub = deg > max_in
+        hub_arcs = np.concatenate(
+            [order[off[s]:off[s + 1]]
+             for s in np.nonzero(self.ni_is_hub)[0]] or
+            [np.zeros(0, np.int64)]).astype(np.int32)
+        self.ni_hub_arcs = hub_arcs
+        self.ni_off = off.astype(np.int32)
+        self.ni_arc = order.astype(np.int32)
+        self.max_in_deg = int(deg[~self.ni_is_hub].max()) \
+            if (~self.ni_is_hub).any() and A else 0
+
+    def _build_lookahead(self, W: int = 2) -> None:
+        """Per-state acoustic-lookahead table: up to W outgoing emitting
+        (weight, pdf) pairs per state, used to RANK tokens during top-K
+        pruning by cost + min_a(w_a + scale*am_next[pdf_a]).  States
+        whose out-degree exceeds W (hubs), is zero, or that also have
+        epsilon out-arcs get an optimistic 0-cost sentinel slot (never
+        wrongly evicted: a state with 1-2 emitting arcs plus eps
+        out-arcs — e.g. a word-end state feeding LM backoff through a
+        non-hub eps chain — must not be ranked purely by its emitting
+        arcs' next-frame acoustics, or the eps fixpoint can evict tokens
+        whose best continuation is epsilon).  True Viterbi costs are
+        untouched — only survival under K/beam pressure changes, which
+        is what lets acoustically-supported word-start tokens live
+        through an LM hub fan-out that K cannot cover (the reference has
+        the same eviction problem in GetCutoff when active >> max-active;
+        ref: lattice-faster-decoder.cc adaptive-beam logic)."""
+        S = self.num_states
+        deg = (self.e_off[1:] - self.e_off[:-1]).astype(np.int64)
+        eps_deg = (self.n_off[1:] - self.n_off[:-1]).astype(np.int64)
+        la_pdf = np.full((S, W + 1), -1, np.int32)   # -1 = sentinel slot
+        la_w = np.full((S, W + 1), BIG, np.float32)
+        for j in range(W):
+            has = deg > j
+            idx = self.e_off[:-1][has] + j
+            la_pdf[has, j] = self.e_pdf[idx]
+            la_w[has, j] = self.e_w[idx]
+        optimistic = (deg == 0) | (deg > W) | (eps_deg > 0)
+        la_w[optimistic, W] = 0.0
+        self.la_pdf = la_pdf
+        self.la_w = la_w
+
+    def _eps_depth(self, cap: int = 64) -> int:
+        if len(self.n_src) == 0:
+            return 0
+        depth = np.zeros(self.num_states, np.int32)
+        for _ in range(cap):
+            upd = np.zeros(self.num_states, np.int32)
+            np.maximum.at(upd, self.n_dst, depth[self.n_src] + 1)
+            new = np.maximum(depth, upd)
+            if (new == depth).all():
+                return int(depth.max())
+            depth = new
+        raise ValueError("epsilon cycle in decoding graph")
+
+    @property
+    def num_emitting_arcs(self) -> int:
+        return len(self.e_src)
+
+    @property
+    def num_eps_arcs(self) -> int:
+        return len(self.n_src)
+
+
+# ---------------------------------------------------------------------------
+# Device-side primitives, batched over utterances on a leading dimension
+# ---------------------------------------------------------------------------
+
+def _sort_key(dst: torch.Tensor, cost: torch.Tensor) -> torch.Tensor:
+    """One int64 key ordering candidates by (dst, cost): dst in the high
+    32 bits, the order-preserving unsigned image of the f32 cost bits in
+    the low 32 (torch has no multi-key sort)."""
+    bits = cost.contiguous().view(torch.int32).to(torch.int64)
+    low = torch.where(bits < 0, ~bits, bits | 0x80000000)
+    return (dst.to(torch.int64) << 32) | low
+
+
+def _sort_by_dst_cost(dst, cost, rest):
+    order = torch.sort(_sort_key(dst, cost), dim=-1, stable=True).indices
+    return (dst.gather(-1, order), cost.gather(-1, order),
+            tuple(r.gather(-1, order) for r in rest))
+
+
+def _recombine_topk(dst, cost, payloads, k, beam, la=None):
+    """Hash-map insert + beam + max-active in one shot, per batch row:
+    sort candidates by (dst, cost), keep the cheapest per dst, beam-cut,
+    take the top K, and restore state-sorted order (ref:
+    ProcessEmitting's token map + PruneActiveTokens).
+
+    ``la``: optional per-candidate acoustic-lookahead ranking addend; the
+    stored costs stay true costs, only the top-K selection ranks by
+    cost + lookahead (TopKGraph._build_lookahead).  Ties at the K-th
+    place may select other slots than ``lax.top_k`` does; the surviving
+    costs agree."""
+    extra = () if la is None else (la,)
+    sdst, scost, rest = _sort_by_dst_cost(dst, cost, extra + tuple(payloads))
+    dup = torch.zeros_like(sdst, dtype=torch.bool)
+    dup[:, 1:] = sdst[:, 1:] == sdst[:, :-1]
+    cutoff = scost.amin(dim=-1, keepdim=True) + beam
+    bad = dup | (scost > cutoff) | (sdst == _INVALID)
+    scost = torch.where(bad, _BIG, scost)
+    sdst = torch.where(bad, _INVALID, sdst)
+    if la is None:
+        rank = scost
+    else:
+        rank, rest = torch.where(bad, _BIG, scost + rest[0]), rest[1:]
+    idx = torch.topk(rank, k, dim=-1, largest=False, sorted=False).indices
+    seld, selc, selr = _sort_by_dst_cost(
+        sdst.gather(-1, idx), scost.gather(-1, idx),
+        tuple(r.gather(-1, idx) for r in rest))
+    return (seld, selc) + selr
+
+
+def _lookup(sorted_states, values, query, default):
+    """values[slot of query] for queries present in the state-sorted
+    active set, else default; and the slot, else -1.  [B, K] tables,
+    [B, Q] queries."""
+    k = sorted_states.shape[-1]
+    pos = torch.searchsorted(sorted_states.contiguous(),
+                             query.contiguous()).clamp_(0, k - 1)
+    hit = (sorted_states.gather(-1, pos) == query) & (query != _INVALID)
+    return (torch.where(hit, values.gather(-1, pos), default),
+            torch.where(hit, pos, -1))
+
+
+class TopKDecoder:
+    """Batched top-K beam decoder, best path only (counterpart of
+    ``kaldi_cnn_tpu.decode.topk_decoder.TpuTopKDecoder``).
+
+    Exact Viterbi whenever ``max_active`` covers all simultaneously
+    alive states and the beam is generous; otherwise the usual beam
+    search approximation.  Per frame the token sets of all utterances
+    advance together as [B, K] tensors on ``device``; the frame loop is a
+    Python loop.  The backtrace runs on the host."""
+
+    def __init__(self, graph: CompiledGraph, beam: float = 16.0,
+                 max_active: int = 2048, acoustic_scale: float = 0.1,
+                 max_emit_deg: int = 16, max_eps_deg: int = 8,
+                 device="cpu"):
+        self.g0 = graph
+        self.g = TopKGraph(graph, max_emit_deg, max_eps_deg)
+        g = self.g
+        self.device = torch.device(device)
+        self.beam = float(np.float32(min(beam, 1e9)))
+        self.K = int(min(max_active, g.num_states)) if max_active > 0 \
+            else g.num_states
+        self.acoustic_scale = float(np.float32(acoustic_scale))
+        self.De = max(g.max_emit_deg, 1)
+        self.Dn = max(g.max_eps_deg, 1)
+        self.He = len(g.e_hub_arcs)
+        self.Hn = len(g.n_hub_arcs)
+        self.Di = max(g.max_in_deg, 1)
+        self.Hni = len(g.ni_hub_arcs)
+        self.eps_iters = g.eps_depth
+
+        def t(a, dtype):
+            return torch.as_tensor(np.asarray(a), dtype=dtype,
+                                   device=self.device)
+
+        i32, i64, f32, b = torch.int32, torch.int64, torch.float32, \
+            torch.bool
+        self.d = {
+            "e_off": t(g.e_off, i64), "e_dst": t(g.e_dst, i32),
+            "e_pdf": t(g.e_pdf, i64), "e_w": t(g.e_w, f32),
+            "n_off": t(g.n_off, i64), "n_dst": t(g.n_dst, i32),
+            "n_w": t(g.n_w, f32),
+            "e_is_hub": t(g.e_is_hub, b), "n_is_hub": t(g.n_is_hub, b),
+            "la_pdf": t(g.la_pdf, i64), "la_w": t(g.la_w, f32),
+        }
+        if self.He:
+            ha = g.e_hub_arcs
+            self.d["e_hub"] = (t(ha, i64), t(g.e_dst[ha], i32),
+                               t(g.e_w[ha], f32))
+            self.d["e_hub_states"] = t(g.e_hub_states, i32)
+            self.d["e_hub_sid"] = t(g.e_hub_sid, i64)
+        if self.Hn:
+            ha = g.n_hub_arcs
+            self.d["n_hub"] = (t(ha, i64), t(g.n_dst[ha], i32),
+                               t(g.n_w[ha], f32))
+            self.d["n_hub_states"] = t(g.n_hub_states, i32)
+            self.d["n_hub_sid"] = t(g.n_hub_sid, i64)
+            self.d["n_hub_la_pdf"] = t(g.n_hub_la_pdf, i64)
+            self.d["n_hub_la_w"] = t(g.n_hub_la_w, f32)
+        if self.eps_iters > 0:
+            self.d["ni_off"] = t(g.ni_off, i64)
+            self.d["ni_arc"] = t(g.ni_arc, i64)
+            self.d["ni_is_hub"] = t(g.ni_is_hub, b)
+            self.d["n_src"] = t(g.n_src, i32)
+            if self.Hni:
+                ha = g.ni_hub_arcs
+                self.d["ni_hub"] = (t(ha, i64), t(g.n_src[ha], i32),
+                                    t(g.n_dst[ha], i32), t(g.n_w[ha], f32))
+
+    # -- expansion ---------------------------------------------------------
+    def _expand(self, states, costs, off, dst, w, width, is_hub):
+        """Windowed CSR gather of the out-arcs of the active set's
+        non-hub states: flat (arc_id, dst, base_cost, src_slot, ok) of
+        K * width candidates per row (invalid ones cost _BIG, dst
+        _INVALID)."""
+        B, K = states.shape
+        valid = states != _INVALID
+        sc = torch.where(valid, states, 0).long()
+        base = off[sc]
+        deg = off[sc + 1] - base
+        j = torch.arange(width, device=self.device)
+        arc = (base[..., None] + j).clamp_(0, dst.shape[0] - 1)
+        ok = ((j < deg[..., None]) & valid[..., None]
+              & (costs[..., None] < _BIG) & ~is_hub[sc][..., None])
+        cdst = torch.where(ok, dst[arc], _INVALID)
+        ccost = torch.where(ok, costs[..., None] + w[arc], _BIG)
+        slot = torch.arange(K, device=self.device)[None, :, None].expand(
+            B, K, width)
+        return (arc.reshape(B, -1), cdst.reshape(B, -1),
+                ccost.reshape(B, -1), slot.reshape(B, -1),
+                ok.reshape(B, -1))
+
+    def _expand_hub(self, states, costs, hub, hub_states, hub_sid):
+        """Dense relaxation of a static hub arc table: source costs are
+        looked up once per distinct hub state and broadcast to arcs."""
+        arc, dst, w = hub
+        B = states.shape[0]
+        scost_s, sslot_s = _lookup(states, costs,
+                                   hub_states.expand(B, -1), _BIG)
+        scost = scost_s[:, hub_sid]
+        sslot = sslot_s[:, hub_sid]
+        ok = (sslot >= 0) & (scost < _BIG)
+        cdst = torch.where(ok, dst, _INVALID)
+        ccost = torch.where(ok, scost + w, _BIG)
+        return arc.expand(B, -1), cdst, ccost, sslot, ok
+
+    @staticmethod
+    def _cat(parts_a, parts_b):
+        return tuple(torch.cat([a, b], dim=-1)
+                     for a, b in zip(parts_a, parts_b))
+
+    def _expand_emit(self, states, costs):
+        d = self.d
+        cand = self._expand(states, costs, d["e_off"], d["e_dst"],
+                            d["e_w"], self.De, d["e_is_hub"])
+        if self.He:
+            cand = self._cat(cand, self._expand_hub(
+                states, costs, d["e_hub"], d["e_hub_states"],
+                d["e_hub_sid"]))
+        return cand
+
+    # -- one frame ---------------------------------------------------------
+    def _am_ext(self, am_next):
+        """Scaled next-frame acoustic costs [B, P] with a trailing 0
+        sentinel column (la_pdf -1 slots index it)."""
+        return torch.cat([self.acoustic_scale * am_next,
+                          am_next.new_zeros((am_next.shape[0], 1))], dim=1)
+
+    def _la_gather(self, am_ext, pdfs):
+        P = am_ext.shape[1] - 1
+        idx = torch.where((pdfs < 0) | (pdfs >= P), P, pdfs)
+        B = am_ext.shape[0]
+        return am_ext.gather(1, idx.reshape(B, -1)).reshape(idx.shape)
+
+    def _la_states(self, states, am_ext):
+        """Dynamic acoustic lookahead for a [B, Q] state set."""
+        s = torch.where(states == _INVALID, 0, states).long()
+        pdfs = self.d["la_pdf"][s]
+        v = (self.d["la_w"][s] + self._la_gather(am_ext, pdfs)).amin(-1)
+        return torch.where(states == _INVALID, 0.0, v.clamp_max(_BIG))
+
+    def _la_hub(self, am_ext):
+        """Lookahead of the static eps hub arc destinations."""
+        B = am_ext.shape[0]
+        pdfs = self.d["n_hub_la_pdf"].expand(B, -1, -1)
+        return (self.d["n_hub_la_w"] + self._la_gather(am_ext, pdfs)
+                ).amin(-1).clamp_max(_BIG)
+
+    def _eps_fixpoint(self, fs, fc, am_ext=None):
+        d = self.d
+        for _ in range(self.eps_iters):
+            cand = self._expand(fs, fc, d["n_off"], d["n_dst"],
+                                d["n_w"], self.Dn, d["n_is_hub"])
+            dsts = [fs, cand[1]]
+            costs = [fc, cand[2]]
+            las = None
+            if am_ext is not None:
+                las = [self._la_states(fs, am_ext),
+                       self._la_states(cand[1], am_ext)]
+            if self.Hn:
+                hub = self._expand_hub(fs, fc, d["n_hub"],
+                                       d["n_hub_states"], d["n_hub_sid"])
+                dsts.append(hub[1])
+                costs.append(hub[2])
+                if am_ext is not None:
+                    las.append(self._la_hub(am_ext))
+            fs, fc = _recombine_topk(
+                torch.cat(dsts, -1), torch.cat(costs, -1), (), self.K,
+                self.beam, None if las is None else torch.cat(las, -1))
+        return fs, fc
+
+    def _resolve_bp(self, fs, fc, es, ec, e_bp_arc, e_bp_prev):
+        """Post-fixpoint backpointers: each surviving token is traced to
+        the emitting set (same state, same cost) or to the eps in-arc
+        from another surviving token that achieves its cost (the
+        lowest such arc id wins).  -1 marks a token left unresolved,
+        repaired on the host by ``_host_fix``."""
+        tol = float(np.float32(1e-3))
+        B, K = fs.shape
+        ecost_at, eslot = _lookup(es, ec, fs, _BIG)
+        emit_hit = (ecost_at - fc).abs() <= tol
+        if self.eps_iters > 0:
+            d = self.d
+            valid = fs != _INVALID
+            sc = torch.where(valid, fs, 0).long()
+            base = d["ni_off"][sc]
+            deg = d["ni_off"][sc + 1] - base
+            j = torch.arange(self.Di, device=self.device)
+            hi = max(int(self.g.num_eps_arcs) - 1, 0)
+            arc = d["ni_arc"][(base[..., None] + j).clamp_(0, hi)]
+            ok = ((j < deg[..., None]) & valid[..., None]
+                  & ~d["ni_is_hub"][sc][..., None])
+            src = torch.where(ok, d["n_src"][arc], _INVALID)
+            scost, sslot = _lookup(fs, fc, src.reshape(B, -1), _BIG)
+            scost, sslot = scost.reshape(src.shape), sslot.reshape(src.shape)
+            match = ok & (sslot >= 0) & (
+                (scost + d["n_w"][arc] - fc[..., None]).abs() <= tol)
+            arc_m = torch.where(match, arc, _INVALID)
+            pos = arc_m.argmin(dim=-1, keepdim=True)
+            best_arc = arc_m.gather(-1, pos)[..., 0]
+            best_src = torch.where(match, sslot, _INVALID).gather(
+                -1, pos)[..., 0]
+            if self.Hni:
+                ha, hsrc, hdst, hw = d["ni_hub"]
+                hscost, hslot = _lookup(fs, fc, hsrc.expand(B, -1), _BIG)
+                hdcost, hdslot = _lookup(fs, fc, hdst.expand(B, -1), _BIG)
+                hmatch = ((hslot >= 0) & (hdslot >= 0)
+                          & ((hscost + hw - hdcost).abs() <= tol))
+                seg = torch.where(hmatch, hdslot, K)
+                init = torch.full((B, K + 1), int(_INVALID),
+                                  dtype=torch.int64, device=self.device)
+                h_arc = init.scatter_reduce(
+                    1, seg, torch.where(hmatch, ha, _INVALID),
+                    "amin")[:, :K]
+                win = hmatch & (ha == h_arc.gather(
+                    1, torch.where(hdslot >= 0, hdslot, 0)))
+                h_src = init.scatter_reduce(
+                    1, seg, torch.where(win, hslot, _INVALID), "amin")[:, :K]
+                is_ihub = d["ni_is_hub"][sc] & valid
+                best_arc = torch.where(is_ihub, h_arc, best_arc)
+                best_src = torch.where(is_ihub, h_src, best_src)
+            eps_hit = best_arc != _INVALID
+        else:
+            eps_hit = torch.zeros_like(fs, dtype=torch.bool)
+            best_arc = best_src = torch.full_like(fs, int(_INVALID),
+                                                  dtype=torch.int64)
+        n_e = self.g.num_emitting_arcs
+        has = eslot >= 0
+        es_c = torch.where(has, eslot, 0)
+        bp_arc = torch.where(
+            emit_hit, torch.where(has, e_bp_arc.gather(-1, es_c), -1),
+            torch.where(eps_hit, best_arc + n_e, -1))
+        bp_prev = torch.where(
+            emit_hit, torch.where(has, e_bp_prev.gather(-1, es_c), -1),
+            torch.where(eps_hit, best_src, -1))
+        dead = fs == _INVALID
+        return (torch.where(dead, -1, bp_arc),
+                torch.where(dead, -1, bp_prev))
+
+    def _frame(self, prev_fs, prev_fc, am_row, am_next_row):
+        """One decode frame (the best-path variant: no lattice records)."""
+        arc, cdst, ccost, srcslot, ok = self._expand_emit(prev_fs, prev_fc)
+        pdf = self.d["e_pdf"][torch.where(ok, arc, 0)]
+        ccost = torch.where(
+            ok, ccost + self.acoustic_scale * am_row.gather(1, pdf), _BIG)
+        es, ec, e_arc, e_prev = _recombine_topk(
+            cdst, ccost, (arc, srcslot), self.K, self.beam)
+        fs, fc = self._eps_fixpoint(es, ec, self._am_ext(am_next_row))
+        bp_arc, bp_prev = self._resolve_bp(fs, fc, es, ec, e_arc, e_prev)
+        return fs, fc, bp_arc, bp_prev
+
+    # -- full decode -------------------------------------------------------
+    @torch.no_grad()
+    def _decode(self, am: torch.Tensor):
+        """am [B, T, P] raw acoustic costs (-loglikes) on the device.
+        Returns host histories fs, fc, bp_arc, bp_prev [B, T+1, K]
+        (level 0 = start token + eps closure)."""
+        B, T, P = am.shape
+        K = self.K
+        s0 = torch.full((B, K), int(_INVALID), dtype=torch.int32,
+                        device=self.device)
+        s0[:, 0] = self.g.start
+        c0 = torch.full((B, K), float(_BIG), dtype=torch.float32,
+                        device=self.device)
+        c0[:, 0] = 0.0
+        fs, fc = self._eps_fixpoint(s0, c0, self._am_ext(am[:, 0]))
+        root = torch.full((B, K), -1, dtype=torch.int64, device=self.device)
+        levels = [(fs, fc) + self._resolve_bp(fs, fc, s0, c0, root, root)]
+        am_next = torch.cat([am[:, 1:], am[:, -1:]], dim=1)
+        for t in range(T):
+            levels.append(self._frame(fs, fc, am[:, t], am_next[:, t]))
+            fs, fc = levels[-1][0], levels[-1][1]
+        return {k: torch.stack([lv[i] for lv in levels], dim=1).cpu().numpy()
+                for i, k in enumerate(("fs", "fc", "bp_arc", "bp_prev"))}
+
+    def decode_batch(self, loglikes: List[np.ndarray]
+                     ) -> List[Tuple[np.ndarray, np.ndarray, float]]:
+        """Best-path decode; per utterance (tids, word ids, total cost).
+        Shorter utterances are padded to the longest; padding frames
+        carry zero acoustics and are ignored by the backtrace."""
+        B = len(loglikes)
+        T = max(x.shape[0] for x in loglikes)
+        P = loglikes[0].shape[1]
+        am = np.zeros((B, T, P), np.float32)
+        lengths = np.zeros((B,), np.int32)
+        for i, x in enumerate(loglikes):
+            am[i, :x.shape[0]] = -x
+            lengths[i] = x.shape[0]
+        r = self._decode(torch.as_tensor(am, device=self.device))
+        return [self._best_path(r, am, int(lengths[b]), b)
+                for b in range(B)]
+
+    def _level(self, r, t, b):
+        return tuple(r[k][b, t] for k in ("fs", "fc", "bp_arc", "bp_prev"))
+
+    def _best_path(self, r, am, T, b):
+        g = self.g
+        fs, fc, _, _ = self._level(r, T, b)
+        valid = fs != INVALID
+        if not valid.any():
+            return np.zeros(0, np.int32), np.zeros(0, np.int32), float("inf")
+        total = np.where(valid, fc + g.final[np.where(valid, fs, 0)], BIG)
+        slot = int(np.argmin(total))
+        cost = float(total[slot])
+        if cost >= BIG:        # no final state reached: best active token
+            total = np.where(valid, fc, BIG)
+            slot = int(np.argmin(total))
+            cost = float(total[slot])
+        tids_r: List[int] = []
+        words_r: List[int] = []
+        t = T
+        n_e = g.num_emitting_arcs
+        guard = 0
+        while t >= 0:
+            guard += 1
+            if guard > (T + 2) * (self.eps_iters + 2):
+                raise RuntimeError("backtrace loop")
+            fs_t, fc_t, bp_arc, bp_prev = self._level(r, t, b)
+            a, p = int(bp_arc[slot]), int(bp_prev[slot])
+            if a < 0:
+                if t == 0 and fs_t[slot] == g.start:
+                    break
+                # unresolved: eps predecessor was evicted; repair on host
+                slot2, t2, tids2, words2 = self._host_fix(
+                    r, am, t, b, slot)
+                tids_r.extend(tids2)
+                words_r.extend(words2)
+                slot, t = slot2, t2
+                continue
+            if a >= n_e:                  # eps arc, same level
+                a -= n_e
+                if g.n_olabel[a] > 0:
+                    words_r.append(int(g.n_olabel[a]))
+                slot = p
+            else:                         # emitting arc, previous level
+                tids_r.append(int(g.e_ilabel[a]))
+                if g.e_olabel[a] > 0:
+                    words_r.append(int(g.e_olabel[a]))
+                slot = p
+                t -= 1
+        return (np.asarray(tids_r[::-1], np.int32),
+                np.asarray(words_r[::-1], np.int32), cost)
+
+    def _host_fix(self, r, am, t, b, slot):
+        """Recompute one frame's token chains on the host (numpy, exact)
+        when a device backpointer was left unresolved.  Returns the slot
+        and level to continue from plus the labels collected."""
+        g = self.g
+        fs_t, fc_t, _, _ = self._level(r, t, b)
+        state = int(fs_t[slot])
+        if t == 0:
+            pstates = np.asarray([g.start]); pcosts = np.asarray([0.0])
+        else:
+            pfs, pfc, _, _ = self._level(r, t - 1, b)
+            keep = pfs != INVALID
+            pstates, pcosts = pfs[keep], pfc[keep]
+        # emitting relax (skipped at level 0)
+        cost = {}
+        via = {}
+        if t > 0:
+            row = am[b, t - 1]
+            for ps, pc in zip(pstates.tolist(), pcosts.tolist()):
+                for a in range(g.e_off[ps], g.e_off[ps + 1]):
+                    c = pc + g.e_w[a] + float(self.acoustic_scale) \
+                        * float(row[g.e_pdf[a]])
+                    dd = int(g.e_dst[a])
+                    if c < cost.get(dd, BIG):
+                        cost[dd] = c
+                        via[dd] = ("e", a, int(ps))
+        else:
+            cost[g.start] = 0.0
+            via[g.start] = None
+        # eps closure to fixpoint
+        for _ in range(self.eps_iters + 1):
+            changed = False
+            for s in list(cost):
+                for a in range(g.n_off[s], g.n_off[s + 1]):
+                    c = cost[s] + float(g.n_w[a])
+                    dd = int(g.n_dst[a])
+                    if c < cost.get(dd, BIG) - 1e-6:
+                        cost[dd] = c
+                        via[dd] = ("n", a, s)
+                        changed = True
+            if not changed:
+                break
+        if state not in via:
+            raise RuntimeError("host backtrace repair failed")
+        tids, words = [], []
+        s = state
+        while via.get(s) is not None:
+            kind, a, ps = via[s]
+            if kind == "n":
+                if g.n_olabel[a] > 0:
+                    words.append(int(g.n_olabel[a]))
+                s = ps
+            else:
+                tids.append(int(g.e_ilabel[a]))
+                if g.e_olabel[a] > 0:
+                    words.append(int(g.e_olabel[a]))
+                # continue from the predecessor token at level t-1
+                pfs, _, _, _ = self._level(r, t - 1, b)
+                slots = np.nonzero(pfs == ps)[0]
+                if len(slots) == 0:
+                    raise RuntimeError("host repair: predecessor missing")
+                return int(slots[0]), t - 1, tids, words
+        # reached the start state inside level 0
+        return 0, -1, tids, words

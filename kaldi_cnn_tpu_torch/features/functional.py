@@ -1,0 +1,274 @@
+"""Kaldi-semantics feature extraction in PyTorch: the serving subset.
+
+Twin of ``kaldi_cnn_tpu/features/functional.py``: options, framing,
+windows, the mel and DFT tables (numpy, identical to the JAX package's),
+the rfft-based ``compute_fbank`` reference and ``compute_deltas``.  The
+fused kernel path is ``kaldi_cnn_tpu_torch.ops.fbank``.
+
+Dither is ``opts.dither * randn`` drawn from an explicit
+``torch.Generator`` and added to the raw frames before DC removal
+(``dither_noise``).  The noise is drawn on the generator's device and
+moved to the frames' device, so a CPU generator gives the same noise to
+a run on the card and a run on the CPU.
+"""
+
+from __future__ import annotations
+
+import math
+from functools import lru_cache
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from kaldi_cnn_tpu.core.config import configclass
+
+EPSILON = 1.1920928955078125e-07  # FLT_EPSILON, Kaldi's log floor
+
+
+@configclass
+class FrameExtractionOptions:
+    samp_freq: float = 16000.0
+    frame_shift_ms: float = 10.0
+    frame_length_ms: float = 25.0
+    dither: float = 1.0
+    preemph_coeff: float = 0.97
+    remove_dc_offset: bool = True
+    window_type: str = "povey"  # povey|hamming|hanning|rectangular|blackman
+    round_to_power_of_two: bool = True
+    snip_edges: bool = True
+
+    @property
+    def window_size(self) -> int:
+        return int(self.samp_freq * 0.001 * self.frame_length_ms)
+
+    @property
+    def window_shift(self) -> int:
+        return int(self.samp_freq * 0.001 * self.frame_shift_ms)
+
+    @property
+    def padded_window_size(self) -> int:
+        if not self.round_to_power_of_two:
+            return self.window_size
+        n = 1
+        while n < self.window_size:
+            n *= 2
+        return n
+
+
+@configclass
+class MelBanksOptions:
+    num_bins: int = 23
+    low_freq: float = 20.0
+    high_freq: float = 0.0  # <= 0 means nyquist + high_freq
+
+
+@configclass
+class FbankOptions:
+    frame_opts: FrameExtractionOptions = None  # type: ignore
+    mel_opts: MelBanksOptions = None  # type: ignore
+    use_energy: bool = False
+    energy_floor: float = 0.0
+    raw_energy: bool = True
+    use_log_fbank: bool = True
+
+    def __post_init__(self):
+        if self.frame_opts is None:
+            self.frame_opts = FrameExtractionOptions()
+        if self.mel_opts is None:
+            self.mel_opts = MelBanksOptions()
+
+
+# --------------------------------------------------------------------------
+# Windows / framing
+# --------------------------------------------------------------------------
+
+def feature_window(opts: FrameExtractionOptions) -> np.ndarray:
+    """The analysis window (ref: feature-window.cc FeatureWindowFunction)."""
+    n = opts.window_size
+    a = 2.0 * math.pi / (n - 1)
+    i = np.arange(n, dtype=np.float64)
+    if opts.window_type == "hanning":
+        w = 0.5 - 0.5 * np.cos(a * i)
+    elif opts.window_type == "hamming":
+        w = 0.54 - 0.46 * np.cos(a * i)
+    elif opts.window_type == "povey":
+        w = (0.5 - 0.5 * np.cos(a * i)) ** 0.85
+    elif opts.window_type == "rectangular":
+        w = np.ones(n)
+    elif opts.window_type == "blackman":
+        w = 0.42 - 0.5 * np.cos(a * i) + 0.08 * np.cos(2 * a * i)
+    else:
+        raise ValueError(f"unknown window type {opts.window_type!r}")
+    return w.astype(np.float32)
+
+
+def num_frames(num_samples: int, opts: FrameExtractionOptions) -> int:
+    """Frame count (snip_edges semantics of feature-window.h NumFrames)."""
+    if opts.snip_edges:
+        if num_samples < opts.window_size:
+            return 0
+        return 1 + (num_samples - opts.window_size) // opts.window_shift
+    return (num_samples + opts.window_shift // 2) // opts.window_shift
+
+
+def extract_frames(wave: torch.Tensor,
+                   opts: FrameExtractionOptions) -> torch.Tensor:
+    """Slice the waveform into contiguous [T, window_size] raw frames.
+
+    snip_edges=True: frame t covers samples [t*shift, t*shift + ws);
+    snip_edges=False: frames are centred, with mirrored edges."""
+    n = wave.shape[0]
+    T = num_frames(n, opts)
+    ws, sh = opts.window_size, opts.window_shift
+    if T == 0:
+        return wave.new_zeros((0, ws))
+    if opts.snip_edges:
+        return wave.unfold(0, ws, sh)[:T].contiguous()
+    starts = np.arange(T) * sh + sh // 2 - ws // 2
+    idx = starts[:, None] + np.arange(ws)[None, :]
+    idx = np.where(idx < 0, -idx - 1, idx)
+    idx = np.where(idx >= n, 2 * n - 1 - idx, idx)
+    idx = np.clip(idx, 0, n - 1)
+    return wave[torch.as_tensor(idx, device=wave.device)]
+
+
+def dither_noise(shape, generator: torch.Generator,
+                 device: torch.device) -> torch.Tensor:
+    """Standard-normal f32 noise from ``generator``, on ``device``."""
+    return torch.randn(shape, generator=generator, dtype=torch.float32,
+                       device=generator.device).to(device)
+
+
+def add_dither(frames: torch.Tensor, opts: FrameExtractionOptions,
+               generator: Optional[torch.Generator]) -> torch.Tensor:
+    x = frames.to(torch.float32)
+    if opts.dither != 0.0 and generator is not None:
+        x = x + opts.dither * dither_noise(x.shape, generator, x.device)
+    return x
+
+
+def process_window(
+    frames: torch.Tensor,
+    opts: FrameExtractionOptions,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """dither -> DC removal -> raw log-energy -> preemphasis -> window.
+
+    ref: feature-window.cc ProcessWindow/ExtractWindow.  Returns
+    (windowed [T, window_size], raw log energy [T])."""
+    x = add_dither(frames, opts, generator)
+    if opts.remove_dc_offset:
+        x = x - x.mean(dim=-1, keepdim=True)
+    raw_energy = torch.log(torch.clamp_min((x * x).sum(dim=-1), EPSILON))
+    if opts.preemph_coeff != 0.0:
+        prev = torch.cat([x[:, :1], x[:, :-1]], dim=1)
+        x = x - opts.preemph_coeff * prev
+    x = x * torch.as_tensor(feature_window(opts), device=x.device)
+    return x, raw_energy
+
+
+# --------------------------------------------------------------------------
+# Mel filterbank / DFT tables (host numpy)
+# --------------------------------------------------------------------------
+
+def mel_scale(freq):
+    return 1127.0 * np.log(1.0 + np.asarray(freq) / 700.0)
+
+
+@lru_cache(maxsize=None)
+def _mel_banks_cached(num_bins, low_freq, high_freq, samp_freq,
+                      padded_window_size):
+    nyquist = 0.5 * samp_freq
+    high = high_freq if high_freq > 0 else nyquist + high_freq
+    if not (0 <= low_freq < high <= nyquist):
+        raise ValueError(
+            f"bad mel range [{low_freq}, {high}] vs nyquist {nyquist}")
+    num_fft_bins = padded_window_size // 2 + 1
+    fft_bin_width = samp_freq / padded_window_size
+    mel_low, mel_high = mel_scale(low_freq), mel_scale(high)
+    delta = (mel_high - mel_low) / (num_bins + 1)
+    centers = mel_low + delta * np.arange(num_bins + 2)
+    freqs = fft_bin_width * np.arange(num_fft_bins)
+    mels = mel_scale(freqs)[None, :]
+    left = centers[:-2, None]
+    center = centers[1:-1, None]
+    right = centers[2:, None]
+    up = (mels - left) / (center - left)
+    down = (right - mels) / (right - center)
+    weights = np.maximum(0.0, np.minimum(up, down))
+    return weights.astype(np.float32)  # [num_bins, num_fft_bins]
+
+
+def mel_banks(opts: MelBanksOptions,
+              frame_opts: FrameExtractionOptions) -> np.ndarray:
+    """[num_bins, num_fft_bins] triangular filters
+    (ref: mel-computations.cc MelBanks::MelBanks)."""
+    return _mel_banks_cached(
+        opts.num_bins, opts.low_freq, opts.high_freq,
+        frame_opts.samp_freq, frame_opts.padded_window_size)
+
+
+def dft_matrices(padded_window_size: int):
+    """Real DFT as two matmul operands: cos/sin matrices [N, N/2 + 1]."""
+    n = padded_window_size
+    f = n // 2 + 1
+    k = np.arange(n)[:, None]
+    j = np.arange(f)[None, :]
+    ang = 2.0 * np.pi * k * j / n
+    cos = np.cos(ang)
+    sin = -np.sin(ang)
+    return cos.astype(np.float32), sin.astype(np.float32)
+
+
+# --------------------------------------------------------------------------
+# fbank reference (rfft) and deltas
+# --------------------------------------------------------------------------
+
+def compute_fbank(
+    wave: torch.Tensor,
+    opts: Optional[FbankOptions] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """wave [N] -> log-mel filterbank [T, num_bins(+1 if use_energy)]
+    through torch.fft.rfft (ref: feature-fbank.cc Fbank::Compute; energy,
+    if used, goes in column 0)."""
+    opts = opts or FbankOptions()
+    fo = opts.frame_opts
+    windowed, log_energy = process_window(extract_frames(wave, fo), fo,
+                                          generator)
+    pad = fo.padded_window_size - fo.window_size
+    if pad > 0:
+        windowed = torch.nn.functional.pad(windowed, (0, pad))
+    spec = torch.fft.rfft(windowed, dim=-1)
+    power = (spec.real ** 2 + spec.imag ** 2).to(torch.float32)
+    mel = torch.as_tensor(mel_banks(opts.mel_opts, fo), device=wave.device)
+    feats = power @ mel.T
+    if opts.use_log_fbank:
+        feats = torch.log(torch.clamp_min(feats, EPSILON))
+    if opts.use_energy:
+        energy = log_energy if opts.raw_energy else torch.log(
+            torch.clamp_min((windowed ** 2).sum(dim=-1), EPSILON))
+        if opts.energy_floor > 0.0:
+            energy = torch.clamp_min(energy, math.log(opts.energy_floor))
+        feats = torch.cat([energy[:, None], feats], dim=1)
+    return feats
+
+
+def compute_deltas(feats: torch.Tensor, order: int = 2,
+                   window: int = 2) -> torch.Tensor:
+    """Append delta features (ref: feature-functions.cc DeltaFeatures):
+    regression over [-w..w] normalised by 2 * sum(i^2), edges replicate."""
+    outs = [feats]
+    cur = feats
+    denom = sum(i * i for i in range(1, window + 1)) * 2
+    offsets = np.arange(-window, window + 1)
+    scales = torch.as_tensor(offsets / denom, dtype=feats.dtype,
+                             device=feats.device)
+    T = feats.shape[0]
+    idx = np.clip(np.arange(T)[:, None] + offsets[None, :], 0, T - 1)
+    idx = torch.as_tensor(idx, device=feats.device)
+    for _ in range(order):
+        cur = torch.einsum("twd,w->td", cur[idx], scales)
+        outs.append(cur)
+    return torch.cat(outs, dim=1)

@@ -1,0 +1,62 @@
+"""Standard acoustic-model architectures (twin of
+``kaldi_cnn_tpu/models/factory.py``): the fork's CNN AM."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from kaldi_cnn_tpu.core.config import configclass
+from kaldi_cnn_tpu_torch.models.components import (
+    AffineComponent, Conv2DComponent, Maxpooling3DComponent,
+    NormalizeComponent, PnormComponent, SoftmaxComponent)
+from kaldi_cnn_tpu_torch.models.nnet import Nnet
+
+
+@configclass
+class ConvnetConfig:
+    """The fork's headline CNN AM over spliced fbank patches."""
+
+    in_t: int = 11           # splice ±5 frames of fbank
+    in_f: int = 36           # mel bins
+    in_c: int = 3            # static + delta + delta-delta channels
+    filt_t: int = 4
+    filt_f: int = 7
+    num_filters: int = 128
+    pool_t: int = 2
+    pool_f: int = 3
+    pool_c: int = 1
+    num_hidden_layers: int = 2
+    pnorm_input_dim: int = 2000
+    pnorm_output_dim: int = 400
+    num_pdfs: int = 2000
+
+    @property
+    def input_dim(self) -> int:
+        return self.in_t * self.in_f * self.in_c
+
+
+def make_convnet(cfg: Optional[ConvnetConfig] = None, fused: bool = True,
+                 device="cpu") -> Nnet:
+    """Conv2D -> Maxpool3D -> hidden x (Affine -> Pnorm -> Normalize) ->
+    Affine -> Softmax, with zero parameters (``Nnet.init`` draws them).
+    ``fused`` opts the conv+pool pair into Nnet.predict's fused kernel."""
+    cfg = cfg or ConvnetConfig()
+    conv = Conv2DComponent(cfg.in_t, cfg.in_f, cfg.in_c, cfg.filt_t,
+                           cfg.filt_f, cfg.num_filters, fused=fused,
+                           device=device)
+    pool = Maxpooling3DComponent(conv.out_t, conv.out_f, cfg.num_filters,
+                                 cfg.pool_t, cfg.pool_f, cfg.pool_c)
+    comps = [conv, pool]
+    dim = pool.output_dim
+    for _ in range(cfg.num_hidden_layers):
+        comps += [
+            AffineComponent(dim, cfg.pnorm_input_dim, device=device),
+            PnormComponent(cfg.pnorm_input_dim, cfg.pnorm_output_dim),
+            NormalizeComponent(cfg.pnorm_output_dim),
+        ]
+        dim = cfg.pnorm_output_dim
+    comps += [
+        AffineComponent(dim, cfg.num_pdfs, param_stddev=0.0, device=device),
+        SoftmaxComponent(cfg.num_pdfs),
+    ]
+    return Nnet(comps)

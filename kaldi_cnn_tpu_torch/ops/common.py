@@ -1,0 +1,145 @@
+"""Shared kernel utilities: sizes, device dispatch, and the CUDA library.
+
+Twin of ``kaldi_cnn_tpu/ops/common.py``.  Where the JAX package runs its
+Pallas kernels in interpret mode off the TPU, the port dispatches on the
+device of the tensor it is given: a CPU tensor takes the kernel's plain
+PyTorch version, a CUDA tensor launches the hand-written kernel or
+raises.  There is no switch and no fallback from a failed build or
+launch to the plain version.
+
+The kernels are CUDA C++ sources in ``kaldi_cnn_tpu_torch/csrc/`` with a
+plain C interface.  At first use they are compiled by ``nvcc`` for
+``sm_90a`` into ``kaldi_cnn_tpu_torch/_build/libkcnn_cuda.so`` (rebuilt
+when a source is newer) and bound with ``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+from typing import Optional
+
+import torch
+
+_HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_HERE, "csrc")
+BUILD_DIR = os.path.join(_HERE, "_build")
+LIB_PATH = os.path.join(BUILD_DIR, "libkcnn_cuda.so")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+# C signature of every kernel entry point; each returns cudaError_t
+SIGNATURES = {
+    # frames, T, ws, cos, sin, nb, mel, M, window, preemph, remove_dc,
+    # out, energy, stream
+    "kcnn_fbank": [_P, _I, _I, _P, _P, _I, _P, _I, _P, _F, _I, _P, _P, _P],
+    # x, N, w, b, in_t, in_f, in_c, filt_t, filt_f, F, pool_t, pool_f,
+    # relu, bf16, out, stream
+    "kcnn_conv_maxpool": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                          _I, _I, _P, _P],
+}
+
+_LIB: Optional[ctypes.CDLL] = None
+_LOCK = threading.Lock()
+
+
+def round_up(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def sources():
+    return sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                  if f.endswith(".cu"))
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise RuntimeError(
+            "nvcc not found on PATH or under CUDA_HOME; the CUDA kernels "
+            "of kaldi_cnn_tpu_torch cannot be built")
+    return path
+
+
+def build(force: bool = False) -> str:
+    """Compile csrc/*.cu into the shared library if it is missing or
+    older than a source.  Raises with nvcc's output on failure."""
+    srcs = sources()
+    stale = (force or not os.path.exists(LIB_PATH)
+             or any(os.path.getmtime(LIB_PATH) < os.path.getmtime(s)
+                    for s in srcs))
+    if not stale:
+        return LIB_PATH
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + srcs
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
+            f"{proc.stdout}\n{proc.stderr}")
+    os.replace(tmp, LIB_PATH)      # atomic: concurrent builds race safely
+    return LIB_PATH
+
+
+def library() -> ctypes.CDLL:
+    """The kernel library, built and loaded at first use."""
+    global _LIB
+    with _LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(build())
+            for name, argtypes in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            lib.kcnn_error_string.argtypes = [ctypes.c_int]
+            lib.kcnn_error_string.restype = ctypes.c_char_p
+            _LIB = lib
+        return _LIB
+
+
+def on_cuda(*tensors: torch.Tensor) -> bool:
+    """True when every tensor lies on a CUDA device, False when every
+    one lies on the CPU; mixed placements raise."""
+    kinds = {t.device.type for t in tensors}
+    if kinds == {"cpu"}:
+        return False
+    if kinds == {"cuda"}:
+        return True
+    raise ValueError(f"tensors on mixed or unsupported devices: {kinds}")
+
+
+def check_launch(name: str, rc: int) -> None:
+    if rc != 0:
+        msg = library().kcnn_error_string(rc).decode()
+        raise RuntimeError(f"{name}: CUDA launch failed ({rc}: {msg})")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, dtype: torch.dtype,
+            shape: tuple) -> None:
+    """Validate a kernel operand before its pointer crosses to C."""
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, kernel takes {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, kernel takes "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: kernel takes a contiguous tensor")

@@ -1,0 +1,92 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the
+card.  Every test here needs an NVIDIA GPU and skips elsewhere.  The file
+imports no jax (the card's machine has none), so it runs there without
+the suite's conftest:
+
+    python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from kaldi_cnn_tpu_torch.core.rng import np_rng, torch_generator
+from kaldi_cnn_tpu_torch.features import functional as F
+from kaldi_cnn_tpu_torch.models.components import Conv2DComponent
+from kaldi_cnn_tpu_torch.ops import conv as tc
+from kaldi_cnn_tpu_torch.ops import fbank as fb
+
+pytestmark = pytest.mark.cuda
+
+FBANK_ATOL = 1e-3   # log-mel / log energy: two f32 sums in other orders
+CONV_TOL = 2e-4     # rtol = atol, kernel vs plain with the same operands
+CONV_SHAPES = [(8, 12, 2, 3, 5, 16, 3, 4), (6, 10, 1, 2, 3, 8, 1, 2),
+               (11, 36, 3, 4, 7, 64, 2, 3), (11, 36, 3, 4, 7, 40, 1, 1)]
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA GPU: the kernels run only on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("sr,bins,frames", [
+    (8000, 36, 238), (16000, 23, 1001), (16000, 40, 3),
+    (16000, 23, 12000)])         # enough frames for 32 frames per block
+def test_fbank_kernel_matches_plain(cuda, sr, bins, frames):
+    opts = F.FbankOptions()
+    opts.frame_opts.samp_freq = float(sr)
+    opts.mel_opts.num_bins = bins
+    opts.use_energy = True
+    fo = opts.frame_opts
+    n = (frames - 1) * fo.window_shift + fo.window_size
+    wave = torch.as_tensor((np_rng(1, "w").normal(size=n) * 1000)
+                           .astype(np.float32), device=cuda)
+    before = fb.fbank_frames.launches
+    got = fb.fbank(wave, opts, torch_generator(1, "k"))
+    want = fb.fbank_reference(wave, opts, torch_generator(1, "k"))
+    torch.cuda.synchronize()
+    assert fb.fbank_frames.launches == before + 1
+    assert got.device.type == "cuda" and got.shape == (frames, bins + 1)
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=0, atol=FBANK_ATOL)
+
+
+@pytest.mark.parametrize("shape", CONV_SHAPES)
+@pytest.mark.parametrize("bf16", [False, True])
+def test_conv_maxpool_kernel_matches_plain(cuda, shape, bf16):
+    in_t, in_f, in_c, ft, ff, nf, pt, pf = shape
+    conv = Conv2DComponent(in_t, in_f, in_c, ft, ff, nf, device=cuda)
+    conv.init(torch_generator(2, "c"))
+    x = torch.as_tensor(np_rng(2, "x").normal(size=(67, conv.input_dim))
+                        .astype(np.float32), device=cuda)
+    w, b = conv.w.detach(), conv.b.detach()
+    before = tc.conv2d_maxpool.launches
+    got = tc.conv2d_maxpool(x, w, b, conv, pt, pf, relu=True, bf16=bf16)
+    want = tc.conv2d_maxpool_reference(x, w, b, conv, pt, pf, relu=True,
+                                       bf16=bf16)
+    torch.cuda.synchronize()
+    assert tc.conv2d_maxpool.launches == before + 1
+    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                               rtol=CONV_TOL, atol=CONV_TOL)
+
+
+def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
+    conv = Conv2DComponent(6, 10, 1, 2, 3, 12, device=cuda)
+    x = torch.zeros(4, 60, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 8"):
+        tc.conv2d_maxpool(x, conv.w, conv.b, conv, 1, 2)
+    conv = Conv2DComponent(6, 10, 1, 2, 3, 8, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        tc.conv2d_maxpool(x.double(), conv.w.double(), conv.b.double(),
+                          conv, 1, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        tc.conv2d_maxpool(torch.zeros(60, 4, device=cuda).T, conv.w,
+                          conv.b, conv, 1, 2)
+    opts = F.FbankOptions()
+    frames = torch.zeros(5, 399, device=cuda)
+    with pytest.raises(ValueError, match="shape"):
+        fb.fbank_frames(frames, opts)
