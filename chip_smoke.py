@@ -7,14 +7,18 @@ and the CUDA build of PyTorch:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from ``kaldi_cnn_tpu_torch/csrc/`` and
-then runs three phases; any failure raises and the exit code is not 0.
+then runs these phases; any failure raises and the exit code is not 0.
 
 1. Kernel phase: each kernel against its plain PyTorch version on the
    same card and the same inputs, at the bench shapes (fbank on 12000
    frames of 16 kHz audio; conv+maxpool at ConvnetConfig() defaults,
-   F = 128, 4096 rows) and at the WSJ slice's shapes (fbank on one
-   8 kHz utterance, 36 bins; conv+maxpool at F = 64, 4096 rows), with
-   the max error and both times from CUDA events.
+   F = 128, 4096 rows; maxpool forward, with and without the argmax, and
+   backward on that conv output) and at the WSJ slice's shapes (fbank on
+   one 8 kHz utterance, 36 bins; conv+maxpool at F = 64, 4096 rows;
+   maxpool at F = 64 and 256 rows, the recipe's minibatch, and with
+   pool_c = 2), with the error and both times from CUDA events.  The
+   maxpool kernels must be bit-equal to their plain versions, in f32
+   and bf16.
 2. Slice phase: the WSJ-style recipe's serving path at the recipe's
    model width (F = 64, 2 x (Affine 1000 -> Pnorm 200 -> Normalize),
    num_pdfs from the graph), seeded random weights, on 16 synthetic
@@ -24,6 +28,19 @@ then runs three phases; any failure raises and the exit code is not 0.
 3. Replay: the same slice, same weights and dither noise, through the
    plain versions on the CPU; loglikes must agree within LOGLIKE_ATOL and
    the decoded words must be equal.
+4. Training slice: fbank volumes of the same 16 utterances on the card,
+   equal alignments on the monophone graph, ``recipes.wsj.train`` at the
+   recipe width for TRAIN_EPOCHS epochs (minibatch 256), then
+   ``recipes.wsj.decode`` of the trained model.  The fbank and both
+   maxpool kernels must run in the training, the conv+maxpool kernel in
+   the decode, and the trained model's valid logprob must beat the
+   initial model's.
+5. Training replay: the same training on the CPU from the same initial
+   parameters and egs; per-step objf, the pre-combine parameters and the
+   final valid logprob must agree within the bounds below.
+6. Train-step time: ``Nnet.train_step`` at the bench shape
+   (ConvnetConfig(), minibatch 4096), warm, with the maxpool kernels'
+   share of it.
 
 Output: the GPU's name and power limit (nvidia-smi), the build time, one
 line per check, a JSON line {"kernels": [...]} and, last, the JSON line
@@ -33,30 +50,39 @@ line and hold only for its power limit.
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from kaldi_cnn_tpu.lang.arpa import make_unigram_arpa
-from kaldi_cnn_tpu.lang.hclg import Lang, make_hclg_from_arpa
+from kaldi_cnn_tpu.lang.hclg import (Lang, compile_training_graph,
+                                     make_hclg_from_arpa)
+from kaldi_cnn_tpu_torch.convert import params_to_numpy
 from kaldi_cnn_tpu_torch.core.rng import np_rng, torch_generator
 from kaldi_cnn_tpu_torch.decode.graph import CompiledGraph
 from kaldi_cnn_tpu_torch.decode.topk_decoder import TopKDecoder
 from kaldi_cnn_tpu_torch.features import functional as F
+from kaldi_cnn_tpu_torch.gmm.train import align_equal
 from kaldi_cnn_tpu_torch.models.components import (
     AffineComponent, Conv2DComponent)
 from kaldi_cnn_tpu_torch.models.factory import ConvnetConfig, make_convnet
-from kaldi_cnn_tpu_torch.models.nnet import AmNnet
+from kaldi_cnn_tpu_torch.models.nnet import AmNnet, Nnet
 from kaldi_cnn_tpu_torch.ops import common
+from kaldi_cnn_tpu_torch.ops import maxpool as mp
 from kaldi_cnn_tpu_torch.ops.conv import (conv2d_maxpool,
                                           conv2d_maxpool_reference)
 from kaldi_cnn_tpu_torch.ops.fbank import fbank_frames, fbank_reference_frames
 from kaldi_cnn_tpu_torch.recipes import synthetic, wsj
+from kaldi_cnn_tpu_torch.train.checkpoint import load_checkpoint
 
 SEED = 37
 FBANK_ATOL = 1e-3         # log-mel and log energy, kernel vs plain (f32)
@@ -68,6 +94,14 @@ CONV_BF16_REL = 0.02      # bf16 kernel vs f32 plain: max err / max|ref|
 # across a bf16 rounding boundary now and then (one bf16 step is 2^-8
 # relative)
 LOGLIKE_ATOL = 5e-2
+# maxpool kernels vs plain: bit-equal (both select input values)
+# training on the card vs its CPU replay (sums in other orders, cuDNN vs
+# CPU convolutions, cuSOLVER vs LAPACK eigh)
+TRAIN_EPOCHS = 3          # cut from the recipe's 25
+OBJF_STEP_ATOL = 1e-3     # per-step training objf
+PARAM_REL = 1e-3          # pre-combine params, per tensor ||a-b|| / ||b||
+VALID_ATOL = 1e-2         # final valid logprob
+BENCH_TRAIN_ROWS = 4096
 
 
 def log(msg: str) -> None:
@@ -165,6 +199,125 @@ def conv_case(name, cfg, rows, dev):
     return out
 
 
+def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and values, NaN matching NaN."""
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        ((a == b) | (a.isnan() & b.isnan())).all())
+
+
+def maxpool_case(name, shape, rows, dtype, dev):
+    """Kernel 3 forward (with and without the argmax) and backward
+    against the plain versions; returns the times and bandwidths."""
+    pool = mp.Pool3D(*shape)
+    rng = np_rng(SEED, f"maxpool {name}")
+    in_dim = shape[0] * shape[1] * shape[2]
+    x = torch.as_tensor(rng.normal(size=(rows, in_dim)).astype(np.float32),
+                        device=dev).to(dtype)
+    y = mp.maxpool3d(x, pool)
+    y2, arg = mp.maxpool3d(x, pool, with_argmax=True)
+    want, want_arg = mp.maxpool3d_reference(x, pool, with_argmax=True)
+    d = torch.as_tensor(rng.normal(size=tuple(y.shape)).astype(np.float32),
+                        device=dev).to(dtype)
+    dx = mp.maxpool3d_backward(d, arg, pool)
+    want_dx = mp.maxpool3d_backward_reference(d, want_arg, pool)
+    torch.cuda.synchronize()
+    ok = (bit_equal(y, want) and bit_equal(y2, want)
+          and torch.equal(arg, want_arg) and bit_equal(dx, want_dx))
+    mode = "bf16" if dtype == torch.bfloat16 else "f32"
+    r = {"name": f"{name} {mode}", "max_abs_err": 0.0 if ok else float(
+        (y.float() - want.float()).abs().max()),
+         "fwd_ms": time_ms(lambda: mp.maxpool3d(x, pool)),
+         "fwd_plain_ms": time_ms(lambda: mp.maxpool3d_reference(x, pool)),
+         "arg_ms": time_ms(lambda: mp.maxpool3d(x, pool, True)),
+         "arg_plain_ms": time_ms(
+             lambda: mp.maxpool3d_reference(x, pool, True)),
+         "bwd_ms": time_ms(lambda: mp.maxpool3d_backward(d, arg, pool)),
+         "bwd_plain_ms": time_ms(
+             lambda: mp.maxpool3d_backward_reference(d, arg, pool))}
+    xb, yb, ab = x.nbytes, y.nbytes, arg.nbytes
+    gbs = lambda nbytes, ms: nbytes / ms / 1e6
+    log(f"kernel maxpool {r['name']}: {rows} rows x {in_dim} -> "
+        f"{y.shape[1]} (pool {shape[3]}x{shape[4]}x{shape[5]}), {arg.dtype} "
+        f"argmax: bit-equal to plain: {ok}; forward {r['fwd_ms']:.4f} ms "
+        f"({gbs(xb + yb, r['fwd_ms']):.0f} GB/s) vs plain "
+        f"{r['fwd_plain_ms']:.4f}; with argmax {r['arg_ms']:.4f} ms "
+        f"({gbs(xb + yb + ab, r['arg_ms']):.0f} GB/s) vs plain "
+        f"{r['arg_plain_ms']:.4f}; backward {r['bwd_ms']:.4f} ms "
+        f"({gbs(yb + ab + xb, r['bwd_ms']):.0f} GB/s) vs plain "
+        f"{r['bwd_plain_ms']:.4f}")
+    if not ok:
+        raise AssertionError(f"maxpool kernels disagree with plain: {r}")
+    return r
+
+
+@contextlib.contextmanager
+def recorded_train_steps():
+    """Collect the objf (a device scalar) of every Nnet.train_step."""
+    objfs = []
+    step = Nnet.train_step
+
+    def recording(self, *args, **kwargs):
+        opt, objf = step(self, *args, **kwargs)
+        objfs.append(objf)
+        return opt, objf
+
+    Nnet.train_step = recording
+    try:
+        yield objfs
+    finally:
+        Nnet.train_step = step
+
+
+def train_slice(vols, ali, t2p, num_pdfs, device, ckpt_dir):
+    """wsj.train on ``device``: (AmNnet, seconds, per-step objfs,
+    pre-combine params)."""
+    if device != "cpu":
+        torch.cuda.synchronize()
+    t = time.perf_counter()
+    with recorded_train_steps() as objfs:
+        am = wsj.train(vols, ali, t2p, num_pdfs, num_epochs=TRAIN_EPOCHS,
+                       seed=SEED, device=device, checkpoint_dir=ckpt_dir)
+    if device != "cpu":
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    last, _, _ = load_checkpoint(
+        os.path.join(ckpt_dir, f"epoch{TRAIN_EPOCHS - 1}.npz"),
+        params_to_numpy(am.nnet))
+    return am, secs, torch.stack(objfs).cpu().numpy(), last
+
+
+def valid_logprob(net: Nnet, valid) -> float:
+    dev = net.device
+    return float(net.objf(torch.as_tensor(valid.x, device=dev),
+                          torch.as_tensor(valid.y, device=dev)))
+
+
+def train_step_ms(dev):
+    """Warm Nnet.train_step at the bench shape: (ms a step while the NG
+    states update every step, ms a step in the steady state that
+    updates them every 16th step)."""
+    cfg = ConvnetConfig()
+    net = make_convnet(cfg, fused=True, device=dev)
+    net.init(torch_generator(SEED, "bench_train"))
+    rng = np_rng(SEED, "bench_train")
+    x = torch.as_tensor(rng.normal(size=(BENCH_TRAIN_ROWS, cfg.input_dim))
+                        .astype(np.float32), device=dev)
+    y = torch.as_tensor(rng.integers(0, cfg.num_pdfs, BENCH_TRAIN_ROWS),
+                        device=dev)
+    opt = net.init_opt()
+
+    def steps(k):
+        nonlocal opt
+        for _ in range(k):
+            opt, _ = net.train_step(opt, x, y, 0.001)
+
+    steps(2)
+    warm = time_ms(lambda: steps(1), iters=8)
+    steps(64 - opt[0]["ng_in"].t)     # past the NG warm-up
+    steady = time_ms(lambda: steps(16), iters=2) / 16
+    return warm, steady
+
+
 def wsj_model(num_pdfs: int, device) -> AmNnet:
     """The WSJ recipe's CNN (wsj.py run) with seeded random weights.  The
     output affine is drawn at 1/sqrt(fan_in) instead of the recipe's
@@ -224,6 +377,14 @@ def main() -> int:
     fb = fbank_case("wsj-8k", slice_opts, corpus.waves[utt0], dev)
     conv_case("bench-F128", ConvnetConfig(), 4096, dev)
     cv = conv_case("wsj-F64", ConvnetConfig(num_filters=64), 4096, dev)
+    pools = {}
+    for pname, shape, rows in (("bench-F128", (8, 30, 128, 2, 3, 1), 4096),
+                               ("wsj-F64", (8, 30, 64, 2, 3, 1), 256),
+                               ("pool_c=2", (8, 30, 64, 2, 3, 2), 256)):
+        for dtype in (torch.float32, torch.bfloat16):
+            r = maxpool_case(pname, shape, rows, dtype, dev)
+            pools[r["name"]] = r
+    mp_bench = pools["bench-F128 f32"]
 
     # ---- 2. slice phase -----------------------------------------------
     am = wsj_model(num_pdfs, dev)
@@ -292,6 +453,87 @@ def main() -> int:
     if ll_err > LOGLIKE_ATOL or not same_words or not cost_ok:
         raise AssertionError("the card's slice disagrees with the CPU replay")
 
+    # ---- 4. training slice ----------------------------------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        fbank_frames.launches = 0
+        mp.maxpool3d.launches = mp.maxpool3d_backward.launches = 0
+        conv2d_maxpool.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tvols = wsj.compute_fbank_volumes(corpus, seed=SEED, device=dev)
+        t2p = lang.trans_model.trans_id_to_pdf_array()
+        ali = {u: align_equal(CompiledGraph(compile_training_graph(
+            lang, corpus.transcripts[u]), t2p), v.shape[0])
+            for u, v in tvols.items()}
+        prep_s = time.perf_counter() - t
+        am_t, train_s, objfs, last = train_slice(
+            tvols, ali, t2p, num_pdfs, dev, os.path.join(tmp, "card"))
+        train_launches = {"fbank": fbank_frames.launches,
+                          "maxpool_fwd": mp.maxpool3d.launches,
+                          "maxpool_bwd": mp.maxpool3d_backward.launches}
+        egs_train, egs_valid = wsj.split_valid(
+            wsj.make_cnn_egs(tvols, ali, t2p, wsj.CONTEXT, wsj.CONTEXT, SEED))
+        frames = TRAIN_EPOCHS * len(egs_train)
+        net0 = make_convnet(wsj.model_config(36, num_pdfs), device=dev)
+        net0.init(torch_generator(SEED, "init"))
+        lp0, lp = valid_logprob(net0, egs_valid), valid_logprob(
+            am_t.nnet, egs_valid)
+        log(f"train: {len(tvols)} utterances, {len(egs_train)} train / "
+            f"{len(egs_valid)} valid egs, {TRAIN_EPOCHS} epochs, "
+            f"{len(objfs)} steps of 256; fbank volumes + equal alignments "
+            f"{prep_s:.3f} s; wsj.train {train_s:.3f} s "
+            f"({frames / 100.0 / train_s:.1f} audio-s/s); launches "
+            f"{train_launches}; objf step 0 {objfs[0]:.4f} -> last "
+            f"{objfs[-1]:.4f}; valid logprob {lp0:.4f} (initial) -> "
+            f"{lp:.4f}")
+        if min(train_launches.values()) <= 0:
+            raise AssertionError(f"a kernel did not run in the training: "
+                                 f"{train_launches}")
+        if not lp > lp0:
+            raise AssertionError("training did not raise the valid logprob")
+        conv2d_maxpool.launches = 0
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        res_t = wsj.decode(am_t, corpus, hclg, lang.word_table, seed=SEED)
+        torch.cuda.synchronize()
+        dec_launches = conv2d_maxpool.launches
+        log(f"train decode: wsj.decode {time.perf_counter() - t:.3f} s, "
+            f"conv_maxpool launches {dec_launches}, WER of the trained "
+            f"model on its own training utterances {res_t['wer']:.2f}% "
+            f"({res_t['errors']} errors / {res_t['words']} words; not "
+            f"asserted)")
+        if dec_launches <= 0:
+            raise AssertionError("conv_maxpool did not run in the decode")
+
+        # ---- 5. training replay on the CPU --------------------------------
+        am_c, cpu_s, objfs_c, last_c = train_slice(
+            tvols, ali, t2p, num_pdfs, "cpu", os.path.join(tmp, "cpu"))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    step_err = float(np.abs(objfs - objfs_c).max())
+    rel = max(float(np.linalg.norm(a[k] - b[k]) / max(
+        np.linalg.norm(b[k]), 1e-30)) for a, b in zip(last, last_c)
+        for k in a)
+    lp_c = valid_logprob(am_c.nnet, egs_valid)
+    log(f"train replay on cpu ({cpu_s:.1f} s): per-step objf max |diff| "
+        f"{step_err:.3g} (limit {OBJF_STEP_ATOL}), pre-combine params max "
+        f"relative Frobenius diff {rel:.3g} (limit {PARAM_REL}), final "
+        f"valid logprob {lp:.5f} vs {lp_c:.5f} (limit {VALID_ATOL})")
+    if (len(objfs) != len(objfs_c) or step_err > OBJF_STEP_ATOL
+            or rel > PARAM_REL or abs(lp - lp_c) > VALID_ATOL):
+        raise AssertionError("the card's training disagrees with the CPU "
+                             "replay")
+
+    # ---- 6. train-step time at the bench shape ---------------------------
+    warm_ms, steady_ms = train_step_ms(dev)
+    mp_ms = mp_bench["arg_ms"] + mp_bench["bwd_ms"]
+    log(f"train step bench (ConvnetConfig(), mb {BENCH_TRAIN_ROWS}, f32 "
+        f"storage): {warm_ms:.3f} ms a step while NG updates every step, "
+        f"{steady_ms:.3f} ms a step in the steady state; maxpool forward "
+        f"with argmax + backward {mp_ms:.4f} ms = "
+        f"{100 * mp_ms / steady_ms:.1f}% of the steady step")
+
     kernels = [
         {"name": "fbank", "route": "cuda",
          "source": "kaldi_cnn_tpu_torch/csrc/fbank.cu",
@@ -304,6 +546,18 @@ def main() -> int:
          "launches": launches["conv_maxpool"],
          "max_abs_err": cv["bf16"]["max_abs_err"], "ms": cv["bf16"]["ms"],
          "plain_ms": cv["bf16"]["plain_ms"]},
+        {"name": "maxpool_fwd", "route": "cuda",
+         "source": "kaldi_cnn_tpu_torch/csrc/maxpool.cu",
+         "replaces": "kaldi_cnn_tpu/ops/maxpool_pallas.py:43",
+         "launches": train_launches["maxpool_fwd"],
+         "max_abs_err": max(r["max_abs_err"] for r in pools.values()),
+         "ms": mp_bench["arg_ms"], "plain_ms": mp_bench["arg_plain_ms"]},
+        {"name": "maxpool_bwd", "route": "cuda",
+         "source": "kaldi_cnn_tpu_torch/csrc/maxpool.cu",
+         "replaces": "kaldi_cnn_tpu/ops/maxpool_pallas.py:43",
+         "launches": train_launches["maxpool_bwd"],
+         "max_abs_err": max(r["max_abs_err"] for r in pools.values()),
+         "ms": mp_bench["bwd_ms"], "plain_ms": mp_bench["bwd_plain_ms"]},
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@ ported path is a hand-written CUDA C++ kernel for Hopper (``csrc/``),
 built with nvcc at first use and bound with ctypes; each has a plain
 PyTorch version that CPU tensors take (``ops/``).
 
-Ported so far: the serving path of the WSJ-style CNN recipe (fbank ->
-CNN acoustic model -> top-K best-path decode -> WER); see
-``recipes/wsj.py``.
+Ported so far: the WSJ-style CNN recipe from the fbank volumes on, its
+training stage (egs -> NG-SGD training with manual backprop -> model
+combination -> priors) and its serving path (fbank -> CNN acoustic
+model -> top-K best-path decode -> WER); see ``recipes/wsj.py``.
 """

@@ -1,0 +1,278 @@
+// 3-D max pooling over (time, freq, channel) windows of flat (t, f, c) rows:
+// the forward pass, optionally with the window argmax, and the backward pass
+// that routes the derivative along that argmax.
+//
+// Replaces the TPU kernel kaldi_cnn_tpu/ops/maxpool_pallas.py::_maxpool_kernel
+// (entry point maxpool3d_pallas), and with it the training path of
+// Maxpooling3DComponent (components.py forward(train=True) and backprop with
+// the argmax aux).  Input rows are flattened [in_t, in_f, in_c] volumes, index
+// (t * in_f + f) * in_c + c; output rows are [out_t, out_f, out_c] in
+// (ot, of, oc) order with out_x = in_x / pool_x.  The window argmax is
+// (pt * pool_f + pf) * pool_c + pc, the first index wins ties, and a window
+// holding a NaN gives NaN and the argmax pool_t * pool_f * pool_c (no index),
+// as jnp.max and the JAX where/min argmax do.  Values are f32 or bf16 and keep
+// their type; the argmax is int8 (windows under 128 elements) or int32.
+//
+// What bounds it on an H100: nothing but device memory.  At the bench shape
+// (ConvnetConfig(), F = 128, 4096 rows, pool 2x3x1) the forward reads the
+// 503 MB conv activation once and writes 84 MB of maxima plus 21 MB of int8
+// argmax; the backward reads those 105 MB and writes the 503 MB input
+// derivative.  About 608 MB each way, 0.18 ms at 3.35 TB/s.  The Pallas
+// kernel needed XLA to gather the windows into G pool-offset slabs first (a
+// Mosaic restriction), a second full copy of the input; here a thread reads
+// its window straight from the input row.
+//
+// Layout: both kernels give a thread one output element of a row and walk
+// rows along the grid's y dimension, so the element's (ot, of, oc) and its
+// window's offset are computed once (integer division, not memory, bounded
+// a first version that split a flat index per element), and the forward
+// issues a window's loads together (one load in flight a thread, compared
+// before the next was issued, held a second version to 1.4 TB/s).  Neighbouring
+// threads take neighbouring output channels, so for each window offset a
+// warp reads (forward) or writes (backward) one contiguous run of the row
+// (coalesced when pool_c = 1, the CNN recipe's case) and the maxima and
+// argmax are contiguous.  The backward writes the thread's whole window,
+// the derivative at the argmax and 0 elsewhere; the windows tile the input,
+// so every input element is written exactly once, with no atomics and no
+// memset pass.
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+#include <type_traits>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int64_t kTargetBlocks = 132 * 16;
+constexpr int kChunk = 8;                   // window loads in flight
+constexpr int kMaxWindow = 12288;           // offset table <= 48 KB
+
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+template <typename T>
+__device__ __forceinline__ T zero();
+template <>
+__device__ __forceinline__ float zero<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() {
+  return __float2bfloat16_rn(0.f);
+}
+
+template <typename T>
+__device__ __forceinline__ T neg_inf();
+template <>
+__device__ __forceinline__ float neg_inf<float>() { return -INFINITY; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 neg_inf<__nv_bfloat16>() {
+  return __float2bfloat16_rn(-INFINITY);
+}
+
+struct Shape {
+  int in_f, in_c, pool_t, pool_f, pool_c, out_f, out_c, in_dim, out_dim;
+};
+
+// offs[w] = offset of window element w = (pt * pool_f + pf) * pool_c + pc
+// from the window's first element; every thread of the block waits for it.
+__device__ __forceinline__ int tabulate_window(const Shape& s, int* offs) {
+  const int window = s.pool_t * s.pool_f * s.pool_c;
+  for (int w = threadIdx.x; w < window; w += blockDim.x) {
+    const int pc = w % s.pool_c, pf = (w / s.pool_c) % s.pool_f;
+    const int pt = w / (s.pool_c * s.pool_f);
+    offs[w] = (pt * s.in_f + pf) * s.in_c + pc;
+  }
+  __syncthreads();
+  return window;
+}
+
+// Row offset of the first window element of output element r.
+__device__ __forceinline__ int window_base(const Shape& s, int r) {
+  const int oc = r % s.out_c;
+  const int of = (r / s.out_c) % s.out_f;
+  const int ot = r / (s.out_c * s.out_f);
+  return (ot * s.pool_t * s.in_f + of * s.pool_f) * s.in_c + oc * s.pool_c;
+}
+
+// The grid is 2-D: x walks the output elements of a row, y walks rows
+// (grid-stride), so a thread splits its element index into (ot, of, oc)
+// once and reuses it for every row it visits.  The block first tabulates
+// each window offset's distance from the window's first element in shared
+// memory; the forward then loads the window kChunk values at a time,
+// independent loads in flight together, before it compares them.
+// A: int8_t or int32_t argmax, or void (no argmax output).
+template <typename T, typename A>
+__global__ void maxpool_fwd_kernel(const T* __restrict__ x, int N, Shape s,
+                                   T* __restrict__ out,
+                                   A* __restrict__ arg) {
+  extern __shared__ int offs[];              // [window]
+  const int window = tabulate_window(s, offs);
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= s.out_dim) return;
+  const int base = window_base(s, r);
+  for (int n = blockIdx.y; n < N; n += gridDim.y) {
+    const T* xr = x + (int64_t)n * s.in_dim + base;
+    T best = neg_inf<T>();
+    float m = -INFINITY;
+    bool nan = false;
+    int idx = 0;
+    for (int w0 = 0; w0 < window; w0 += kChunk) {
+      T v[kChunk];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j)
+        if (w0 + j < window) v[j] = xr[offs[w0 + j]];
+#pragma unroll
+      for (int j = 0; j < kChunk; ++j) {
+        if (w0 + j >= window || nan) continue;
+        const float fv = to_float(v[j]);
+        if (fv != fv) {
+          nan = true;
+          best = v[j];
+        } else if (fv > m) {         // strict: the first maximum wins ties
+          m = fv;
+          best = v[j];
+          idx = w0 + j;
+        }
+      }
+    }
+    const int64_t o = (int64_t)n * s.out_dim + r;
+    out[o] = best;
+    if constexpr (!std::is_void<A>::value) arg[o] = (A)(nan ? window : idx);
+  }
+}
+
+// One thread an output element, as in the forward: it writes its whole
+// window of the input derivative, the derivative at the argmax and 0
+// elsewhere.  The windows tile the input, so every element is written
+// once; for each window offset a warp writes one contiguous run.
+template <typename T, typename A>
+__global__ void maxpool_bwd_kernel(const T* __restrict__ d,
+                                   const A* __restrict__ arg, int N, Shape s,
+                                   T* __restrict__ dx) {
+  extern __shared__ int offs[];              // [window]
+  const int window = tabulate_window(s, offs);
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= s.out_dim) return;
+  const int base = window_base(s, r);
+  for (int n = blockIdx.y; n < N; n += gridDim.y) {
+    const int64_t o = (int64_t)n * s.out_dim + r;
+    const int idx = (int)arg[o];
+    const T v = d[o];
+    T* dr = dx + (int64_t)n * s.in_dim + base;
+    for (int w = 0; w < window; ++w) dr[offs[w]] = (w == idx) ? v : zero<T>();
+  }
+}
+
+// x over a row's output elements, y over rows: enough blocks to fill
+// the card, each walking several rows.
+dim3 grid_for(int N, const Shape& s) {
+  const int gx = (s.out_dim + kThreads - 1) / kThreads;
+  int64_t gy = (kTargetBlocks + gx - 1) / gx;
+  if (gy > N) gy = N;
+  if (gy > 65535) gy = 65535;
+  return dim3(gx, (unsigned)gy);
+}
+
+// Fills s; false when a pool size does not divide its dimension or the
+// window has more than kMaxWindow elements.
+bool make_shape(int in_t, int in_f, int in_c, int pool_t, int pool_f,
+                int pool_c, Shape* s) {
+  if (in_t <= 0 || in_f <= 0 || in_c <= 0 || pool_t <= 0 || pool_f <= 0 ||
+      pool_c <= 0 || in_t % pool_t || in_f % pool_f || in_c % pool_c ||
+      (int64_t)pool_t * pool_f * pool_c > kMaxWindow)
+    return false;
+  s->in_f = in_f;
+  s->in_c = in_c;
+  s->pool_t = pool_t;
+  s->pool_f = pool_f;
+  s->pool_c = pool_c;
+  s->out_f = in_f / pool_f;
+  s->out_c = in_c / pool_c;
+  s->in_dim = in_t * in_f * in_c;
+  s->out_dim = (in_t / pool_t) * s->out_f * s->out_c;
+  return true;
+}
+
+template <typename T>
+int launch_fwd(const void* x, int N, const Shape& s, void* out, void* arg,
+               int arg_bytes, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  const dim3 grid = grid_for(N, s);
+  const size_t smem = sizeof(int) * s.pool_t * s.pool_f * s.pool_c;
+  if (arg_bytes == 0)
+    maxpool_fwd_kernel<T, void><<<grid, kThreads, smem, stream>>>(
+        xt, N, s, ot, nullptr);
+  else if (arg_bytes == 1)
+    maxpool_fwd_kernel<T, int8_t><<<grid, kThreads, smem, stream>>>(
+        xt, N, s, ot, static_cast<int8_t*>(arg));
+  else
+    maxpool_fwd_kernel<T, int32_t><<<grid, kThreads, smem, stream>>>(
+        xt, N, s, ot, static_cast<int32_t*>(arg));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_bwd(const void* d, const void* arg, int arg_bytes, int N,
+               const Shape& s, void* dx, cudaStream_t stream) {
+  const T* dt = static_cast<const T*>(d);
+  T* dxt = static_cast<T*>(dx);
+  const dim3 grid = grid_for(N, s);
+  const size_t smem = sizeof(int) * s.pool_t * s.pool_f * s.pool_c;
+  if (arg_bytes == 1)
+    maxpool_bwd_kernel<T, int8_t><<<grid, kThreads, smem, stream>>>(
+        dt, static_cast<const int8_t*>(arg), N, s, dxt);
+  else
+    maxpool_bwd_kernel<T, int32_t><<<grid, kThreads, smem, stream>>>(
+        dt, static_cast<const int32_t*>(arg), N, s, dxt);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// x [N, in_t*in_f*in_c] (f32, or bf16 when bf16 = 1); out [N, out_dim] of the
+// same type; argmax [N, out_dim] of arg_bytes bytes an element (1: int8,
+// 4: int32) or null with arg_bytes = 0.  Returns the launch's cudaError_t
+// (cudaErrorInvalidValue when a pool size does not divide its dimension, the
+// window exceeds kMaxWindow elements, the argmax width is not 0, 1 or 4, or
+// an int8 argmax cannot hold the window).
+extern "C" int kcnn_maxpool_fwd(const void* x, int N, int in_t, int in_f,
+                                int in_c, int pool_t, int pool_f, int pool_c,
+                                int bf16, void* out, void* argmax,
+                                int arg_bytes, void* stream) {
+  Shape s;
+  if (!make_shape(in_t, in_f, in_c, pool_t, pool_f, pool_c, &s))
+    return (int)cudaErrorInvalidValue;
+  if (arg_bytes != 0 && arg_bytes != 1 && arg_bytes != 4)
+    return (int)cudaErrorInvalidValue;
+  if (arg_bytes == 1 && pool_t * pool_f * pool_c >= 128)
+    return (int)cudaErrorInvalidValue;
+  if ((arg_bytes == 0) != (argmax == nullptr))
+    return (int)cudaErrorInvalidValue;
+  if (N <= 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  return bf16 ? launch_fwd<__nv_bfloat16>(x, N, s, out, argmax, arg_bytes, st)
+              : launch_fwd<float>(x, N, s, out, argmax, arg_bytes, st);
+}
+
+// out_deriv [N, out_dim] (f32, or bf16 when bf16 = 1); argmax [N, out_dim] as
+// the forward wrote it (arg_bytes 1 or 4); in_deriv [N, in_dim] of the
+// derivative's type.
+extern "C" int kcnn_maxpool_bwd(const void* out_deriv, const void* argmax,
+                                int arg_bytes, int N, int in_t, int in_f,
+                                int in_c, int pool_t, int pool_f, int pool_c,
+                                int bf16, void* in_deriv, void* stream) {
+  Shape s;
+  if (!make_shape(in_t, in_f, in_c, pool_t, pool_f, pool_c, &s))
+    return (int)cudaErrorInvalidValue;
+  if (arg_bytes != 1 && arg_bytes != 4) return (int)cudaErrorInvalidValue;
+  if (N <= 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  return bf16 ? launch_bwd<__nv_bfloat16>(out_deriv, argmax, arg_bytes, N, s,
+                                          in_deriv, st)
+              : launch_bwd<float>(out_deriv, argmax, arg_bytes, N, s,
+                                  in_deriv, st);
+}

@@ -1,10 +1,18 @@
-"""nnet2-style components as ``nn.Module``s: the inference subset.
+"""nnet2-style components as ``nn.Module``s.
 
-Twin of ``kaldi_cnn_tpu/models/components.py`` (forward passes only; the
-backprop and NG-SGD updates come with the training path).  Field names
-and dims are the JAX package's; parameters are ``w [out, in]`` and
-``b [out]``.  Minibatches are [N, dim] float32 rows; Conv2D and
-Maxpool3D read a row as a flattened (time, freq, channel) volume.
+Twin of ``kaldi_cnn_tpu/models/components.py`` for the CNN recipe's
+components: the forward pass (``forward``, and ``train_forward`` that
+also returns what the backward needs), ``backprop(in_value, out_value,
+out_deriv, aux) -> in_deriv``, and for the trainable Affine and Conv2D
+``init_opt``/``update`` with NG-SGD.  Field names and dims are the JAX
+package's; parameters are ``w [out, in]`` and ``b [out]``.  Minibatches
+are [N, dim] rows, float32 or (stored activations in training) bfloat16;
+Conv2D and Maxpool3D read a row as a flattened (time, freq, channel)
+volume.
+
+``update`` changes the parameters in place (the JAX package returns new
+ones): the caller takes the backprop through a component before it
+updates it, so the backprop still sees the old parameters.
 
 Each component's ``init(generator)`` draws its parameters from the same
 distributions as the JAX ``init`` (the numbers differ: torch's streams
@@ -14,12 +22,20 @@ are not jax.random's; ``kaldi_cnn_tpu_torch.convert`` loads JAX params).
 from __future__ import annotations
 
 import math
+from functools import cached_property
 from typing import Optional
 
+import numpy as np
 import torch
+import torch.nn.functional as Fn
 from torch import nn
+from torch.nn import grad as conv_grad
 
-from kaldi_cnn_tpu_torch.ops.conv import conv2d_reference, maxpool_reference
+from kaldi_cnn_tpu_torch.models.ng_sgd import (
+    OnlineNaturalGradient, ng_affine_apply, ng_delta_from_stats)
+from kaldi_cnn_tpu_torch.ops.conv import conv2d_reference, patch_indices
+from kaldi_cnn_tpu_torch.ops.maxpool import (
+    MaxPool3D, maxpool3d, maxpool3d_backward)
 
 
 def _normal(shape, std: float, generator: torch.Generator) -> torch.Tensor:
@@ -28,16 +44,24 @@ def _normal(shape, std: float, generator: torch.Generator) -> torch.Tensor:
 
 
 def _param(*shape, device) -> nn.Parameter:
-    """A zero f32 parameter (inference only: no gradient)."""
+    """A zero f32 parameter.  Training updates it by hand under no_grad;
+    autograd reaches it only through ``torch.func.functional_call``."""
     return nn.Parameter(torch.zeros(*shape, device=device),
                         requires_grad=False)
 
 
 class Component(nn.Module):
-    """Base: components without parameters draw nothing at init."""
+    """Base: components without parameters draw nothing at init, are not
+    trained, and keep nothing from the forward for the backward."""
+
+    trainable = False
 
     def init(self, generator: torch.Generator) -> None:
         pass
+
+    def train_forward(self, x: torch.Tensor):
+        """(output, aux) for the backward."""
+        return self(x), None
 
 
 class AffineComponent(Component):
@@ -45,10 +69,12 @@ class AffineComponent(Component):
 
     def __init__(self, input_dim: int, output_dim: int,
                  param_stddev: Optional[float] = None,
-                 bias_stddev: float = 1.0, device="cpu"):
+                 bias_stddev: float = 1.0, max_change: float = 0.75,
+                 trainable: bool = True, device="cpu"):
         super().__init__()
         self.input_dim, self.output_dim = input_dim, output_dim
         self.param_stddev, self.bias_stddev = param_stddev, bias_stddev
+        self.max_change, self.trainable = max_change, trainable
         self.w = _param(output_dim, input_dim, device=device)
         self.b = _param(output_dim, device=device)
 
@@ -60,7 +86,26 @@ class AffineComponent(Component):
         self.b.copy_(_normal(self.b.shape, self.bias_stddev, generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.w.T + self.b
+        return x.to(self.w.dtype) @ self.w.T + self.b
+
+    def backprop(self, in_value, out_value, out_deriv, aux):
+        return out_deriv.to(self.w.dtype) @ self.w
+
+    def init_opt(self, ng_in: OnlineNaturalGradient,
+                 ng_out: OnlineNaturalGradient):
+        dev = self.w.device
+        return {"ng_in": ng_in.init(self.input_dim + 1, dev),
+                "ng_out": ng_out.init(self.output_dim, dev)}
+
+    @torch.no_grad()
+    def update(self, opt, in_value, out_deriv, lr, ng_in, ng_out):
+        """NG-SGD step of w and b in place; returns the new opt state."""
+        w, b, opt_in, opt_out = ng_affine_apply(
+            ng_in, ng_out, opt["ng_in"], opt["ng_out"], in_value, out_deriv,
+            self.w, self.b, lr, self.max_change)
+        self.w.copy_(w)
+        self.b.copy_(b)
+        return {"ng_in": opt_in, "ng_out": opt_out}
 
 
 class PnormComponent(Component):
@@ -81,6 +126,19 @@ class PnormComponent(Component):
         s = torch.pow(g.abs(), self.p).to(torch.float32).sum(dim=2)
         return torch.pow(s + 1e-20, 1.0 / self.p).to(x.dtype)
 
+    def backprop(self, in_value, out_value, out_deriv, aux):
+        n = in_value.shape[0]
+        g = in_value.reshape(n, self.output_dim, self.group_size)
+        y = torch.clamp_min(out_value, 1e-10)[:, :, None]
+        dx = (out_deriv[:, :, None] * torch.sign(g)
+              * torch.pow(g.abs() / y, self.p - 1.0))
+        return dx.reshape(n, self.input_dim)
+
+
+def _rms(x: torch.Tensor) -> torch.Tensor:
+    return torch.sqrt((x * x).to(torch.float32).mean(dim=1, keepdim=True)
+                      + 1e-20)
+
 
 class NormalizeComponent(Component):
     """Row RMS normalization (ref: NormalizeComponent: y = x / rms(x))."""
@@ -90,9 +148,13 @@ class NormalizeComponent(Component):
         self.dim = dim
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        rms = torch.sqrt((x * x).to(torch.float32).mean(dim=1, keepdim=True)
-                         + 1e-20)
-        return x / rms
+        return x / _rms(x)
+
+    def backprop(self, in_value, out_value, out_deriv, aux):
+        rms = _rms(in_value)
+        dot = (out_deriv * in_value).to(torch.float32).sum(dim=1,
+                                                           keepdim=True)
+        return out_deriv / rms - in_value * dot / (self.dim * rms ** 3)
 
 
 class SoftmaxComponent(Component):
@@ -103,6 +165,11 @@ class SoftmaxComponent(Component):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return torch.softmax(x.to(torch.float32), dim=1)
 
+    def backprop(self, in_value, out_value, out_deriv, aux):
+        dot = (out_deriv * out_value).to(torch.float32).sum(dim=1,
+                                                            keepdim=True)
+        return out_value * (out_deriv - dot)
+
 
 class Conv2DComponent(Component):
     """2-D convolution over the (time, freq) plane of spliced fbank
@@ -112,11 +179,14 @@ class Conv2DComponent(Component):
     ``fused`` is the counterpart of the JAX ``use_pallas`` flag: it opts
     an adjacent Conv2D + Maxpool3D pair into ``Nnet.predict``'s fused
     conv+maxpool kernel.  The unfused ``forward`` is the plain im2col +
-    matmul in f32."""
+    matmul in f32.  The backprop and the update's statistics are
+    convolutions (``torch.nn.grad``), as the JAX package leaves them to
+    XLA's convolution."""
 
     def __init__(self, in_t: int, in_f: int, in_c: int, filt_t: int,
                  filt_f: int, num_filters: int, stride_t: int = 1,
                  stride_f: int = 1, param_stddev: Optional[float] = None,
+                 max_change: float = 0.75, trainable: bool = True,
                  fused: bool = False, device="cpu"):
         super().__init__()
         self.in_t, self.in_f, self.in_c = in_t, in_f, in_c
@@ -124,6 +194,7 @@ class Conv2DComponent(Component):
         self.num_filters = num_filters
         self.stride_t, self.stride_f = stride_t, stride_f
         self.param_stddev = param_stddev
+        self.max_change, self.trainable = max_change, trainable
         self.fused = fused
         self.w = _param(num_filters, self.patch_dim, device=device)
         self.b = _param(num_filters, device=device)
@@ -160,12 +231,129 @@ class Conv2DComponent(Component):
         self.b.copy_(_normal(self.b.shape, 0.1, generator))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if x.dtype == torch.bfloat16:
+            # the JAX conv on bf16-stored activations: bf16 operands,
+            # f32 accumulation, a bf16 result plus the bias in bf16
+            y = conv2d_reference(x.to(torch.float32), self.w, 0.0, self,
+                                 bf16=True).to(torch.bfloat16)
+            y = y.reshape(x.shape[0], -1, self.num_filters)
+            return (y + self.b.to(torch.bfloat16)).reshape(x.shape[0], -1)
         return conv2d_reference(x, self.w, self.b, self)
+
+    # -- the convolutions of the backward, in NCHW over (t, f) ----------
+    def _nchw(self, x: torch.Tensor) -> torch.Tensor:
+        """[N, in_dim] rows -> [N, in_c, in_t, in_f] f32."""
+        return x.to(torch.float32).reshape(
+            -1, self.in_t, self.in_f, self.in_c).permute(0, 3, 1, 2)
+
+    def _filters(self, w: torch.Tensor) -> torch.Tensor:
+        """[K, patch_dim] in (dt, df, c) order -> [K, in_c, ft, ff]."""
+        return w.reshape(-1, self.filt_t, self.filt_f,
+                         self.in_c).permute(0, 3, 1, 2)
+
+    def _deriv_nchw(self, out_deriv: torch.Tensor) -> torch.Tensor:
+        return out_deriv.to(torch.float32).reshape(
+            -1, self.out_t, self.out_f, self.num_filters).permute(0, 3, 1, 2)
+
+    def _stride(self):
+        return (self.stride_t, self.stride_f)
+
+    def backprop(self, in_value, out_value, out_deriv, aux):
+        n = in_value.shape[0]
+        dx = conv_grad.conv2d_input(
+            (n, self.in_c, self.in_t, self.in_f), self._filters(self.w),
+            self._deriv_nchw(out_deriv), stride=self._stride())
+        return dx.permute(0, 2, 3, 1).reshape(n, self.input_dim).to(
+            out_deriv.dtype)
+
+    @cached_property
+    def _patch_multiplicity(self) -> np.ndarray:
+        """[input_dim]: how many im2col patch rows each input element
+        lands in (for ||patches||^2 without forming them)."""
+        return np.bincount(self._patch_indices().ravel(),
+                           minlength=self.input_dim).astype(np.float32)
+
+    def _patch_indices(self) -> np.ndarray:
+        return patch_indices(self.in_t, self.in_f, self.in_c, self.filt_t,
+                             self.filt_f, self.stride_t, self.stride_f)
+
+    # NG update treats each patch row as a data row, like the affine
+    # layers (ref: Convolutional1dComponent::Update flattens patches)
+    def init_opt(self, ng_in: OnlineNaturalGradient,
+                 ng_out: OnlineNaturalGradient):
+        dev = self.w.device
+        return {"ng_in": ng_in.init(self.patch_dim + 1, dev),
+                "ng_out": ng_out.init(self.num_filters, dev)}
+
+    @torch.no_grad()
+    def update(self, opt, in_value, out_deriv, lr, ng_in, ng_out):
+        """NG-SGD step over patch rows without forming the im2col
+        matrix: G by a filter-gradient convolution, the input-side
+        projections by a convolution with the basis rows as filters,
+        ||patches||^2 from the patch multiplicity, the output-side
+        statistics from the [F, F] Gram.  Updates w and b in place and
+        returns the new opt state."""
+        n = in_value.shape[0]
+        n_rows = n * self.num_patches
+        x = self._nchw(in_value)
+        d = self._deriv_nchw(out_deriv)
+        d2 = out_deriv.to(torch.float32).reshape(n_rows, self.num_filters)
+        state_in, state_out = opt["ng_in"], opt["ng_out"]
+
+        gw = conv_grad.conv2d_weight(
+            x, (self.num_filters, self.in_c, self.filt_t, self.filt_f), d,
+            stride=self._stride())
+        gw = gw.permute(0, 2, 3, 1).reshape(self.num_filters, self.patch_dim)
+        g = torch.cat([gw, d2.sum(dim=0)[:, None]], dim=1)
+
+        u_i = state_in.u                                  # [Ri, patch+1]
+        proj_in = (Fn.conv2d(x, self._filters(u_i[:, :-1]),
+                             stride=self._stride())
+                   + u_i[:, -1][None, :, None, None])     # [n, Ri, ot, of]
+        proj_sq_in = (proj_in * proj_in).sum(dim=(0, 2, 3))
+        x32 = in_value.to(torch.float32)
+        mult = torch.as_tensor(self._patch_multiplicity, device=x32.device)
+        x_sq = ((x32 * x32) @ mult).sum() + n_rows
+
+        m = d2.T @ d2                                     # [F, F]
+        d_sq = torch.trace(m)
+        u_o = state_out.u
+        proj_sq_out = ((u_o @ m) * u_o).sum(dim=1)
+
+        # deterministic-stride row samples on the flat patch-row space
+        s_i = min(n_rows, u_i.shape[0])
+        rows_i = np.arange(s_i) * max(n_rows // s_i, 1)
+        n_idx, pos_idx = np.divmod(rows_i, self.num_patches)
+        pidx = torch.as_tensor(self._patch_indices()[pos_idx],
+                               device=x32.device)
+        xs = torch.gather(x32[torch.as_tensor(n_idx, device=x32.device)],
+                          1, pidx)
+        xs = torch.cat([xs, xs.new_ones((s_i, 1))], dim=1)
+        s_o = min(n_rows, u_o.shape[0])
+        ds = d2[::max(n_rows // s_o, 1)][:s_o]
+
+        delta, opt_in, opt_out = ng_delta_from_stats(
+            ng_in, ng_out, state_in, state_out, g, x_sq, proj_sq_in, d_sq,
+            proj_sq_out, xs, ds, n_rows)
+        if self.max_change > 0:
+            norm = torch.sqrt((delta * delta).sum()) * abs(lr)
+            scale = torch.clamp_max(
+                self.max_change / torch.clamp_min(norm, 1e-20), 1.0)
+        else:
+            scale = 1.0
+        step = lr * scale
+        self.w.add_(step * delta[:, :-1])
+        self.b.add_(step * delta[:, -1])
+        return {"ng_in": opt_in, "ng_out": opt_out}
 
 
 class Maxpooling3DComponent(Component):
     """3-D max pooling over (time, freq, channel); pool sizes divide the
-    dims (the fork's MaxpoolingComponent)."""
+    dims (the fork's MaxpoolingComponent).  All three directions run
+    kernel 3 (``ops.maxpool``) on a CUDA tensor: ``forward`` (through the
+    autograd function when a gradient is wanted), ``train_forward`` with
+    the int8/int32 window argmax as aux, and ``backprop`` along it (the
+    first maximum of a window takes the whole derivative)."""
 
     def __init__(self, in_t: int, in_f: int, in_c: int, pool_t: int = 1,
                  pool_f: int = 1, pool_c: int = 1):
@@ -196,5 +384,12 @@ class Maxpooling3DComponent(Component):
         return self.out_t * self.out_f * self.out_c
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return maxpool_reference(x, self.in_t, self.in_f, self.in_c,
-                                 self.pool_t, self.pool_f, self.pool_c)
+        if torch.is_grad_enabled() and x.requires_grad:
+            return MaxPool3D.apply(x, self)
+        return maxpool3d(x, self)
+
+    def train_forward(self, x: torch.Tensor):
+        return maxpool3d(x, self, with_argmax=True)
+
+    def backprop(self, in_value, out_value, out_deriv, aux):
+        return maxpool3d_backward(out_deriv, aux, self)

@@ -1,14 +1,23 @@
-"""Nnet = ordered component list; AmNnet = Nnet + pdf priors.
+"""Nnet = ordered component list + the minibatch train step; AmNnet =
+Nnet + pdf priors.
 
-Twin of ``kaldi_cnn_tpu/models/nnet.py`` for inference: ``Nnet.forward``
-(eval only), ``Nnet.predict`` with the fused conv+maxpool pair, and
-``AmNnet`` with ``loglikes``/``loglikes_batch``
-(ref: src/nnet2/nnet-nnet.cc, am-nnet.cc, decodable-am-nnet.cc).
+Twin of ``kaldi_cnn_tpu/models/nnet.py``: ``Nnet.forward`` (unfused
+eval), ``Nnet.predict`` with the fused conv+maxpool pair, the train step
+(``train_forward`` -> objective derivative -> ``_backward_update``, the
+reference's NnetUpdater::ComputeForMinibatch), ``objf``, and ``AmNnet``
+with ``loglikes``/``loglikes_batch``
+(ref: src/nnet2/nnet-nnet.cc, nnet-update.cc, am-nnet.cc,
+decodable-am-nnet.cc).
+
+The backprop is the components' own, by hand, under ``torch.no_grad``;
+the parameters live in the modules and each step updates them in place.
+The train step's objf comes back as a device scalar, so a training loop
+need not wait for the card at every step.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -16,6 +25,7 @@ from torch import nn
 
 from kaldi_cnn_tpu_torch.models.components import (
     Conv2DComponent, Maxpooling3DComponent)
+from kaldi_cnn_tpu_torch.models.ng_sgd import OnlineNaturalGradient
 from kaldi_cnn_tpu_torch.ops.common import round_up
 from kaldi_cnn_tpu_torch.ops.conv import conv2d_maxpool
 
@@ -31,10 +41,45 @@ def _fusable(c, nxt) -> bool:
             and c.out_f % nxt.pool_f == 0)
 
 
+def _storage_dtype(dt) -> torch.dtype:
+    """The train step's activation dtype: None (float32 on every device,
+    as the JAX package off the TPU), float32 or bfloat16."""
+    if dt is None or dt in (torch.float32, "float32", "f32"):
+        return torch.float32
+    if dt in (torch.bfloat16, "bfloat16", "bf16"):
+        return torch.bfloat16
+    raise ValueError(f"train_storage_dtype={dt!r} unsupported; use None, "
+                     "'float32'/'f32', or 'bfloat16'/'bf16'")
+
+
+def objf_from_output(out: torch.Tensor, labels: torch.Tensor,
+                     weights: Optional[torch.Tensor] = None
+                     ) -> torch.Tensor:
+    """Weighted mean log-probability of the labels (ref:
+    nnet-compute-prob); differentiable in ``out``."""
+    post = torch.clamp_min(out.to(torch.float32), 1e-20)
+    picked = post.gather(1, labels.long()[:, None])[:, 0]
+    if weights is None:
+        return torch.log(picked).mean()
+    return (torch.log(picked) * weights).sum() / weights.sum()
+
+
 class Nnet(nn.Module):
-    def __init__(self, components: Sequence[nn.Module]):
+    def __init__(self, components: Sequence[nn.Module],
+                 ng_rank_in: int = 20, ng_rank_out: int = 80,
+                 ng_update_period: int = 16,
+                 train_storage_dtype=None):
         super().__init__()
         self.components = nn.ModuleList(components)
+        # ranks and update period as the JAX package (the reference's
+        # --precondition-rank-in 20 --precondition-rank-out 80)
+        self.ng_in = OnlineNaturalGradient(rank=ng_rank_in,
+                                           update_period=ng_update_period)
+        self.ng_out = OnlineNaturalGradient(rank=ng_rank_out,
+                                            update_period=ng_update_period)
+        # dtype the TRAIN step stores activations and derivatives in
+        # between components; cross-row reductions accumulate in f32
+        self.train_storage_dtype = train_storage_dtype
 
     @property
     def input_dim(self) -> int:
@@ -62,9 +107,10 @@ class Nnet(nn.Module):
             c.init(generator)
         return self
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Unfused eval forward through every component."""
+        """Unfused eval forward through every component.  It records no
+        graph unless a parameter requires a gradient (the model
+        combination calls it through ``torch.func.functional_call``)."""
         for c in self.components:
             x = c(x)
         return x
@@ -87,6 +133,71 @@ class Nnet(nn.Module):
             x = c(x)
             i += 1
         return x
+
+    # -- training ------------------------------------------------------------
+    def init_opt(self) -> Tuple:
+        """Per-component NG states ({} for a component not trained)."""
+        return tuple(c.init_opt(self.ng_in, self.ng_out) if c.trainable
+                     else {} for c in self.components)
+
+    @torch.no_grad()
+    def train_forward(self, x: torch.Tensor, store_dtype=torch.float32):
+        """(output, activations, auxs); activations[i] is the input of
+        component i, each stored in ``store_dtype`` and consumed as
+        stored, so backprop's in/out pairs stay self-consistent."""
+        acts = [x.to(store_dtype)]
+        auxs = []
+        for c in self.components:
+            y, aux = c.train_forward(acts[-1])
+            acts.append(y.to(store_dtype))
+            auxs.append(aux)
+        return acts[-1], acts, auxs
+
+    @torch.no_grad()
+    def _backward_update(self, opt, acts, auxs, out_deriv, lr,
+                         store_dtype=torch.float32) -> Tuple:
+        """Backward walk from the derivative at the network output with
+        the NG-SGD update of every trainable component (the reference's
+        NnetUpdater::Backprop).  A component's backprop runs before its
+        update, so it sees the old parameters, as in the JAX package."""
+        new_opt = list(opt)
+        deriv = out_deriv.to(store_dtype)
+        for i in range(len(self.components) - 1, -1, -1):
+            c = self.components[i]
+            in_deriv = (c.backprop(acts[i], acts[i + 1], deriv, auxs[i])
+                        if i > 0 else None)
+            if c.trainable:
+                new_opt[i] = c.update(opt[i], acts[i], deriv, lr,
+                                      self.ng_in, self.ng_out)
+            if in_deriv is not None:
+                deriv = in_deriv.to(store_dtype)
+        return tuple(new_opt)
+
+    @torch.no_grad()
+    def train_step(self, opt, x: torch.Tensor, labels: torch.Tensor,
+                   lr: float, weights: Optional[torch.Tensor] = None):
+        """One minibatch update of the parameters in place.  x [N, D],
+        labels [N] int, optional weights [N].  Returns (opt', objf per
+        frame as a device scalar)."""
+        sd = _storage_dtype(self.train_storage_dtype)
+        out, acts, auxs = self.train_forward(x, sd)
+        if weights is None:
+            weights = torch.ones(x.shape[0], device=x.device)
+        post = torch.clamp_min(out.to(torch.float32), 1e-20)
+        picked = post.gather(1, labels.long()[:, None])[:, 0]
+        wsum = torch.clamp_min(weights.sum(), 1e-8)
+        objf = (torch.log(picked) * weights).sum() / wsum
+        # derivative of sum_n w_n log out[n, label_n] / wsum wrt out
+        out_deriv = torch.zeros_like(post).scatter_(
+            1, labels.long()[:, None], (weights / wsum / picked)[:, None])
+        return self._backward_update(opt, acts, auxs, out_deriv, lr,
+                                     sd), objf
+
+    @torch.no_grad()
+    def objf(self, x: torch.Tensor, labels: torch.Tensor,
+             weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Diagnostic log-prob per frame (ref: nnet-compute-prob)."""
+        return objf_from_output(self.forward(x), labels, weights)
 
 
 class AmNnet:

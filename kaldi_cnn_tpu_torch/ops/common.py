@@ -9,8 +9,9 @@ launch to the plain version.
 
 The kernels are CUDA C++ sources in ``kaldi_cnn_tpu_torch/csrc/`` with a
 plain C interface.  At first use they are compiled by ``nvcc`` for
-``sm_90a`` into ``kaldi_cnn_tpu_torch/_build/libkcnn_cuda.so`` (rebuilt
-when a source is newer) and bound with ``ctypes``.
+``sm_90a``, one process per source in parallel, and linked into
+``kaldi_cnn_tpu_torch/_build/libkcnn_cuda.so`` (rebuilt when a source is
+newer), which is bound with ``ctypes``.
 """
 
 from __future__ import annotations
@@ -29,7 +30,7 @@ CSRC_DIR = os.path.join(_HERE, "csrc")
 BUILD_DIR = os.path.join(_HERE, "_build")
 LIB_PATH = os.path.join(BUILD_DIR, "libkcnn_cuda.so")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -43,6 +44,12 @@ SIGNATURES = {
     # relu, bf16, out, stream
     "kcnn_conv_maxpool": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                           _I, _I, _P, _P],
+    # x, N, in_t, in_f, in_c, pool_t, pool_f, pool_c, bf16, out, argmax,
+    # arg_bytes, stream
+    "kcnn_maxpool_fwd": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
+    # out_deriv, argmax, arg_bytes, N, in_t, in_f, in_c, pool_t, pool_f,
+    # pool_c, bf16, in_deriv, stream
+    "kcnn_maxpool_bwd": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -75,9 +82,22 @@ def _nvcc() -> str:
     return path
 
 
+def _run(procs) -> None:
+    """Wait for every (cmd, Popen); raise with nvcc's output on failure."""
+    failed = []
+    for cmd, proc in procs:
+        out, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed ({proc.returncode}): "
+                          f"{' '.join(cmd)}\n{out}\n{err}")
+    if failed:
+        raise RuntimeError("\n".join(failed))
+
+
 def build(force: bool = False) -> str:
     """Compile csrc/*.cu into the shared library if it is missing or
-    older than a source.  Raises with nvcc's output on failure."""
+    older than a source: one nvcc per source, all started together, then
+    one link.  Raises with nvcc's output on failure."""
     srcs = sources()
     stale = (force or not os.path.exists(LIB_PATH)
              or any(os.path.getmtime(LIB_PATH) < os.path.getmtime(s)
@@ -85,13 +105,21 @@ def build(force: bool = False) -> str:
     if not stale:
         return LIB_PATH
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    cmd = [_nvcc()] + NVCC_FLAGS + ["-o", tmp] + srcs
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-            f"{proc.stdout}\n{proc.stderr}")
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(BUILD_DIR, os.path.basename(s)[:-3] + f".{tag}.o")
+            for s in srcs]
+    compiles = []
+    for src, obj in zip(srcs, objs):
+        cmd = [_nvcc()] + NVCC_FLAGS + ["-c", src, "-o", obj]
+        compiles.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    _run(compiles)
+    tmp = f"{LIB_PATH}.{tag}"
+    cmd = [_nvcc(), "-shared", "-o", tmp] + objs
+    _run([(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True))])
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, LIB_PATH)      # atomic: concurrent builds race safely
     return LIB_PATH
 

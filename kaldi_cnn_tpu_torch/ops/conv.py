@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from kaldi_cnn_tpu_torch.ops import common
+from kaldi_cnn_tpu_torch.ops.maxpool import Pool3D, maxpool3d_reference
 
 
 @lru_cache(maxsize=None)
@@ -67,16 +68,6 @@ def conv2d_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return y.reshape(n, -1)
 
 
-def maxpool_reference(y: torch.Tensor, in_t: int, in_f: int, in_c: int,
-                      pool_t: int, pool_f: int, pool_c: int = 1
-                      ) -> torch.Tensor:
-    """Plain 3-D max pool over a flat (t, f, c) row: reshape and max."""
-    n = y.shape[0]
-    v = y.reshape(n, in_t // pool_t, pool_t, in_f // pool_f, pool_f,
-                  in_c // pool_c, pool_c)
-    return v.amax(dim=(2, 4, 6)).reshape(n, -1)
-
-
 def conv2d_maxpool_reference(x: torch.Tensor, w: torch.Tensor,
                              b: torch.Tensor, conv, pool_t: int = 1,
                              pool_f: int = 1, relu: bool = False,
@@ -87,8 +78,8 @@ def conv2d_maxpool_reference(x: torch.Tensor, w: torch.Tensor,
     y = conv2d_reference(x, w, b, conv, bf16=bf16)
     if relu:
         y = torch.clamp_min(y, 0.0)
-    return maxpool_reference(y, conv.out_t, conv.out_f, conv.num_filters,
-                             pool_t, pool_f)
+    return maxpool3d_reference(
+        y, Pool3D(conv.out_t, conv.out_f, conv.num_filters, pool_t, pool_f))
 
 
 def conv2d_maxpool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,

@@ -15,11 +15,17 @@ from kaldi_cnn_tpu_torch.features import functional as F
 from kaldi_cnn_tpu_torch.models.components import Conv2DComponent
 from kaldi_cnn_tpu_torch.ops import conv as tc
 from kaldi_cnn_tpu_torch.ops import fbank as fb
+from kaldi_cnn_tpu_torch.ops import maxpool as mp
 
 pytestmark = pytest.mark.cuda
 
 FBANK_ATOL = 1e-3   # log-mel / log energy: two f32 sums in other orders
 CONV_TOL = 2e-4     # rtol = atol, kernel vs plain with the same operands
+# (in_t, in_f, in_c, pool_t, pool_f, pool_c): the bench/recipe conv output
+# with the recipe's pool, pool_c > 1, a window of 128 (int32 argmax), and
+# a 1x1x1 window
+POOL_SHAPES = [(8, 30, 128, 2, 3, 1), (8, 30, 64, 2, 3, 1),
+               (4, 6, 8, 2, 3, 2), (4, 8, 16, 4, 4, 8), (3, 5, 7, 1, 1, 1)]
 CONV_SHAPES = [(8, 12, 2, 3, 5, 16, 3, 4), (6, 10, 1, 2, 3, 8, 1, 2),
                (11, 36, 3, 4, 7, 64, 2, 3), (11, 36, 3, 4, 7, 40, 1, 1)]
 
@@ -90,3 +96,69 @@ def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):
     frames = torch.zeros(5, 399, device=cuda)
     with pytest.raises(ValueError, match="shape"):
         fb.fbank_frames(frames, opts)
+
+
+def _equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-for-bit equal values, NaN matching NaN."""
+    return a.dtype == b.dtype and a.shape == b.shape and bool(
+        ((a == b) | (a.isnan() & b.isnan())).all())
+
+
+@pytest.mark.parametrize("shape", POOL_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 67])
+def test_maxpool_kernels_match_plain(cuda, shape, dtype, rows):
+    pool = mp.Pool3D(*shape)
+    rng = np_rng(3, "pool")
+    in_dim = shape[0] * shape[1] * shape[2]
+    x = torch.as_tensor(rng.normal(size=(rows, in_dim)).astype(np.float32),
+                        device=cuda).to(dtype)
+    x[0, 5] = float("nan")                   # one window pools to NaN
+    before = (mp.maxpool3d.launches, mp.maxpool3d_backward.launches)
+    y = mp.maxpool3d(x, pool)
+    y2, arg = mp.maxpool3d(x, pool, with_argmax=True)
+    want, want_arg = mp.maxpool3d_reference(x, pool, with_argmax=True)
+    d = torch.as_tensor(rng.normal(size=tuple(y.shape)).astype(np.float32),
+                        device=cuda).to(dtype)
+    dx = mp.maxpool3d_backward(d, arg, pool)
+    want_dx = mp.maxpool3d_backward_reference(d, want_arg, pool)
+    torch.cuda.synchronize()
+    assert (mp.maxpool3d.launches, mp.maxpool3d_backward.launches) == (
+        before[0] + 2, before[1] + 1)
+    assert _equal(y, want) and _equal(y2, want)
+    assert arg.dtype == mp.argmax_dtype(pool) and torch.equal(arg, want_arg)
+    assert int(arg.max()) == mp.window(pool)  # the NaN window's argmax
+    assert _equal(dx, want_dx)
+
+
+def test_maxpool_autograd_runs_the_kernels(cuda):
+    pool = mp.Pool3D(4, 6, 8, 2, 3, 2)
+    x = torch.randn(9, 192, device=cuda, requires_grad=True)
+    before = mp.maxpool3d_backward.launches
+    y = mp.MaxPool3D.apply(x, pool)
+    (g,) = torch.autograd.grad((y * y).sum(), x)
+    xr = x.detach().cpu().requires_grad_()
+    (gr,) = torch.autograd.grad(
+        (mp.MaxPool3D.apply(xr, pool) ** 2).sum(), xr)
+    assert mp.maxpool3d_backward.launches == before + 1
+    assert torch.equal(g.cpu(), gr)
+
+
+def test_maxpool_wrappers_raise_on_what_they_do_not_take(cuda):
+    pool = mp.Pool3D(4, 6, 8, 2, 3, 2)
+    x = torch.zeros(4, 192, device=cuda)
+    with pytest.raises(TypeError, match="dtype"):
+        mp.maxpool3d(x.double(), pool)
+    with pytest.raises(ValueError, match="shape"):
+        mp.maxpool3d(x[:, :96], pool)
+    with pytest.raises(ValueError, match="contiguous"):
+        mp.maxpool3d(torch.zeros(192, 4, device=cuda).T, pool)
+    with pytest.raises(ValueError, match="divide"):
+        mp.maxpool3d(x, mp.Pool3D(4, 6, 8, 3, 3, 2))
+    y, arg = mp.maxpool3d(x, pool, with_argmax=True)
+    with pytest.raises(TypeError, match="dtype"):
+        mp.maxpool3d_backward(y, arg.int(), pool)
+    with pytest.raises(ValueError, match="shape"):
+        mp.maxpool3d_backward(y[:2], arg, pool)
+    with pytest.raises(ValueError, match="devices"):
+        mp.maxpool3d_backward(y, arg.cpu(), pool)
