@@ -16,15 +16,22 @@ then runs these phases; any failure raises and the exit code is not 0.
    backward on that conv output) and at the WSJ slice's shapes (fbank on
    one 8 kHz utterance, 36 bins; conv+maxpool at F = 64, 4096 rows;
    maxpool at F = 64 and 256 rows, the recipe's minibatch, and with
-   pool_c = 2), with the error and both times from CUDA events.  The
-   maxpool kernels must be bit-equal to their plain versions, in f32
-   and bf16.
+   pool_c = 2), with the error and both times from CUDA events.
+   Conv+maxpool runs both kernels: bf16 operands on the tensor cores
+   (wgmma) and f32 on the CUDA cores.  Each line also gives the kernel's
+   bound (bytes over the HBM rate or operations over the peak rate, the
+   larger) and the time of one PyTorch call computing the same function
+   where there is one (``library_ms``: F.conv2d + F.max_pool2d through
+   cuDNN; amax, max_pool3d with indices and its backward; none for
+   fbank).  The port never calls those.  The maxpool kernels must be
+   bit-equal to their plain versions, in f32 and bf16.
 2. Slice phase: the WSJ-style recipe's serving path at the recipe's
    model width (F = 64, 2 x (Affine 1000 -> Pnorm 200 -> Normalize),
    num_pdfs from the graph), seeded random weights, on 16 synthetic
    utterances: fbank volumes -> splice -> AmNnet.loglikes_batch ->
    TopKDecoder.decode_batch -> WER, through ``recipes.wsj.decode``.
-   The launch count of every kernel in that run must be > 0.
+   The launch counts of the fbank kernel and of the wgmma conv+maxpool
+   kernel in that run must be > 0 (the f32 conv kernel is off the path).
 3. Replay: the same slice, same weights and dither noise, through the
    plain versions on the CPU; loglikes must agree within LOGLIKE_ATOL and
    the decoded words must be equal.
@@ -32,9 +39,9 @@ then runs these phases; any failure raises and the exit code is not 0.
    equal alignments on the monophone graph, ``recipes.wsj.train`` at the
    recipe width for TRAIN_EPOCHS epochs (minibatch 256), then
    ``recipes.wsj.decode`` of the trained model.  The fbank and both
-   maxpool kernels must run in the training, the conv+maxpool kernel in
-   the decode, and the trained model's valid logprob must beat the
-   initial model's.
+   maxpool kernels must run in the training, the wgmma conv+maxpool
+   kernel in the decode, and the trained model's valid logprob must beat
+   the initial model's.
 5. Training replay: the same training on the CPU from the same initial
    parameters and egs; per-step objf, the pre-combine parameters and the
    final valid logprob must agree within the bounds below.
@@ -43,7 +50,9 @@ then runs these phases; any failure raises and the exit code is not 0.
    share of it.
 
 Output: the GPU's name and power limit (nvidia-smi), the build time, one
-line per check, a JSON line {"kernels": [...]} and, last, the JSON line
+line per check, a JSON line {"kernels": [...]} (for each kernel its
+launches on the main path, error, ms, plain_ms, bound_ms, bound_by and
+library_ms, at the main path's shapes) and, last, the JSON line
 {"ok": true, "device": {...}}.  Times are for the card named on the first
 line and hold only for its power limit.
 """
@@ -62,23 +71,24 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as nnf
 
-from kaldi_cnn_tpu.lang.arpa import make_unigram_arpa
-from kaldi_cnn_tpu.lang.hclg import (Lang, compile_training_graph,
-                                     make_hclg_from_arpa)
 from kaldi_cnn_tpu_torch.convert import params_to_numpy
 from kaldi_cnn_tpu_torch.core.rng import np_rng, torch_generator
 from kaldi_cnn_tpu_torch.decode.graph import CompiledGraph
 from kaldi_cnn_tpu_torch.decode.topk_decoder import TopKDecoder
 from kaldi_cnn_tpu_torch.features import functional as F
 from kaldi_cnn_tpu_torch.gmm.train import align_equal
+from kaldi_cnn_tpu_torch.lang.arpa import make_unigram_arpa
+from kaldi_cnn_tpu_torch.lang.hclg import (Lang, compile_training_graph,
+                                           make_hclg_from_arpa)
 from kaldi_cnn_tpu_torch.models.components import (
     AffineComponent, Conv2DComponent)
 from kaldi_cnn_tpu_torch.models.factory import ConvnetConfig, make_convnet
 from kaldi_cnn_tpu_torch.models.nnet import AmNnet, Nnet
 from kaldi_cnn_tpu_torch.ops import common
 from kaldi_cnn_tpu_torch.ops import maxpool as mp
-from kaldi_cnn_tpu_torch.ops.conv import (conv2d_maxpool,
+from kaldi_cnn_tpu_torch.ops.conv import (conv2d_maxpool, conv2d_maxpool_f32,
                                           conv2d_maxpool_reference)
 from kaldi_cnn_tpu_torch.ops.fbank import fbank_frames, fbank_reference_frames
 from kaldi_cnn_tpu_torch.recipes import synthetic, wsj
@@ -87,6 +97,7 @@ from kaldi_cnn_tpu_torch.train.checkpoint import load_checkpoint
 SEED = 37
 FBANK_ATOL = 1e-3         # log-mel and log energy, kernel vs plain (f32)
 CONV_F32_TOL = 2e-4       # rtol = atol, kernel vs plain, both f32
+CONV_BF16_TOL = 1e-3      # wgmma kernel vs bf16 plain: max err / max|ref|
 CONV_BF16_REL = 0.02      # bf16 kernel vs f32 plain: max err / max|ref|
 # loglikes on the card vs the CPU replay: both round the conv operands
 # to bf16, and the features they round differ in the last f32 bits
@@ -102,6 +113,9 @@ OBJF_STEP_ATOL = 1e-3     # per-step training objf
 PARAM_REL = 1e-3          # pre-combine params, per tensor ||a-b|| / ||b||
 VALID_ATOL = 1e-2         # final valid logprob
 BENCH_TRAIN_ROWS = 4096
+# published H100 SXM peaks (NVIDIA data sheet, dense) for bound_ms
+HBM_BYTES_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
 
 
 def log(msg: str) -> None:
@@ -129,6 +143,18 @@ def time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
+def bound(nbytes: float, flops: float, kind: str):
+    """(least ms the card could take, what sets it): the bytes over the
+    memory rate against the operations over the peak rate for ``kind``."""
+    t_bytes = nbytes / HBM_BYTES_S * 1e3
+    t_ops = flops / PEAK_FLOPS[kind] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def fbank_case(name, opts, wave, dev):
     fo = opts.frame_opts
     frames = F.add_dither(
@@ -149,16 +175,40 @@ def fbank_case(name, opts, wave, dev):
     nb = fo.padded_window_size // 2 + 1
     flops = frames.shape[0] * (4 * fo.window_size * nb
                                + 2 * nb * opts.mel_opts.num_bins)
+    # frames in; the cos/sin tables and the mel matrix; log-mel and energy
+    moved = nbytes(frames, out, energy) + 4 * (
+        2 * fo.window_size * nb + nb * opts.mel_opts.num_bins)
+    r["bound_ms"], r["bound_by"] = bound(moved, flops, "f32")
+    r["library_ms"] = None        # no one PyTorch call computes fbank
     log(f"kernel fbank {name}: {r['shape']}: log-mel max err {err:.3g}, "
         f"energy max err {err_e:.3g} (limit {FBANK_ATOL}); kernel "
         f"{r['ms']:.4f} ms ({flops / r['ms'] / 1e9:.2f} TFLOP/s), plain "
-        f"{r['plain_ms']:.4f} ms")
+        f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms "
+        f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}% of it), "
+        f"library: none")
     if not ok:
         raise AssertionError(f"fbank kernel disagrees with plain: {r}")
     return r
 
 
+def conv_library(x, w, b, conv, pt, pf, dtype):
+    """The yardstick: F.conv2d on NCHW tensors of ``dtype`` (cuDNN) and
+    F.max_pool2d.  The layout permutes run here, outside the timed call;
+    returns the call and a function mapping its output to the port's
+    [N, (ot', of', filter)] rows."""
+    n, nf = x.shape[0], conv.num_filters
+    xn = x.view(n, conv.in_t, conv.in_f, conv.in_c).permute(
+        0, 3, 1, 2).contiguous().to(dtype)
+    wn = w.view(nf, conv.filt_t, conv.filt_f, conv.in_c).permute(
+        0, 3, 1, 2).contiguous().to(dtype)
+    bn = b.to(dtype)
+    return (lambda: nnf.max_pool2d(nnf.conv2d(xn, wn, bn), (pt, pf)),
+            lambda y: y.permute(0, 2, 3, 1).reshape(n, -1).float())
+
+
 def conv_case(name, cfg, rows, dev):
+    """The wgmma kernel (bf16 operands) and the CUDA-core kernel (f32)
+    against their plain versions and the cuDNN yardstick."""
     conv = Conv2DComponent(cfg.in_t, cfg.in_f, cfg.in_c, cfg.filt_t,
                            cfg.filt_f, cfg.num_filters, device=dev)
     conv.init(torch_generator(SEED, name))
@@ -167,33 +217,46 @@ def conv_case(name, cfg, rows, dev):
                         .astype(np.float32), device=dev)
     w, b = conv.w.detach(), conv.b.detach()
     pt, pf = cfg.pool_t, cfg.pool_f
+    flops = 2 * rows * conv.num_patches * conv.patch_dim * conv.num_filters
+    ref32 = conv2d_maxpool_reference(x, w, b, conv, pt, pf, bf16=False)
     out = {}
-    for bf16 in (False, True):
-        got = conv2d_maxpool(x, w, b, conv, pt, pf, bf16=bf16)
+    for mode, dtype in (("bf16", torch.bfloat16), ("f32", torch.float32)):
+        bf16 = mode == "bf16"
+        run = lambda: conv2d_maxpool(x, w, b, conv, pt, pf, bf16=bf16)
+        got = run()
         ref = conv2d_maxpool_reference(x, w, b, conv, pt, pf, bf16=bf16)
-        ref32 = conv2d_maxpool_reference(x, w, b, conv, pt, pf, bf16=False)
+        lib, lib_rows = conv_library(x, w, b, conv, pt, pf, dtype)
+        lib_err = float((lib_rows(lib()) - ref).abs().max())
         torch.cuda.synchronize()
         err = float((got - ref).abs().max())
-        close = bool(torch.allclose(got, ref, rtol=CONV_F32_TOL,
-                                    atol=CONV_F32_TOL))
+        rel = err / float(ref.abs().max())
         rel32 = float((got - ref32).abs().max() / ref32.abs().max())
-        mode = "bf16" if bf16 else "f32"
+        if bf16:
+            ok = rel <= CONV_BF16_TOL and rel32 < CONV_BF16_REL
+            limit = f"max err / max|ref| {CONV_BF16_TOL}"
+        else:
+            ok = bool(torch.allclose(got, ref, rtol=CONV_F32_TOL,
+                                     atol=CONV_F32_TOL))
+            limit = f"rtol=atol={CONV_F32_TOL}"
         r = {"name": f"{name} {mode}", "max_abs_err": err,
-             "rel_err_vs_f32": rel32,
+             "rel_err": rel, "rel_err_vs_f32": rel32,
              "shape": f"{rows} rows x {conv.input_dim} -> {got.shape[1]}",
-             "ms": time_ms(lambda: conv2d_maxpool(x, w, b, conv, pt, pf,
-                                                  bf16=bf16)),
+             "ms": time_ms(run),
              "plain_ms": time_ms(lambda: conv2d_maxpool_reference(
-                 x, w, b, conv, pt, pf, bf16=bf16))}
-        flops = 2 * rows * conv.num_patches * conv.patch_dim \
-            * conv.num_filters
-        log(f"kernel conv_maxpool {name} {mode}: {r['shape']}: max err vs "
-            f"plain {err:.3g} (rtol=atol={CONV_F32_TOL}), err vs f32 plain "
-            f"/ max|ref| {rel32:.3g}; kernel {r['ms']:.4f} ms "
-            f"({flops / r['ms'] / 1e9:.2f} TFLOP/s), plain "
-            f"{r['plain_ms']:.4f} ms")
-        if not (close and bool(torch.isfinite(got).all())
-                and (not bf16 or rel32 < CONV_BF16_REL)):
+                 x, w, b, conv, pt, pf, bf16=bf16)),
+             "library_ms": time_ms(lib)}
+        r["bound_ms"], r["bound_by"] = bound(
+            nbytes(x, w, b, got), flops, mode)
+        kernel = "wgmma" if bf16 else "CUDA cores"
+        log(f"kernel conv_maxpool {name} {mode} ({kernel}): {r['shape']}: "
+            f"max err vs plain {err:.3g} ({rel:.3g} of max|ref|; limit "
+            f"{limit}), err vs f32 plain / max|ref| {rel32:.3g}; kernel "
+            f"{r['ms']:.4f} ms ({flops / r['ms'] / 1e9:.2f} TFLOP/s), plain "
+            f"{r['plain_ms']:.4f} ms, library (F.conv2d {mode} + "
+            f"F.max_pool2d) {r['library_ms']:.4f} ms (max err vs plain "
+            f"{lib_err:.3g}), bound {r['bound_ms']:.4f} ms "
+            f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}% of it)")
+        if not (ok and bool(torch.isfinite(got).all())):
             raise AssertionError(f"conv kernel disagrees with plain: {r}")
         out[mode] = r
     return out
@@ -234,17 +297,40 @@ def maxpool_case(name, shape, rows, dtype, dev):
          "bwd_ms": time_ms(lambda: mp.maxpool3d_backward(d, arg, pool)),
          "bwd_plain_ms": time_ms(
              lambda: mp.maxpool3d_backward_reference(d, arg, pool))}
+    # yardsticks: amax over the window for the forward alone, and
+    # max_pool3d with indices and its backward on the (t, f, c) volume
+    it, i_f, ic, pt, pf, pc = shape
+    x5 = x.view(rows, 1, it, i_f, ic)
+    k = [pt, pf, pc]
+    y5, idx = nnf.max_pool3d(x5, k, return_indices=True)
+    d5 = d.view(y5.shape)
+    r["fwd_library_ms"] = time_ms(lambda: x.view(
+        rows, it // pt, pt, i_f // pf, pf, ic // pc, pc).amax(dim=(2, 4, 6)))
+    r["arg_library_ms"] = time_ms(
+        lambda: nnf.max_pool3d(x5, k, return_indices=True))
+    r["bwd_library_ms"] = time_ms(
+        lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+            d5, x5, k, k, [0, 0, 0], [1, 1, 1], False, idx))
     xb, yb, ab = x.nbytes, y.nbytes, arg.nbytes
+    r["fwd_bound_ms"] = bound(xb + yb, 0, "f32")[0]
+    r["arg_bound_ms"] = bound(xb + yb + ab, 0, "f32")[0]
+    r["bwd_bound_ms"] = bound(yb + ab + xb, 0, "f32")[0]
     gbs = lambda nbytes, ms: nbytes / ms / 1e6
     log(f"kernel maxpool {r['name']}: {rows} rows x {in_dim} -> "
         f"{y.shape[1]} (pool {shape[3]}x{shape[4]}x{shape[5]}), {arg.dtype} "
         f"argmax: bit-equal to plain: {ok}; forward {r['fwd_ms']:.4f} ms "
         f"({gbs(xb + yb, r['fwd_ms']):.0f} GB/s) vs plain "
-        f"{r['fwd_plain_ms']:.4f}; with argmax {r['arg_ms']:.4f} ms "
+        f"{r['fwd_plain_ms']:.4f}, library (amax) "
+        f"{r['fwd_library_ms']:.4f}, bound {r['fwd_bound_ms']:.4f}; with "
+        f"argmax {r['arg_ms']:.4f} ms "
         f"({gbs(xb + yb + ab, r['arg_ms']):.0f} GB/s) vs plain "
-        f"{r['arg_plain_ms']:.4f}; backward {r['bwd_ms']:.4f} ms "
+        f"{r['arg_plain_ms']:.4f}, library (max_pool3d with indices) "
+        f"{r['arg_library_ms']:.4f}, bound {r['arg_bound_ms']:.4f}; "
+        f"backward {r['bwd_ms']:.4f} ms "
         f"({gbs(yb + ab + xb, r['bwd_ms']):.0f} GB/s) vs plain "
-        f"{r['bwd_plain_ms']:.4f}")
+        f"{r['bwd_plain_ms']:.4f}, library (max_pool3d_with_indices_"
+        f"backward) {r['bwd_library_ms']:.4f}, bound "
+        f"{r['bwd_bound_ms']:.4f} (bytes)")
     if not ok:
         raise AssertionError(f"maxpool kernels disagree with plain: {r}")
     return r
@@ -375,8 +461,14 @@ def main() -> int:
     slice_opts.mel_opts.num_bins = 36
     utt0 = sorted(corpus.waves)[0]
     fb = fbank_case("wsj-8k", slice_opts, corpus.waves[utt0], dev)
-    conv_case("bench-F128", ConvnetConfig(), 4096, dev)
+    cb = conv_case("bench-F128", ConvnetConfig(), 4096, dev)
     cv = conv_case("wsj-F64", ConvnetConfig(num_filters=64), 4096, dev)
+    for cname, c in (("bench-F128", cb), ("wsj-F64", cv)):
+        log(f"conv {cname}: wgmma (bf16) {c['bf16']['ms']:.4f} ms = "
+            f"{100 * c['bf16']['bound_ms'] / c['bf16']['ms']:.1f}% of its "
+            f"{c['bf16']['bound_ms']:.4f} ms bound, cuDNN bf16 yardstick "
+            f"{c['bf16']['library_ms']:.4f} ms; CUDA cores (f32) "
+            f"{c['f32']['ms']:.4f} ms")
     pools = {}
     for pname, shape, rows in (("bench-F128", (8, 30, 128, 2, 3, 1), 4096),
                                ("wsj-F64", (8, 30, 64, 2, 3, 1), 256),
@@ -389,7 +481,7 @@ def main() -> int:
     # ---- 2. slice phase -----------------------------------------------
     am = wsj_model(num_pdfs, dev)
     fbank_frames.launches = 0
-    conv2d_maxpool.launches = 0
+    conv2d_maxpool.launches = conv2d_maxpool_f32.launches = 0
     torch.cuda.synchronize()
     t = time.perf_counter()
     res = wsj.decode(am, corpus, hclg, lang.word_table, seed=SEED)
@@ -397,12 +489,14 @@ def main() -> int:
     slice_s = time.perf_counter() - t
     launches = {"fbank": fbank_frames.launches,
                 "conv_maxpool": conv2d_maxpool.launches}
+    f32_launches = conv2d_maxpool_f32.launches
     lls = res["loglikes"]
     frames = sum(v.shape[0] for v in lls.values())
     log(f"slice: {len(lls)} utterances, {frames} frames, launches "
-        f"{launches}, wsj.decode {slice_s:.3f} s (fbank + scoring + "
-        f"search + WER), WER {res['wer']:.2f}% ({res['errors']} errors / "
-        f"{res['words']} words; random weights, not asserted)")
+        f"{launches} (conv_maxpool_f32 {f32_launches}), wsj.decode "
+        f"{slice_s:.3f} s (fbank + scoring + search + WER), WER "
+        f"{res['wer']:.2f}% ({res['errors']} errors / {res['words']} "
+        f"words; random weights, not asserted)")
     for u, ll in lls.items():
         T = F.num_frames(len(corpus.waves[u]), slice_opts.frame_opts)
         if ll.shape != (T, num_pdfs) or not np.isfinite(ll).all():
@@ -534,30 +628,29 @@ def main() -> int:
         f"with argmax + backward {mp_ms:.4f} ms = "
         f"{100 * mp_ms / steady_ms:.1f}% of the steady step")
 
+    def entry(name, source, replaces, n, r, pre=""):
+        return {"name": name, "route": "cuda",
+                "source": f"kaldi_cnn_tpu_torch/csrc/{source}",
+                "replaces": f"kaldi_cnn_tpu/ops/{replaces}",
+                "launches": n, "max_abs_err": r["max_abs_err"],
+                "ms": r[f"{pre}ms"], "plain_ms": r[f"{pre}plain_ms"],
+                "bound_ms": r.get(f"{pre}bound_ms"),
+                "bound_by": r.get("bound_by", "bytes"),
+                "library_ms": r.get(f"{pre}library_ms")}
+
+    pool_err = max(r["max_abs_err"] for r in pools.values())
+    mp_bench["max_abs_err"] = pool_err
     kernels = [
-        {"name": "fbank", "route": "cuda",
-         "source": "kaldi_cnn_tpu_torch/csrc/fbank.cu",
-         "replaces": "kaldi_cnn_tpu/ops/fbank_pallas.py:63",
-         "launches": launches["fbank"], "max_abs_err": fb["max_abs_err"],
-         "ms": fb["ms"], "plain_ms": fb["plain_ms"]},
-        {"name": "conv_maxpool", "route": "cuda",
-         "source": "kaldi_cnn_tpu_torch/csrc/conv_maxpool.cu",
-         "replaces": "kaldi_cnn_tpu/ops/conv_pallas.py:43",
-         "launches": launches["conv_maxpool"],
-         "max_abs_err": cv["bf16"]["max_abs_err"], "ms": cv["bf16"]["ms"],
-         "plain_ms": cv["bf16"]["plain_ms"]},
-        {"name": "maxpool_fwd", "route": "cuda",
-         "source": "kaldi_cnn_tpu_torch/csrc/maxpool.cu",
-         "replaces": "kaldi_cnn_tpu/ops/maxpool_pallas.py:43",
-         "launches": train_launches["maxpool_fwd"],
-         "max_abs_err": max(r["max_abs_err"] for r in pools.values()),
-         "ms": mp_bench["arg_ms"], "plain_ms": mp_bench["arg_plain_ms"]},
-        {"name": "maxpool_bwd", "route": "cuda",
-         "source": "kaldi_cnn_tpu_torch/csrc/maxpool.cu",
-         "replaces": "kaldi_cnn_tpu/ops/maxpool_pallas.py:43",
-         "launches": train_launches["maxpool_bwd"],
-         "max_abs_err": max(r["max_abs_err"] for r in pools.values()),
-         "ms": mp_bench["bwd_ms"], "plain_ms": mp_bench["bwd_plain_ms"]},
+        entry("fbank", "fbank.cu", "fbank_pallas.py:63", launches["fbank"],
+              fb),
+        entry("conv_maxpool", "conv_maxpool.cu", "conv_pallas.py:43",
+              launches["conv_maxpool"], cv["bf16"]),
+        entry("conv_maxpool_f32", "conv_maxpool.cu", "conv_pallas.py:43",
+              f32_launches, cv["f32"]),
+        entry("maxpool_fwd", "maxpool.cu", "maxpool_pallas.py:43",
+              train_launches["maxpool_fwd"], mp_bench, "arg_"),
+        entry("maxpool_bwd", "maxpool.cu", "maxpool_pallas.py:43",
+              train_launches["maxpool_bwd"], mp_bench, "bwd_"),
     ]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

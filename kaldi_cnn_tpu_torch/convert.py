@@ -52,7 +52,8 @@ def params_to_numpy(net: Nnet) -> Tuple[Dict[str, np.ndarray], ...]:
                  for c in net.components)
 
 
-def opt_from_jax(opt: Sequence[Dict], device="cpu") -> Tuple[Dict, ...]:
+def opt_from_jax(opt: Sequence[Dict],
+                 device="cuda") -> Tuple[Dict, ...]:
     """JAX NG states (numpy leaves, or any (u, d, rho, t) tuple) -> the
     port's, with the step count as a host integer."""
     def state(s):

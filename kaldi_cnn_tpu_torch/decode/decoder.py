@@ -2,7 +2,7 @@
 of ``viterbi_align`` and its helpers in ``kaldi_cnn_tpu/decode/decoder.py``
 (ref: src/decoder/faster-decoder.{h,cc}), importable without jax (the JAX
 package's ``decode/__init__.py`` imports the jax decoders).  Like the
-original it uses the jax-free C++ core ``kaldi_cnn_tpu.native`` when a
+original it uses the C++ core (the port's copy in ``native``) when a
 toolchain is there, else numpy.
 """
 
@@ -82,10 +82,10 @@ def _eps_expand(g: CompiledGraph, cost: np.ndarray, tok: np.ndarray,
 
 def _viterbi_native(g, loglikes, acoustic_scale, beam, max_active,
                     require_final, word_ins_penalty):
-    """C++ fast path (kaldi_cnn_tpu.native viterbi.cc); returns None
+    """C++ fast path (native/viterbi.cc); returns None
     when the native library is unavailable."""
     import ctypes
-    from kaldi_cnn_tpu import native
+    from kaldi_cnn_tpu_torch import native
     lib = native.load()
     if lib is None:
         return None

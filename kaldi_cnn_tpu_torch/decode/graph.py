@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import numpy as np
 
-from kaldi_cnn_tpu.lang.fst import Fst
+from kaldi_cnn_tpu_torch.lang.fst import Fst
 
 
 class CompiledGraph:

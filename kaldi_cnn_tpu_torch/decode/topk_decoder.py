@@ -20,8 +20,8 @@ ProcessEmitting / ProcessNonemitting / PruneActiveTokens):
 ``vmap`` over utterances is an explicit leading batch dimension, and
 ``lax.scan`` over frames is a Python loop of tensor ops on the device.
 Lattice emission, the on-device backtrace and the mesh are not ported
-yet.  ``TopKGraph`` is the JAX package's numpy packing, copied because
-importing it from ``kaldi_cnn_tpu.decode`` would import jax.
+yet.  ``TopKGraph`` is a copy of the JAX package's numpy packing (the
+port imports nothing of that package).
 """
 
 from __future__ import annotations
@@ -283,7 +283,7 @@ class TopKDecoder:
     def __init__(self, graph: CompiledGraph, beam: float = 16.0,
                  max_active: int = 2048, acoustic_scale: float = 0.1,
                  max_emit_deg: int = 16, max_eps_deg: int = 8,
-                 device="cpu"):
+                 device="cuda"):
         self.g0 = graph
         self.g = TopKGraph(graph, max_emit_deg, max_eps_deg)
         g = self.g

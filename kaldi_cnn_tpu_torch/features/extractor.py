@@ -21,7 +21,7 @@ from kaldi_cnn_tpu_torch.ops.fbank import fbank
 
 class FeatureExtractor:
     def __init__(self, opts: Optional[F.FbankOptions] = None,
-                 device="cpu", deltas_order: int = 0):
+                 device="cuda", deltas_order: int = 0):
         self.opts = opts or F.FbankOptions()
         self.device = torch.device(device)
         self.deltas_order = deltas_order

@@ -21,7 +21,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from kaldi_cnn_tpu.core.config import configclass
+from kaldi_cnn_tpu_torch.core.config import configclass
 
 EPSILON = 1.1920928955078125e-07  # FLT_EPSILON, Kaldi's log floor
 

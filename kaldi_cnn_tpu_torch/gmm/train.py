@@ -1,7 +1,6 @@
 """Equal alignment for a flat start: twin of ``align_equal`` in
-``kaldi_cnn_tpu/gmm/train.py``, importable without jax (the JAX module
-imports ``kaldi_cnn_tpu.decode``, whose package import reaches jax).
-The rest of the GMM bootstrap is not ported yet."""
+``kaldi_cnn_tpu/gmm/train.py`` (the port imports nothing of the JAX
+package).  The rest of the GMM bootstrap is not ported yet."""
 
 from __future__ import annotations
 

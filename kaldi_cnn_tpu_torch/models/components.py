@@ -70,7 +70,7 @@ class AffineComponent(Component):
     def __init__(self, input_dim: int, output_dim: int,
                  param_stddev: Optional[float] = None,
                  bias_stddev: float = 1.0, max_change: float = 0.75,
-                 trainable: bool = True, device="cpu"):
+                 trainable: bool = True, device="cuda"):
         super().__init__()
         self.input_dim, self.output_dim = input_dim, output_dim
         self.param_stddev, self.bias_stddev = param_stddev, bias_stddev
@@ -187,7 +187,7 @@ class Conv2DComponent(Component):
                  filt_f: int, num_filters: int, stride_t: int = 1,
                  stride_f: int = 1, param_stddev: Optional[float] = None,
                  max_change: float = 0.75, trainable: bool = True,
-                 fused: bool = False, device="cpu"):
+                 fused: bool = False, device="cuda"):
         super().__init__()
         self.in_t, self.in_f, self.in_c = in_t, in_f, in_c
         self.filt_t, self.filt_f = filt_t, filt_f

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from kaldi_cnn_tpu.core.config import configclass
+from kaldi_cnn_tpu_torch.core.config import configclass
 from kaldi_cnn_tpu_torch.models.components import (
     AffineComponent, Conv2DComponent, Maxpooling3DComponent,
     NormalizeComponent, PnormComponent, SoftmaxComponent)
@@ -36,7 +36,7 @@ class ConvnetConfig:
 
 
 def make_convnet(cfg: Optional[ConvnetConfig] = None, fused: bool = True,
-                 device="cpu") -> Nnet:
+                 device="cuda") -> Nnet:
     """Conv2D -> Maxpool3D -> hidden x (Affine -> Pnorm -> Normalize) ->
     Affine -> Softmax, with zero parameters (``Nnet.init`` draws them).
     ``fused`` opts the conv+pool pair into Nnet.predict's fused kernel."""

@@ -51,7 +51,7 @@ class OnlineNaturalGradient:
     def _update_now(self, t: int) -> bool:
         return t < self.warmup_updates or t % self.update_period == 0
 
-    def init(self, dim: int, device="cpu") -> NGState:
+    def init(self, dim: int, device="cuda") -> NGState:
         r = min(self.rank, max(dim - 1, 1))
         return NGState(u=torch.eye(r, dim, device=device),
                        d=torch.ones(r, device=device),

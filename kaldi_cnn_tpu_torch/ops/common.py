@@ -41,9 +41,11 @@ SIGNATURES = {
     # out, energy, stream
     "kcnn_fbank": [_P, _I, _I, _P, _P, _I, _P, _I, _P, _F, _I, _P, _P, _P],
     # x, N, w, b, in_t, in_f, in_c, filt_t, filt_f, F, pool_t, pool_f,
-    # relu, bf16, out, stream
+    # relu, out, stream
     "kcnn_conv_maxpool": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-                          _I, _I, _P, _P],
+                          _I, _P, _P],
+    "kcnn_conv_maxpool_wgmma": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                _I, _I, _P, _P],
     # x, N, in_t, in_f, in_c, pool_t, pool_f, pool_c, bf16, out, argmax,
     # arg_bytes, stream
     "kcnn_maxpool_fwd": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],

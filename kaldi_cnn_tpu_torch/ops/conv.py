@@ -8,12 +8,15 @@ flattened (t, f, c) volumes, index ``(t * in_f + f) * in_c + c``;
 ``w [F, K]`` with K in (dt, df, c) order; output rows in
 ``(ot', of', filter)`` order.
 
-The kernel (``csrc/conv_maxpool.cu``) builds each im2col patch from the
-input row staged in shared memory and pools in registers, so the conv
-output never reaches device memory.  ``conv2d_maxpool_reference`` is the
-plain version: im2col gather, matmul, bias, then a reshape and max.  With
-``bf16=True`` both compute the Pallas default: operands rounded to
-bfloat16, products accumulated in f32.
+Two kernels in ``csrc/conv_maxpool.cu`` build each im2col patch from
+input staged in shared memory and pool in registers, so the conv output
+never reaches device memory.  With ``bf16=True`` (the Pallas default and
+the serving path's mode: operands rounded to bfloat16, products summed in
+f32) ``conv2d_maxpool`` launches the ``wgmma`` tensor-core kernel; with
+``bf16=False`` it goes through ``conv2d_maxpool_f32``, the f32 kernel on
+the CUDA cores.  Each wrapper counts its own launches.
+``conv2d_maxpool_reference`` is the plain version of both: im2col gather,
+matmul, bias, then a reshape and max.
 
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.
@@ -82,21 +85,18 @@ def conv2d_maxpool_reference(x: torch.Tensor, w: torch.Tensor,
         y, Pool3D(conv.out_t, conv.out_f, conv.num_filters, pool_t, pool_f))
 
 
-def conv2d_maxpool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                   conv, pool_t: int = 1, pool_f: int = 1,
-                   relu: bool = False, bf16: bool = True) -> torch.Tensor:
-    """Fused conv + bias (+relu) + max-pool: [N, in_dim] ->
-    [N, (out_t/pool_t) * (out_f/pool_f) * F].  Requires stride 1."""
+def _check(conv, pool_t, pool_f) -> None:
     if conv.stride_t != 1 or conv.stride_f != 1:
         raise ValueError("conv2d_maxpool takes stride 1 only")
     if conv.out_t % pool_t or conv.out_f % pool_f:
         raise ValueError("pool sizes must divide the conv output")
-    if not common.on_cuda(x, w, b):
-        return conv2d_maxpool_reference(x, w, b, conv, pool_t, pool_f,
-                                        relu, bf16)
+
+
+def _launch(fn: str, x, w, b, conv, pool_t, pool_f, relu) -> torch.Tensor:
+    """Validate the operands and launch the C entry point ``fn``."""
     n, nf = x.shape[0], conv.num_filters
     if nf % 8:
-        raise ValueError("the conv2d_maxpool kernel takes num_filters a "
+        raise ValueError("the conv2d_maxpool kernels take num_filters a "
                          "multiple of 8")
     common.require(x, "x", torch.float32, (n, conv.input_dim))
     common.require(w, "w", torch.float32, (nf, conv.patch_dim))
@@ -104,13 +104,46 @@ def conv2d_maxpool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     out = torch.empty(
         (n, (conv.out_t // pool_t) * (conv.out_f // pool_f) * nf),
         dtype=torch.float32, device=x.device)
-    rc = common.library().kcnn_conv_maxpool(
+    rc = getattr(common.library(), fn)(
         x.data_ptr(), n, w.data_ptr(), b.data_ptr(), conv.in_t, conv.in_f,
         conv.in_c, conv.filt_t, conv.filt_f, nf, pool_t, pool_f, int(relu),
-        int(bf16), out.data_ptr(), common.stream_ptr(x.device))
-    common.check_launch("kcnn_conv_maxpool", rc)
+        out.data_ptr(), common.stream_ptr(x.device))
+    common.check_launch(fn, rc)
+    return out
+
+
+def conv2d_maxpool_f32(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                       conv, pool_t: int = 1, pool_f: int = 1,
+                       relu: bool = False) -> torch.Tensor:
+    """``conv2d_maxpool`` with f32 operands: the CUDA-core kernel on a
+    CUDA tensor, the plain version on a CPU tensor."""
+    _check(conv, pool_t, pool_f)
+    if not common.on_cuda(x, w, b):
+        return conv2d_maxpool_reference(x, w, b, conv, pool_t, pool_f,
+                                        relu, bf16=False)
+    out = _launch("kcnn_conv_maxpool", x, w, b, conv, pool_t, pool_f, relu)
+    conv2d_maxpool_f32.launches += 1
+    return out
+
+
+def conv2d_maxpool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                   conv, pool_t: int = 1, pool_f: int = 1,
+                   relu: bool = False, bf16: bool = True) -> torch.Tensor:
+    """Fused conv + bias (+relu) + max-pool: [N, in_dim] ->
+    [N, (out_t/pool_t) * (out_f/pool_f) * F].  Requires stride 1.  With
+    bf16 operands a CUDA tensor launches the tensor-core kernel, whose
+    staged tiles must fit in shared memory (it raises otherwise)."""
+    if not bf16:
+        return conv2d_maxpool_f32(x, w, b, conv, pool_t, pool_f, relu)
+    _check(conv, pool_t, pool_f)
+    if not common.on_cuda(x, w, b):
+        return conv2d_maxpool_reference(x, w, b, conv, pool_t, pool_f,
+                                        relu, bf16=True)
+    out = _launch("kcnn_conv_maxpool_wgmma", x, w, b, conv, pool_t, pool_f,
+                  relu)
     conv2d_maxpool.launches += 1
     return out
 
 
 conv2d_maxpool.launches = 0
+conv2d_maxpool_f32.launches = 0

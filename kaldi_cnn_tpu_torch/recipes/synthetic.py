@@ -17,7 +17,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
-from kaldi_cnn_tpu.lang.lexicon import Lexicon
+from kaldi_cnn_tpu_torch.lang.lexicon import Lexicon
 from kaldi_cnn_tpu_torch.core.rng import np_rng
 
 SAMPLE_RATE = 8000

@@ -19,7 +19,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
-from kaldi_cnn_tpu.core.logging import Timer, get_logger
+from kaldi_cnn_tpu_torch.core.logging import Timer, get_logger
 from kaldi_cnn_tpu_torch.core.rng import np_rng
 from kaldi_cnn_tpu_torch.decode.graph import CompiledGraph
 from kaldi_cnn_tpu_torch.decode.score import wer_details
@@ -38,7 +38,7 @@ CONTEXT = 5          # splice +-5 frames (wsj.py run: left = right = 5)
 
 
 def compute_fbank_volumes(corpus, num_bins: int = 36, seed: int = 0,
-                          device="cpu", dither: float = 1.0
+                          device="cuda", dither: float = 1.0
                           ) -> Dict[str, np.ndarray]:
     """Per-utterance [T, num_bins, 3] volumes: static + delta + delta2
     channels over mel filterbanks (ref: conf/fbank.conf 36 bins + the
@@ -117,7 +117,7 @@ def model_config(num_bins: int, num_pdfs: int, num_filters: int = 64
 def train(volumes: Dict[str, np.ndarray],
           alignments: Dict[str, np.ndarray], tid2pdf: np.ndarray,
           num_pdfs: int, num_epochs: int = 25, num_filters: int = 64,
-          seed: int = 37, device="cpu", checkpoint_dir: str = ""
+          seed: int = 37, device="cuda", checkpoint_dir: str = ""
           ) -> AmNnet:
     """The recipe's egs + nnet_train stages on ``device``: spliced egs,
     the valid split, ``train_nnet`` at minibatch 256 with the learning

@@ -23,8 +23,8 @@ import numpy as np
 import torch
 from torch.func import functional_call
 
-from kaldi_cnn_tpu.core.config import configclass
-from kaldi_cnn_tpu.core.logging import Timer, get_logger
+from kaldi_cnn_tpu_torch.core.config import configclass
+from kaldi_cnn_tpu_torch.core.logging import Timer, get_logger
 from kaldi_cnn_tpu_torch.core.rng import torch_generator
 from kaldi_cnn_tpu_torch.models.nnet import Nnet, objf_from_output
 from kaldi_cnn_tpu_torch.train.checkpoint import save_checkpoint

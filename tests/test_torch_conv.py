@@ -30,7 +30,7 @@ def _case(shape, rows=9, seed=0):
     p = jax.device_get(jconv.init(jax.random.PRNGKey(seed)))
     x = np.random.default_rng(seed).normal(
         size=(rows, jconv.input_dim)).astype(np.float32)
-    conv = Conv2DComponent(in_t, in_f, in_c, ft, ff, nf)
+    conv = Conv2DComponent(in_t, in_f, in_c, ft, ff, nf, device="cpu")
     return jconv, conv, p, x, pt, pf
 
 
@@ -99,11 +99,11 @@ def test_components_match_jax():
 
 
 def test_wrapper_rejects_what_the_kernel_does_not_take():
-    conv = Conv2DComponent(6, 10, 1, 2, 3, 8, stride_t=2)
+    conv = Conv2DComponent(6, 10, 1, 2, 3, 8, stride_t=2, device="cpu")
     x, w, b = torch.zeros(2, 60), torch.zeros(8, 6), torch.zeros(8)
     with pytest.raises(ValueError, match="stride"):
         tc.conv2d_maxpool(x, w, b, conv, 1, 1)
-    conv = Conv2DComponent(6, 10, 1, 2, 3, 8)
+    conv = Conv2DComponent(6, 10, 1, 2, 3, 8, device="cpu")
     with pytest.raises(ValueError, match="divide"):
         tc.conv2d_maxpool(x, w, b, conv, 2, 3)     # out 5 x 8
     with pytest.raises(ValueError, match="devices"):

@@ -20,14 +20,21 @@ from kaldi_cnn_tpu_torch.ops import maxpool as mp
 pytestmark = pytest.mark.cuda
 
 FBANK_ATOL = 1e-3   # log-mel / log energy: two f32 sums in other orders
-CONV_TOL = 2e-4     # rtol = atol, kernel vs plain with the same operands
+CONV_TOL = 2e-4     # rtol = atol, f32 kernel vs plain with the same operands
+# wgmma kernel vs the bf16 plain version: max abs error / max|ref| (the
+# same bf16 operands, f32 sums in another order), and vs the f32 plain
+CONV_BF16_TOL = 1e-3
+CONV_BF16_REL = 0.02
 # (in_t, in_f, in_c, pool_t, pool_f, pool_c): the bench/recipe conv output
 # with the recipe's pool, pool_c > 1, a window of 128 (int32 argmax), and
 # a 1x1x1 window
 POOL_SHAPES = [(8, 30, 128, 2, 3, 1), (8, 30, 64, 2, 3, 1),
                (4, 6, 8, 2, 3, 2), (4, 8, 16, 4, 4, 8), (3, 5, 7, 1, 1, 1)]
+# (in_t, in_f, in_c, filt_t, filt_f, F, pool_t, pool_f); the last has
+# K = 105 > 96: two groups of k16 steps chained into one accumulator
 CONV_SHAPES = [(8, 12, 2, 3, 5, 16, 3, 4), (6, 10, 1, 2, 3, 8, 1, 2),
-               (11, 36, 3, 4, 7, 64, 2, 3), (11, 36, 3, 4, 7, 40, 1, 1)]
+               (11, 36, 3, 4, 7, 64, 2, 3), (11, 36, 3, 4, 7, 40, 1, 1),
+               (12, 36, 3, 5, 7, 64, 2, 3)]
 
 
 @pytest.fixture
@@ -61,23 +68,118 @@ def test_fbank_kernel_matches_plain(cuda, sr, bins, frames):
                                rtol=0, atol=FBANK_ATOL)
 
 
+def _conv_case(cuda, shape, rows, seed=2):
+    in_t, in_f, in_c, ft, ff, nf = shape
+    conv = Conv2DComponent(in_t, in_f, in_c, ft, ff, nf, device=cuda)
+    conv.init(torch_generator(seed, "c"))
+    x = torch.as_tensor(np_rng(seed, "x").normal(size=(rows, conv.input_dim))
+                        .astype(np.float32), device=cuda)
+    return conv, x, conv.w.detach(), conv.b.detach()
+
+
+def _assert_bf16_close(got, want, want32=None):
+    """The wgmma kernel against the bf16 plain version: the same rounded
+    operands, f32 sums in another order; NaN where the plain has NaN."""
+    got, want = got.cpu(), want.cpu()
+    assert got.shape == want.shape
+    assert torch.equal(got.isnan(), want.isnan())
+    fin = torch.isfinite(want)
+    inf = want.isinf()
+    assert torch.equal(got[inf], want[inf])
+    scale = float(want[fin].abs().max())
+    assert float((got[fin] - want[fin]).abs().max()) <= CONV_BF16_TOL * scale
+    if want32 is not None:      # rounding to bf16 moves < 2 % of max|ref|
+        want32 = want32.cpu()
+        assert float((got - want32).abs().max()) < CONV_BF16_REL * float(
+            want32.abs().max())
+
+
 @pytest.mark.parametrize("shape", CONV_SHAPES)
 @pytest.mark.parametrize("bf16", [False, True])
 def test_conv_maxpool_kernel_matches_plain(cuda, shape, bf16):
-    in_t, in_f, in_c, ft, ff, nf, pt, pf = shape
-    conv = Conv2DComponent(in_t, in_f, in_c, ft, ff, nf, device=cuda)
-    conv.init(torch_generator(2, "c"))
-    x = torch.as_tensor(np_rng(2, "x").normal(size=(67, conv.input_dim))
-                        .astype(np.float32), device=cuda)
-    w, b = conv.w.detach(), conv.b.detach()
-    before = tc.conv2d_maxpool.launches
+    pt, pf = shape[6:]
+    conv, x, w, b = _conv_case(cuda, shape[:6], 67)
+    counter = tc.conv2d_maxpool if bf16 else tc.conv2d_maxpool_f32
+    before = counter.launches
     got = tc.conv2d_maxpool(x, w, b, conv, pt, pf, relu=True, bf16=bf16)
     want = tc.conv2d_maxpool_reference(x, w, b, conv, pt, pf, relu=True,
                                        bf16=bf16)
     torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    if bf16:
+        _assert_bf16_close(got, want)
+    else:
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=CONV_TOL, atol=CONV_TOL)
+
+
+@pytest.mark.parametrize("rows", [1, 63, 3050, 4096])
+@pytest.mark.parametrize("nf", [8, 64, 128, 264])
+def test_conv_maxpool_wgmma_rows_and_filters(cuda, rows, nf):
+    """The recipe's 11x36x3 volumes and 4x7 filters, pool 2x3: ragged row
+    tiles, one wgmma of 16, 64 or 128 filters, and 264 = 3 chunks."""
+    conv, x, w, b = _conv_case(cuda, (11, 36, 3, 4, 7, nf), rows)
+    before = tc.conv2d_maxpool.launches
+    got = tc.conv2d_maxpool(x, w, b, conv, 2, 3)
+    want = tc.conv2d_maxpool_reference(x, w, b, conv, 2, 3, bf16=True)
+    want32 = tc.conv2d_maxpool_reference(x, w, b, conv, 2, 3, bf16=False)
+    torch.cuda.synchronize()
     assert tc.conv2d_maxpool.launches == before + 1
-    np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
-                               rtol=CONV_TOL, atol=CONV_TOL)
+    _assert_bf16_close(got, want, want32)
+
+
+@pytest.mark.parametrize("shape", [(12, 36, 3, 5, 7, 128),
+                                   (12, 36, 5, 5, 7, 64)])
+def test_conv_maxpool_wgmma_chained_k_groups(cuda, shape):
+    """K = 105 and 175 take twelve k16 steps: each conv position's
+    products are two commit groups chained into one accumulator, and the
+    max waits for the second.  3050 rows give blocks several items."""
+    conv, x, w, b = _conv_case(cuda, shape, 3050, seed=5)
+    before = tc.conv2d_maxpool.launches
+    got = tc.conv2d_maxpool(x, w, b, conv, 2, 3, relu=True)
+    want = tc.conv2d_maxpool_reference(x, w, b, conv, 2, 3, relu=True,
+                                       bf16=True)
+    want32 = tc.conv2d_maxpool_reference(x, w, b, conv, 2, 3, relu=True,
+                                         bf16=False)
+    torch.cuda.synchronize()
+    assert tc.conv2d_maxpool.launches == before + 1
+    _assert_bf16_close(got, want, want32)
+
+
+@pytest.mark.parametrize("pool", [(1, 1), (2, 3), (1, 2)])
+@pytest.mark.parametrize("relu", [False, True])
+def test_conv_maxpool_wgmma_pools(cuda, pool, relu):
+    conv, x, w, b = _conv_case(cuda, (11, 36, 3, 4, 7, 64), 3050, seed=4)
+    got = tc.conv2d_maxpool(x, w, b, conv, *pool, relu=relu)
+    want = tc.conv2d_maxpool_reference(x, w, b, conv, *pool, relu=relu,
+                                       bf16=True)
+    torch.cuda.synchronize()
+    _assert_bf16_close(got, want)
+
+
+def test_conv_maxpool_wgmma_inf_and_nan_rows(cuda):
+    """Rows holding inf and NaN give what the bf16 plain version gives,
+    NaN for NaN: the padded k of A are zeros, not neighbouring inputs."""
+    conv, x, w, b = _conv_case(cuda, (11, 36, 3, 4, 7, 64), 130)
+    x[3, 7] = float("inf")
+    x[5, 500] = float("-inf")
+    x[64, 1000] = float("nan")
+    x[100, :] = float("inf")
+    x[101, 20] = float("inf")
+    x[101, 700] = float("nan")
+    for relu in (False, True):
+        got = tc.conv2d_maxpool(x, w, b, conv, 2, 3, relu=relu)
+        want = tc.conv2d_maxpool_reference(x, w, b, conv, 2, 3, relu=relu,
+                                           bf16=True)
+        torch.cuda.synchronize()
+        assert bool(want.isnan().any()) and bool(want.isinf().any())
+        _assert_bf16_close(got, want)
+
+
+def test_conv_maxpool_wgmma_refuses_tiles_that_do_not_fit(cuda):
+    conv, x, w, b = _conv_case(cuda, (11, 36, 3, 4, 7, 1024), 8)
+    with pytest.raises(RuntimeError, match="kcnn_conv_maxpool_wgmma"):
+        tc.conv2d_maxpool(x, w, b, conv, 2, 3)
 
 
 def test_kernel_wrappers_raise_on_what_they_do_not_take(cuda):

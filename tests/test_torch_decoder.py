@@ -61,8 +61,8 @@ def _host(g, lls, scale=SCALE):
 def test_decode_batch_matches_jax_and_host(digits, beam, max_active):
     g, jg, lls = digits
     ma = max_active or g.num_states + 32
-    got = T.TopKDecoder(g, beam=beam, max_active=ma,
-                        acoustic_scale=SCALE).decode_batch(lls)
+    got = T.TopKDecoder(g, beam=beam, max_active=ma, acoustic_scale=SCALE,
+                        device="cpu").decode_batch(lls)
     _check(got, lls, _host(jg, lls))
     want = TpuTopKDecoder(jg, beam=beam, max_active=ma,
                           acoustic_scale=SCALE).decode_batch(lls)
@@ -74,12 +74,12 @@ def test_decode_batch_matches_jax_and_host(digits, beam, max_active):
 def test_padding_and_degree_caps_do_not_change_result(digits):
     g, _, lls = digits
     a = T.TopKDecoder(g, beam=1e8, max_active=g.num_states + 32,
-                      acoustic_scale=SCALE).decode_batch(lls[:2])
+                      acoustic_scale=SCALE, device="cpu").decode_batch(lls[:2])
     # a third, 70-frame utterance pads the first two to 70 frames
     longer = np.concatenate([lls[1], lls[0][:15]])
     b = T.TopKDecoder(g, beam=1e8, max_active=2 * g.num_states,
-                      acoustic_scale=SCALE, max_emit_deg=2, max_eps_deg=2
-                      ).decode_batch(lls[:2] + [longer])[:2]
+                      acoustic_scale=SCALE, max_emit_deg=2, max_eps_deg=2,
+                      device="cpu").decode_batch(lls[:2] + [longer])[:2]
     for (ta, wa, ca), (tb, wb, cb) in zip(a, b):
         assert list(ta) == list(tb) and list(wa) == list(wb)
         assert ca == pytest.approx(cb, rel=1e-5, abs=1e-2)
@@ -126,7 +126,8 @@ def test_hub_graphs_match_jax_and_host(kind):
         g, P = make_big_graph(num_words=300, num_pdfs=32, min_len=3,
                               max_len=5, seed=3), 32
         lls = [sample_loglikes(g, P, T=25, seed=s) for s in (0, 1)]
-    dec = T.TopKDecoder(g, beam=80.0, max_active=256, acoustic_scale=1.0)
+    dec = T.TopKDecoder(g, beam=80.0, max_active=256, acoustic_scale=1.0,
+                        device="cpu")
     if kind == "eps_exit":
         assert dec.Hni > 0 and dec.eps_iters == 2
     else:

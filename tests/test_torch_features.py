@@ -131,7 +131,7 @@ def test_extractor_deltas_volume_matches_jax():
     jex = JFE("fbank", opts_j, device="cpu", use_pallas=True,
               deltas_order=2)
     tex = FeatureExtractor(_opts(TF, 8000, 36, use_energy=False),
-                           deltas_order=2)
+                           device="cpu", deltas_order=2)
     want = jex.extract_corpus(waves)
     got = tex.extract_corpus(waves)
     edge = 2 * 2

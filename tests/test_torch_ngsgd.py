@@ -64,10 +64,12 @@ def _load(tc, p):
 def _pair(name):
     """(JAX component, port component, params) at a small size."""
     if name == "affine":
-        jc, tc = JC.AffineComponent(24, 10), TC.AffineComponent(24, 10)
+        jc, tc = JC.AffineComponent(24, 10), TC.AffineComponent(
+            24, 10, device="cpu")
     elif name == "conv2d":
         args = (6, 12, 2, 3, 5, 8)
-        jc, tc = JC.Conv2DComponent(*args), TC.Conv2DComponent(*args)
+        jc, tc = JC.Conv2DComponent(*args), TC.Conv2DComponent(*args,
+                                                              device="cpu")
     elif name == "maxpool":
         args = (4, 6, 8, 2, 3, 2)
         jc, tc = (JC.Maxpooling3DComponent(*args),
@@ -138,7 +140,7 @@ def test_fused_ng_delta_and_stats_match_jax():
     rng = np.random.default_rng(7)
     (ji, ti), (jo, to) = _ng_pair(rank=6, eta=0.2), _ng_pair(rank=5, eta=0.2)
     js_in, js_out = ji.init(13), jo.init(9)
-    ts_in, ts_out = ti.init(13), to.init(9)
+    ts_in, ts_out = ti.init(13, "cpu"), to.init(9, "cpu")
     for _ in range(4):
         x = rng.normal(size=(40, 13)).astype(np.float32)
         d = rng.normal(size=(40, 9)).astype(np.float32)
@@ -167,7 +169,7 @@ def test_ng_affine_apply_matches_jax():
     (ji, ti), (jo, to) = (_ng_pair(rank=6, update_period=2),
                           _ng_pair(rank=5, update_period=2))
     js_in, js_out = ji.init(25), jo.init(12)
-    ts_in, ts_out = ti.init(25), to.init(12)
+    ts_in, ts_out = ti.init(25, "cpu"), to.init(12, "cpu")
     w = rng.normal(size=(12, 24)).astype(np.float32)
     b = rng.normal(size=(12,)).astype(np.float32)
     jw, jb, tw, tb = jnp.asarray(w), jnp.asarray(b), _t(w), _t(b)
@@ -190,7 +192,7 @@ def test_ng_affine_apply_matches_jax():
 def test_precondition_matches_jax_and_keeps_the_norm():
     rng = np.random.default_rng(9)
     jn, tn = _ng_pair(rank=4, eta=0.5)
-    js, ts = jn.init(16), tn.init(16)
+    js, ts = jn.init(16), tn.init(16, "cpu")
     for _ in range(6):
         x = rng.normal(size=(32, 16)).astype(np.float32)
         x[:, 0] *= 20.0
@@ -210,7 +212,7 @@ def test_ng_affine_apply_matches_fused():
     ng_in = tng.OnlineNaturalGradient(rank=6, eta=0.2, update_period=2)
     ng_out = tng.OnlineNaturalGradient(rank=5, eta=0.2, update_period=2)
     din, dout, n = 24, 12, 48
-    st_in, st_out = ng_in.init(din + 1), ng_out.init(dout)
+    st_in, st_out = ng_in.init(din + 1, "cpu"), ng_out.init(dout, "cpu")
     w = _t(rng.normal(size=(dout, din)))
     b = _t(rng.normal(size=(dout,)))
     lr, max_change = 0.05, 0.4
@@ -242,7 +244,7 @@ def test_ng_affine_apply_matches_fused():
 def test_update_gate_is_decided_on_the_host():
     ng = tng.OnlineNaturalGradient(rank=3, update_period=4,
                                    warmup_updates=2)
-    st = ng.init(8)
+    st = ng.init(8, "cpu")
     x = torch.randn(10, 8, generator=torch.Generator().manual_seed(0))
     us = []
     for _ in range(8):

@@ -35,7 +35,7 @@ def _jax_params(net, seed=0):
 
 def _pair(fused):
     jnet = j_make_convnet(JCfg(**CFG), use_pallas=fused)
-    tnet = make_convnet(ConvnetConfig(**CFG), fused=fused)
+    tnet = make_convnet(ConvnetConfig(**CFG), fused=fused, device="cpu")
     p = _jax_params(jnet)
     params_from_jax(tnet, p)
     x = np.random.default_rng(7).normal(
@@ -77,7 +77,8 @@ def test_components_match_jax(name):
     rng = np.random.default_rng(3)
     x = rng.normal(size=(7, 24)).astype(np.float32) * 3
     if name == "affine":
-        jc, tcomp = JC.AffineComponent(24, 10), TC.AffineComponent(24, 10)
+        jc = JC.AffineComponent(24, 10)
+        tcomp = TC.AffineComponent(24, 10, device="cpu")
         p = jax.device_get(jc.init(jax.random.PRNGKey(1)))
         with torch.no_grad():
             tcomp.w.copy_(torch.as_tensor(np.array(p["w"])))
@@ -135,7 +136,8 @@ def test_params_from_jax_round_trips_and_checks():
 
 
 def test_init_mirrors_jax_distributions():
-    net = make_convnet(ConvnetConfig(**CFG)).init(torch_generator(0, "i"))
+    net = make_convnet(ConvnetConfig(**CFG), device="cpu").init(
+        torch_generator(0, "i"))
     conv, aff, out = net.components[0], net.components[2], net.components[-2]
     assert conv.w.std().item() == pytest.approx(1 / np.sqrt(30), rel=0.2)
     assert conv.b.std().item() == pytest.approx(0.1, rel=0.4)
@@ -143,7 +145,8 @@ def test_init_mirrors_jax_distributions():
         1 / np.sqrt(aff.input_dim), rel=0.1)
     assert aff.b.std().item() == pytest.approx(1.0, rel=0.3)
     assert float(out.w.abs().max()) == 0.0             # param_stddev=0
-    again = make_convnet(ConvnetConfig(**CFG)).init(torch_generator(0, "i"))
+    again = make_convnet(ConvnetConfig(**CFG), device="cpu").init(
+        torch_generator(0, "i"))
     for a, b in zip(params_to_numpy(net), params_to_numpy(again)):
         for k in a:
             np.testing.assert_array_equal(a[k], b[k])

@@ -94,10 +94,11 @@ def test_slice_words_match_jax_path(slice_setup, fused):
                           acoustic_scale=0.1).decode_batch(
                               [jlls[u] for u in utts])
 
-    am = AmNnet(make_convnet(ConvnetConfig(num_pdfs=P, **CFG), fused=fused),
-                P)
+    am = AmNnet(make_convnet(ConvnetConfig(num_pdfs=P, **CFG), fused=fused,
+                             device="cpu"), P)
     params_from_jax(am, p, priors=jam.priors)
-    vol = wsj.compute_fbank_volumes(corpus, NUM_BINS, dither=0.0)
+    vol = wsj.compute_fbank_volumes(corpus, NUM_BINS, device="cpu",
+                                    dither=0.0)
     for u in utts:
         np.testing.assert_allclose(vol[u], jvol[u], rtol=0, atol=1e-3)
     res = wsj.decode(am, corpus, CompiledGraph(fst, t2p), lang.word_table,
@@ -114,22 +115,69 @@ def test_slice_words_match_jax_path(slice_setup, fused):
 
 def test_port_imports_without_jax():
     """chip_smoke.py and every kaldi_cnn_tpu_torch module import in a
-    process where importing jax fails."""
+    process where importing jax or the JAX package fails, and neither was
+    loaded (kaldi_cnn_tpu_torch shares the JAX package's name as a prefix,
+    so the names are compared exactly)."""
     code = (
         "import sys, importlib, pkgutil\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['kaldi_cnn_tpu'] = None\n"
         "import chip_smoke, kaldi_cnn_tpu_torch as pkg\n"
         "mods = [m.name for m in pkgutil.walk_packages(pkg.__path__,"
         " pkg.__name__ + '.')]\n"
         "for m in mods:\n"
         "    importlib.import_module(m)\n"
-        "assert not [m for m in sys.modules if m.startswith('jax')"
-        " and sys.modules[m] is not None]\n"
+        "def loaded(name):\n"
+        "    return [m for m in sys.modules if (m == name or m.startswith("
+        "name + '.')) and sys.modules[m] is not None]\n"
+        "assert not loaded('jax'), loaded('jax')\n"
+        "assert not loaded('kaldi_cnn_tpu'), loaded('kaldi_cnn_tpu')\n"
         "print(len(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 20
+    assert int(out.stdout.split()[-1]) >= 30
+
+
+def _tiny_graph():
+    lex = synthetic.digits_lexicon()
+    wp = {w: 1.0 / len(lex.entries) for w in lex.entries}
+    lang = Lang.create(lex)
+    return CompiledGraph(make_hclg_from_arpa(lang, make_unigram_arpa(wp)),
+                         lang.trans_model.trans_id_to_pdf_array())
+
+
+@pytest.mark.parametrize("entry", [
+    "make_convnet", "FeatureExtractor", "TopKDecoder",
+    "compute_fbank_volumes", "Conv2DComponent", "ng_init"])
+def test_entry_points_default_to_the_card(entry):
+    """Left without ``device``, the port's entry points run on the card;
+    where there is none they raise, at construction or at the first call,
+    and never carry on on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA GPU")
+    from kaldi_cnn_tpu_torch.features import functional as TF
+    from kaldi_cnn_tpu_torch.features.extractor import FeatureExtractor
+    from kaldi_cnn_tpu_torch.decode.topk_decoder import TopKDecoder
+    from kaldi_cnn_tpu_torch.models.components import Conv2DComponent
+    from kaldi_cnn_tpu_torch.models.ng_sgd import OnlineNaturalGradient
+    wave = np.zeros(800, np.float32)
+    lex = synthetic.digits_lexicon()
+    wp = {w: 1.0 / len(lex.entries) for w in lex.entries}
+    calls = {
+        "make_convnet": lambda: make_convnet(ConvnetConfig(**CFG)),
+        "FeatureExtractor": lambda: FeatureExtractor(TF.FbankOptions())(
+            wave),
+        "TopKDecoder": lambda: TopKDecoder(_tiny_graph()).decode_batch(
+            [np.zeros((3, 60), np.float32)]),
+        "compute_fbank_volumes": lambda: wsj.compute_fbank_volumes(
+            synthetic.make_noisy_corpus(lex, wp, 1, 1, 1, seed=1), NUM_BINS),
+        "Conv2DComponent": lambda: Conv2DComponent(6, 10, 1, 2, 3, 8),
+        "ng_init": lambda: OnlineNaturalGradient().init(8),
+    }
+    with pytest.raises((RuntimeError, AssertionError),
+                       match="CUDA|NVIDIA|cuda"):
+        calls[entry]()
 
 
 def test_chip_smoke_fails_without_a_card_or_the_repo(tmp_path):

@@ -69,7 +69,7 @@ def _data(n=64, seed=7, dim=144, pdfs=20):
 
 def _nets():
     jnet = j_make_convnet(JCfg(**CFG))
-    tnet = make_convnet(ConvnetConfig(**CFG), fused=False)
+    tnet = make_convnet(ConvnetConfig(**CFG), fused=False, device="cpu")
     p = _jax_params(jnet)
     params_from_jax(tnet, p)
     return jnet, tnet, p
@@ -139,7 +139,8 @@ def test_train_step_bf16_storage_matches_f32():
         jax.random.PRNGKey(7)))
 
     def run(storage):
-        net = make_convnet(ConvnetConfig(**cfg), fused=False)
+        net = make_convnet(ConvnetConfig(**cfg), fused=False,
+                           device="cpu")
         net.train_storage_dtype = storage
         params_from_jax(net, init)
         opt = net.init_opt()
@@ -161,7 +162,7 @@ def test_train_step_bf16_storage_matches_f32():
 
 
 def test_train_storage_dtype_validation():
-    net = make_convnet(ConvnetConfig(**CFG))
+    net = make_convnet(ConvnetConfig(**CFG), device="cpu")
     x, y = _data(n=4)
     net.train_storage_dtype = "float16"
     with pytest.raises(ValueError, match="unsupported"):
@@ -216,7 +217,7 @@ def test_checkpoints_load_both_ways(tmp_path):
     _opt_equal(topt, jax.device_get(jopt))
     # the loaded state runs in the port
     params_from_jax(tnet, tparams)
-    tnet.train_step(opt_from_jax(topt), torch.as_tensor(x),
+    tnet.train_step(opt_from_jax(topt, "cpu"), torch.as_tensor(x),
                     torch.as_tensor(y), 0.05)
 
     path = str(tmp_path / "port.npz")
@@ -251,7 +252,7 @@ def test_train_nnet_matches_jax(monkeypatch):
                                  JTrainConfig(**kw))
     jinit = jax.device_get(jnet.init(jax.random.PRNGKey(
         int(stage_key(4, "init")[1]))))
-    tnet = make_convnet(ConvnetConfig(**cfg), fused=False)
+    tnet = make_convnet(ConvnetConfig(**cfg), fused=False, device="cpu")
     monkeypatch.setattr(tnet, "init",
                         lambda gen: params_from_jax(tnet, jinit))
     tparams, topt = train_nnet(tnet, Egs(x[100:], y[100:], w[100:]),
@@ -307,7 +308,7 @@ def _equal_alignments(corpus, lang, volumes, fn, graph_cls):
 
 def test_align_equal_and_egs_match_jax(digits):
     corpus, lang, _ = digits
-    vol = wsj.compute_fbank_volumes(corpus, 12, dither=0.0)
+    vol = wsj.compute_fbank_volumes(corpus, 12, device="cpu", dither=0.0)
     ali = _equal_alignments(corpus, lang, vol, align_equal, CompiledGraph)
     jali = _equal_alignments(corpus, lang, vol, j_align_equal, JGraph)
     for u in vol:
@@ -326,12 +327,12 @@ def test_recipe_trains_then_decodes(digits, tmp_path):
     output's -log(num_pdfs), and the decode gives words for every
     utterance."""
     corpus, lang, wp = digits
-    vol = wsj.compute_fbank_volumes(corpus, seed=1)
+    vol = wsj.compute_fbank_volumes(corpus, seed=1, device="cpu")
     ali = _equal_alignments(corpus, lang, vol, align_equal, CompiledGraph)
     t2p = lang.trans_model.trans_id_to_pdf_array()
     P = lang.trans_model.num_pdfs
     am = wsj.train(vol, ali, t2p, P, num_epochs=2, num_filters=8, seed=2,
-                   checkpoint_dir=str(tmp_path))
+                   device="cpu", checkpoint_dir=str(tmp_path))
     assert sorted(p.name for p in tmp_path.iterdir()) == [
         "epoch0.npz", "epoch1.npz", "final.npz"]
     assert isinstance(am.nnet, Nnet) and am.priors.shape == (P,)
