@@ -1,25 +1,66 @@
-// Fused log-mel filterbank over a batch of raw frames.
+// Fused log-mel filterbank over a batch of raw frames: two kernels, one
+// function.
 //
 // Replaces the TPU kernel kaldi_cnn_tpu/ops/fbank_pallas.py::_fbank_kernel.
 // Per frame: DC-offset removal over the window_size valid samples, raw log
 // energy, pre-emphasis (sample 0 is its own predecessor), analysis window,
-// real DFT as two sums against the cos/sin tables of
-// features.functional.dft_matrices, power, mel sums against the
-// mel_banks table, log floored at FLT_EPSILON.  Dither is added to the
-// frames before the kernel; energy flooring and use_energy stay in the
-// wrapper (ops/fbank.py).
+// zero padding to padded_window_size N, real DFT, power, mel sums, log
+// floored at FLT_EPSILON.  Dither is added to the frames before the kernel;
+// energy flooring and use_energy stay in the wrapper (ops/fbank.py), which
+// picks the kernel from N before the launch.
 //
-// What bounds it on an H100: the DFT is 2 * window_size * num_fft_bins
-// FMAs per frame on the CUDA cores (f32, no tensor cores) and reads the
-// same cos/sin tables for every frame.  The tables (2 x 512 x 257 f32 =
-// 1 MB at 16 kHz) stay in L2; the design makes each table element fetched
-// by a block serve FPB frames held in shared memory, so table traffic is
-// cut FPB-fold, and reads the frames four samples at a time (one float4
-// broadcast per frame for 8 FMAs), so the loop is FMA-bound rather than
-// bound by shared-memory loads.  One thread per DFT bin keeps the table
-// reads coalesced (neighbouring bins are neighbouring columns).  The
-// per-frame reductions use one warp per frame.
+// fbank_fft_kernel (kcnn_fbank_fft), for N a power of two from 64 to 2048
+// (Kaldi's round_to_power_of_two, the default: 256 at 8 kHz, 512 at
+// 16 kHz), one instantiation for each R = N / 64 in 1..32.  The Pallas
+// kernel takes the DFT as two dense products against cos/sin tables because
+// the TPU's matrix unit makes them cheap; on the H100's CUDA cores that is
+// 4 * ws * (N/2 + 1) flops a frame (411 kflop at 16 kHz) and streams an
+// 822 KB table from L2 for every 8 frames, which bounds the table kernel
+// below.  A real FFT is 2.5 N log2 N flops (11.5 kflop at 16 kHz), and what
+// is left to bound it on this card is where its data moves between the
+// steps.  A first version (one warp a frame, radix-4 Stockham passes between
+// two shared-memory buffers) took 0.046 ms on an H100 80GB HBM3 (700 W) at
+// 16 kHz x 12000 frames, 7x its bound: about 450 shared-memory wavefronts a
+// frame (eight-way bank conflicts in the early passes' stores) saturated
+// the SMs' shared-memory bandwidth.  So the FFT now lives in registers, one
+// warp a frame, 8 frames a block:
+//   * lane l holds the N/2 = 32 R complex points z[q] = x[2q] + i x[2q+1]
+//     with q = l + 32 m in its registers m < R, loaded straight from the
+//     frame (a warp request reads 256 contiguous bytes; 8-byte loads when
+//     ws is even and the frames and window are 8-byte aligned, else scalar
+//     ones);
+//   * DC removal and the energy are warp sums; pre-emphasis takes each
+//     sample's predecessor by a shuffle; the window multiplies in place;
+//   * Z = FFT(z) with k = k1 + R k2 factors into an R-point DIF in each
+//     lane's registers, a twiddle W_{N/2}^{l k1}, and a 32-point DIF across
+//     the lanes by __shfl_xor_sync (5 steps);
+//   * the real-FFT post-pass X[k] = E[k] + W_N^k O[k] (E, O from Z[k] and
+//     conj Z[N/2 - k], fetched by one shuffle) gives the N/2 + 1 bins'
+//     power, the only thing written to shared memory (stored at k + k/32,
+//     so the scattered stores do not conflict);
+//   * one lane per mel bin sums only its triangular filter's band (first
+//     bin, length, and the weights laid out [band position][bin], all
+//     precomputed on the host) and writes log(max(sum, FLT_EPSILON)); lane
+//     0 writes the energy.
+// The twiddles W_N^t = exp(-2 pi i t / N), t < N, and W_64^j, j < 64, are
+// built on the host in float64 and stored as f32 (no __sinf/__cosf); they,
+// the window and the mel bands are read through L1, which all the SM's
+// warps share.  Each lane derives its W_{N/2}^{l k1} as powers of one load,
+// and W_N^k as W_N^{k1} W_64^{k2}, so a warp's twiddle loads touch a few L1
+// lines instead of one a lane.
+//
+// fbank_kernel (kcnn_fbank), any N, the one taken when
+// round_to_power_of_two is off and N is not a power of two: the real DFT as
+// two sums against the cos/sin tables of features.functional.dft_matrices
+// and the mel sums against the dense mel_banks table.  Each table element a
+// block fetches serves FPB frames held in shared memory, the frames are read
+// four samples at a time (one float4 broadcast per frame for 8 FMAs), one
+// thread per DFT bin keeps the table reads coalesced, and one warp per frame
+// does the per-frame reductions.
 #include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <utility>
 
 namespace {
 
@@ -128,6 +169,260 @@ __global__ void fbank_kernel(const float* __restrict__ frames, int T, int ws,
   }
 }
 
+// bits-bit reversal of r, at compile time where r is.
+__host__ __device__ constexpr int bit_reverse(int r, int bits) {
+  int o = 0;
+  for (int b = 0; b < bits; ++b) o |= ((r >> b) & 1) << (bits - 1 - b);
+  return o;
+}
+
+__host__ __device__ constexpr int log2_exact(int r) {
+  return r <= 1 ? 0 : 1 + log2_exact(r >> 1);
+}
+
+// Floats of shared memory a warp: the power of bins 0..H, stored at
+// k + k / 32 so that the scattered stores of the post-pass do not conflict.
+__host__ __device__ constexpr int fft_pw_floats(int h) {
+  return (h + 2 + h / 32 + 3) & ~3;
+}
+
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
+}
+
+// One radix-2 DIF stage of half-size D over the R registers of a lane, then
+// the next; every register index is a compile-time constant, so re and im
+// stay in registers.  tw[t] = W_N^t, N = 64 R.
+template <int R, int D>
+__device__ __forceinline__ void dif_registers(float (&re)[R], float (&im)[R],
+                                              const float2* __restrict__ tw) {
+  constexpr int N = 64 * R;
+#pragma unroll
+  for (int b = 0; b < R; b += 2 * D) {
+#pragma unroll
+    for (int i = 0; i < D; ++i) {
+      const float ar = re[b + i], ai = im[b + i];
+      const float cr = re[b + i + D], ci = im[b + i + D];
+      re[b + i] = ar + cr;
+      im[b + i] = ai + ci;
+      const float dr = ar - cr, di = ai - ci;
+      if (i == 0) {
+        re[b + i + D] = dr;
+        im[b + i + D] = di;
+      } else {                                    // W_{2D}^i, the same for
+        const float2 w = __ldg(tw + i * (N / (2 * D)));   // every lane
+        re[b + i + D] = dr * w.x - di * w.y;
+        im[b + i + D] = dr * w.y + di * w.x;
+      }
+    }
+  }
+  if constexpr (D > 1) dif_registers<R, D / 2>(re, im, tw);
+}
+
+// Register r holds k1 = bitrev(r) after the DIF: multiply by W_H^{l k1},
+// the k1-th power of the lane's W_H^l.
+template <int R, int... rs>
+__device__ __forceinline__ void twiddle_registers(
+    float (&re)[R], float (&im)[R], const float2 (&pow)[R],
+    std::integer_sequence<int, rs...>) {
+  constexpr int LR = log2_exact(R);
+  (
+      [&] {
+        constexpr int k1 = bit_reverse(rs, LR);
+        const float xr = re[rs], xi = im[rs];
+        re[rs] = xr * pow[k1].x - xi * pow[k1].y;
+        im[rs] = xr * pow[k1].y + xi * pow[k1].x;
+      }(),
+      ...);
+}
+
+// The real-FFT post-pass for register r (k1 = bitrev(r)) of every lane
+// (k2 = bitrev(l)): X[k] = E + W_N^k O with E = (Z[k] + conj Z[H-k]) / 2,
+// O = -i (Z[k] - conj Z[H-k]) / 2, and Z[H-k] from register bitrev(R - k1)
+// of lane l ^ 31 (k1 > 0) or register 0 of lane bitrev(32 - k2) (k1 = 0);
+// W_N^k = W_N^{k1} W_64^{k2}.  The power of bin k goes to pw[k + k / 32].
+template <int R, int... rs>
+__device__ __forceinline__ void power_registers(
+    const float (&re)[R], const float (&im)[R], int lane,
+    const float2* __restrict__ tw, float* pw,
+    std::integer_sequence<int, rs...>) {
+  constexpr int LR = log2_exact(R), N = 64 * R;
+  const int k2 = __brev(lane) >> 27;
+  const int k2_mirror = __brev((32 - k2) & 31) >> 27;
+  const float2 w64 = __ldg(tw + N + k2);
+  (
+      [&] {
+        constexpr int k1 = bit_reverse(rs, LR);
+        constexpr int rp = k1 ? bit_reverse(R - k1, LR) : 0;
+        const int src = k1 ? lane ^ 31 : k2_mirror;
+        const float br = __shfl_sync(kFull, re[rp], src);
+        const float bi = __shfl_sync(kFull, im[rp], src);
+        const float ex = 0.5f * (re[rs] + br), ey = 0.5f * (im[rs] - bi);
+        const float ox = 0.5f * (im[rs] + bi), oy = -0.5f * (re[rs] - br);
+        const float2 w = k1 ? cmul(__ldg(tw + k1), w64) : w64;
+        const float xr = ex + w.x * ox - w.y * oy;
+        const float xi = ey + w.x * oy + w.y * ox;
+        const int k = k1 + R * k2;
+        pw[k + (k >> 5)] = xr * xr + xi * xi;
+      }(),
+      ...);
+}
+
+// One warp a frame, the N/2 = H = 32 R complex points in registers: lane l
+// holds z[q] = x[2q] + i x[2q+1] for q = l + 32 m in its registers m < R.
+// With k = k1 + R k2, Z[k] = sum_l W_32^{l k2} W_H^{l k1} sum_m W_R^{m k1}
+// z[l + 32 m]: an R-point DIF in each lane's registers (register r then
+// holds k1 = bitrev(r)), the twiddle W_H^{l k1}, and a 32-point DIF across
+// the lanes by shuffles (lane l then holds k2 = bitrev(l)).  tw holds W_N^t
+// for t < N, then W_64^j for j < 64; the per-lane twiddles are derived from
+// a few loads of it, so a warp's loads touch few L1 lines.  The window and
+// the mel bands are read through L1 too.
+template <int R>
+__global__ void __launch_bounds__(256)
+fbank_fft_kernel(const float* __restrict__ frames, int T, int ws,
+                 const float2* __restrict__ tw,
+                 const float* __restrict__ win,
+                 const int* __restrict__ bd, const float* __restrict__ bw,
+                 int M, float preemph, int remove_dc, int vec,
+                 float* __restrict__ out, float* __restrict__ energy) {
+  constexpr int N = 64 * R, H = 32 * R;
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = blockIdx.x * (blockDim.x >> 5) + warp;
+  if (t >= T) return;
+  float* pw = reinterpret_cast<float*>(smem4) + warp * fft_pw_floats(H);
+
+  // the frame: lane l, register m holds samples 2q and 2q + 1, q = l + 32 m
+  // (a warp request reads 256 contiguous bytes); past ws, zeros
+  const float* fr = frames + (size_t)t * ws;
+  float re[R], im[R];
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    const int i = 2 * (lane + 32 * m);
+    re[m] = im[m] = 0.f;
+    if (vec && i < ws) {
+      const float2 v = __ldcs(reinterpret_cast<const float2*>(fr + i));
+      re[m] = v.x;
+      im[m] = v.y;
+    } else if (!vec) {
+      if (i < ws) re[m] = __ldcs(fr + i);
+      if (i + 1 < ws) im[m] = __ldcs(fr + i + 1);
+    }
+  }
+
+  // DC removal and raw energy over the ws samples
+  float s = 0.f;
+#pragma unroll
+  for (int m = 0; m < R; ++m) s += re[m] + im[m];
+  const float mean = remove_dc ? warp_sum(s) / (float)ws : 0.f;
+  float e = 0.f;
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    const int i = 2 * (lane + 32 * m);
+    if (i < ws) re[m] -= mean;
+    if (i + 1 < ws) im[m] -= mean;
+    e = fmaf(re[m], re[m], fmaf(im[m], im[m], e));
+  }
+  e = warp_sum(e);
+  if (lane == 0) energy[t] = logf(fmaxf(e, kEpsilon));
+
+  // pre-emphasis (sample 0 is its own predecessor) and the window: the
+  // predecessor of sample 2q is sample 2q - 1, lane l - 1's odd sample, or
+  // for lane 0 lane 31's of register m - 1
+  float prev[R];
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    const float up = __shfl_up_sync(kFull, im[m], 1);
+    const float wrap = __shfl_sync(kFull, im[m > 0 ? m - 1 : 0], 31);
+    prev[m] = lane > 0 ? up : (m > 0 ? wrap : re[0]);
+  }
+#pragma unroll
+  for (int m = 0; m < R; ++m) {
+    const int i = 2 * (lane + 32 * m);
+    float2 w = make_float2(0.f, 0.f);
+    if (vec && i < ws) {
+      w = __ldg(reinterpret_cast<const float2*>(win + i));
+    } else if (!vec) {
+      if (i < ws) w.x = __ldg(win + i);
+      if (i + 1 < ws) w.y = __ldg(win + i + 1);
+    }
+    const float a = (re[m] - preemph * prev[m]) * w.x;
+    im[m] = (im[m] - preemph * re[m]) * w.y;
+    re[m] = a;
+  }
+
+  // R-point DIF in the registers, then the twiddle W_H^{l k1}
+  if constexpr (R > 1) {
+    dif_registers<R, R / 2>(re, im, tw);
+    float2 pow[R];
+    pow[0] = make_float2(1.f, 0.f);
+    pow[1] = __ldg(tw + 2 * lane);                // W_H^l = W_N^{2l}
+#pragma unroll
+    for (int j = 2; j < R; ++j) pow[j] = cmul(pow[j - 1], pow[1]);
+    twiddle_registers(re, im, pow, std::make_integer_sequence<int, R>());
+  }
+
+  // 32-point DIF across the lanes: at distance d the lower lane keeps
+  // a + b, the upper (a - b) W_{2d}^{l mod d} = W_64^{(l mod d) 32 / d}
+#pragma unroll
+  for (int step = 0; step < 5; ++step) {
+    const int d = 16 >> step;
+    const bool upper = lane & d;
+    const float sign = upper ? -1.f : 1.f;        // b + a, or b - a
+    const float2 w = upper ? __ldg(tw + N + (lane & (d - 1)) * (32 / d))
+                           : make_float2(1.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const float sr = fmaf(sign, re[r], __shfl_xor_sync(kFull, re[r], d));
+      const float si = fmaf(sign, im[r], __shfl_xor_sync(kFull, im[r], d));
+      if (d == 1) {                               // W_2^0 = 1
+        re[r] = sr;
+        im[r] = si;
+      } else {
+        re[r] = sr * w.x - si * w.y;
+        im[r] = sr * w.y + si * w.x;
+      }
+    }
+  }
+
+  // the power spectrum; bin H is (Re Z[0] - Im Z[0])^2
+  power_registers(re, im, lane, tw, pw, std::make_integer_sequence<int, R>());
+  if (lane == 0) {
+    const float x = re[0] - im[0];
+    pw[H + (H >> 5)] = x * x;
+  }
+  __syncwarp();
+
+  // mel: one lane a bin, over its band only; the weights are [len][M], so
+  // the lanes of a warp read one line a step
+  for (int m = lane; m < M; m += 32) {
+    const int first = __ldg(bd + m), len = __ldg(bd + M + m);
+    float acc = 0.f;
+#pragma unroll 4
+    for (int j = 0; j < len; ++j) {
+      const int k = first + j;
+      acc = fmaf(pw[k + (k >> 5)], __ldg(bw + j * M + m), acc);
+    }
+    out[(size_t)t * M + m] = logf(fmaxf(acc, kEpsilon));
+  }
+}
+
+template <int R>
+int launch_fft(const float* frames, int T, int ws, const float* twiddle,
+               const float* window, const int* bands, const float* band_w,
+               int M, float preemph, int remove_dc, float* out,
+               float* energy, cudaStream_t stream) {
+  constexpr int kWarps = 8;
+  const int vec =
+      ws % 2 == 0 && ((uintptr_t)frames | (uintptr_t)window) % 8 == 0;
+  const size_t smem = sizeof(float) * kWarps * fft_pw_floats(32 * R);
+  fbank_fft_kernel<R><<<(T + kWarps - 1) / kWarps, 32 * kWarps, smem,
+                        stream>>>(
+      frames, T, ws, reinterpret_cast<const float2*>(twiddle), window, bands,
+      band_w, M, preemph, remove_dc, vec, out, energy);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // frames [T, ws]; cos_t, sin_t [n >= ws, nb]; mel [M, nb]; window [ws];
@@ -152,4 +447,36 @@ extern "C" int kcnn_fbank(const float* frames, int T, int ws,
       frames, T, ws, cos_t, sin_t, nb, mel, M, window, preemph, remove_dc,
       out, energy);
   return (int)cudaGetLastError();
+}
+
+// frames [T, ws]; n = padded_window_size, a power of two in [64, 2048] with
+// ws <= n; twiddle [n + 64] complex (re, im): exp(-2 pi i t / n) for t < n,
+// then exp(-2 pi i j / 64) for j < 64; window [ws];
+// bands [2][M] (first bin, length); band_w [L][M], L the longest band, the
+// weight of filter m at bin first + j in row j (zero past its length); out
+// [T, M]; energy [T].  Returns the launch's cudaError_t
+// (cudaErrorInvalidValue for sizes it does not take).
+extern "C" int kcnn_fbank_fft(const float* frames, int T, int ws, int n,
+                              const float* twiddle, const float* window,
+                              const int* bands, const float* band_w, int M,
+                              float preemph, int remove_dc,
+                              float* out, float* energy, void* stream) {
+  if (n < 64 || n > 2048 || (n & (n - 1)) || ws <= 0 || ws > n || M <= 0)
+    return (int)cudaErrorInvalidValue;
+  if (T <= 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (n) {
+#define KCNN_FFT_CASE(R)                                                   \
+  case 64 * R:                                                             \
+    return launch_fft<R>(frames, T, ws, twiddle, window, bands, band_w, M, \
+                         preemph, remove_dc, out, energy, st);
+    KCNN_FFT_CASE(1)
+    KCNN_FFT_CASE(2)
+    KCNN_FFT_CASE(4)
+    KCNN_FFT_CASE(8)
+    KCNN_FFT_CASE(16)
+    KCNN_FFT_CASE(32)
+#undef KCNN_FFT_CASE
+  }
+  return (int)cudaErrorInvalidValue;
 }

@@ -22,16 +22,43 @@
 // Mosaic restriction), a second full copy of the input; here a thread reads
 // its window straight from the input row.
 //
-// Layout: both kernels give a thread one output element of a row and walk
-// rows along the grid's y dimension, so the element's (ot, of, oc) and its
-// window's offset are computed once (integer division, not memory, bounded
-// a first version that split a flat index per element), and the forward
-// issues a window's loads together (one load in flight a thread, compared
-// before the next was issued, held a second version to 1.4 TB/s).  Neighbouring
-// threads take neighbouring output channels, so for each window offset a
-// warp reads (forward) or writes (backward) one contiguous run of the row
-// (coalesced when pool_c = 1, the CNN recipe's case) and the maxima and
-// argmax are contiguous.  The backward writes the thread's whole window,
+// Two forward kernels; ops/maxpool.py picks one from the shape and the
+// pointers before the launch:
+//
+// * maxpool_fwd_vec_kernel (kcnn_maxpool_fwd_vec), the training path's, when
+//   pool_c = 1, in_c is a multiple of V = 16 B / element (4 f32, 8 bf16) and
+//   the input, output and argmax pointers are 16-byte aligned.  The recipe's
+//   8x30x64 and 8x30x128 conv outputs with pool 2x3x1 are.  A thread owns V
+//   consecutive channels of one output position of one row: it issues every
+//   16-byte load of its window (ld.global.nc) before the first compare,
+//   compares lane by lane (f32), or two bf16 lanes at once with bf16x2
+//   compare masks, and writes V maxima as one 16-byte streaming store
+//   (__stcs), the int8 argmax as one 4- or 8-byte store and an int32 argmax
+//   as 16-byte stores.  A warp request moves 512 B instead of the scalar
+//   kernel's 128 B (f32) or 64 B (bf16), and there is no offset table in
+//   shared memory and no __syncthreads.  The window offsets are compile-time
+//   for the recipe's pool 2x3; other pools walk (pt, pf) with two counters,
+//   eight loads in flight.  Grid: x over a row's vectors in blocks of 64
+//   threads, y over rows, so a thread splits its index into (position,
+//   vector) once.  Measured on an H100 80GB HBM3 (700 W) at the bench shape
+//   (scripts/kernel_variants.py): the L1::no_allocate and evict-first (.cs)
+//   load hints cost 1-3 % against plain ld.global.nc; in bf16 a first
+//   version's per-lane compares (unpack, two compares, three selects a
+//   lane) held the kernel to 71 % of its bound, the bf16x2 masks to 90 %.
+// * maxpool_fwd_kernel (kcnn_maxpool_fwd), any pool_c, in_c and alignment:
+//   one output element a thread, a window's offsets tabulated in shared
+//   memory, kChunk scalar loads in flight.
+//
+// Layout of the scalar kernels: both give a thread one output element of a
+// row and walk rows along the grid's y dimension, so the element's (ot, of,
+// oc) and its window's offset are computed once (integer division, not
+// memory, bounded a first version that split a flat index per element), and
+// the forward issues a window's loads together (one load in flight a thread,
+// compared before the next was issued, held a second version to 1.4 TB/s).
+// Neighbouring threads take neighbouring output channels, so for each window
+// offset a warp reads (forward) or writes (backward) one contiguous run of
+// the row (coalesced when pool_c = 1, the CNN recipe's case) and the maxima
+// and argmax are contiguous.  The backward writes the thread's whole window,
 // the derivative at the argmax and 0 elsewhere; the windows tile the input,
 // so every input element is written exactly once, with no atomics and no
 // memset pass.
@@ -47,6 +74,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int64_t kTargetBlocks = 132 * 16;
 constexpr int kChunk = 8;                   // window loads in flight
+// Threads a block of the vectorised forward: 64 divides the row's vectors
+// at every recipe shape (320, 640, 1280); 128 and 256 measured the same.
+constexpr int kVecThreads = 64;
 constexpr int kMaxWindow = 12288;           // offset table <= 48 KB
 
 __device__ __forceinline__ float to_float(float v) { return v; }
@@ -144,6 +174,150 @@ __global__ void maxpool_fwd_kernel(const T* __restrict__ x, int N, Shape s,
   }
 }
 
+__device__ __forceinline__ uint32_t word(const uint4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+__device__ __forceinline__ __nv_bfloat162 as_bf162(uint32_t u) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&u);
+}
+
+// The running window maximum of one 32-bit word of a 16-byte vector: one
+// f32 lane, or two bf16 lanes compared at once through bf16x2 masks (one
+// set.gt.bf16x2 for both).  A value greater than the maximum (strictly: the
+// first maximum wins ties) takes its place and its window index; a NaN
+// compares false, and the first NaN seen is kept aside: it is the result,
+// with the argmax `window`, as in the scalar kernel.
+template <typename T>
+struct WordMax;
+
+template <>
+struct WordMax<float> {
+  float m = -INFINITY;
+  int idx = 0;
+  bool nan = false;
+  uint32_t nan_bits = 0;
+  __device__ __forceinline__ void add(uint32_t v, int w) {
+    const float f = __uint_as_float(v);
+    if (f > m) {
+      m = f;
+      idx = w;
+    }
+    if (f != f && !nan) {
+      nan = true;
+      nan_bits = v;
+    }
+  }
+  __device__ __forceinline__ uint32_t value() const {
+    return nan ? nan_bits : __float_as_uint(m);
+  }
+  __device__ __forceinline__ int arg(int, int window) const {
+    return nan ? window : idx;
+  }
+};
+
+template <>
+struct WordMax<__nv_bfloat16> {
+  uint32_t best = 0xff80ff80u;           // -inf, -inf
+  uint32_t idx = 0, nan = 0, nan_bits = 0;   // 16 bits a lane
+  __device__ __forceinline__ void add(uint32_t v, int w) {
+    const uint32_t gt = __hgt2_mask(as_bf162(v), as_bf162(best));
+    best = (v & gt) | (best & ~gt);
+    idx = ((uint32_t)w * 0x10001u & gt) | (idx & ~gt);
+    const uint32_t is_nan = __hneu2_mask(as_bf162(v), as_bf162(v));
+    const uint32_t first = is_nan & ~nan;
+    nan_bits = (v & first) | (nan_bits & ~first);
+    nan |= is_nan;
+  }
+  __device__ __forceinline__ uint32_t value() const {
+    return (nan_bits & nan) | (best & ~nan);
+  }
+  __device__ __forceinline__ int arg(int half, int window) const {
+    return (nan >> (16 * half)) & 1 ? window
+                                    : (int)((idx >> (16 * half)) & 0xffffu);
+  }
+};
+
+// V = 16 / sizeof(T) consecutive output channels of one output position a
+// thread; the grid's x walks a row's vectors, y walks rows.  PT, PF > 0 fix
+// the pool at compile time (every load of the window in flight at once);
+// PT = PF = 0 read it from s and keep kChunk loads in flight.  Requires
+// pool_c = 1, in_c % V = 0 and 16-byte aligned x, out and arg.
+template <typename T, typename A, int PT, int PF>
+__global__ void maxpool_fwd_vec_kernel(const T* __restrict__ x, int N, Shape s,
+                                       T* __restrict__ out,
+                                       A* __restrict__ arg) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kW = PT * PF;                  // 0: the pool is runtime
+  constexpr int kLoads = kW ? kW : kChunk;     // loads in flight
+  const int pool_f = PF ? PF : s.pool_f;
+  const int window = kW ? kW : s.pool_t * s.pool_f;
+  const int e = (blockIdx.x * blockDim.x + threadIdx.x) * V;
+  if (e >= s.out_dim) return;
+  const int base = window_base(s, e);
+  for (int n = blockIdx.y; n < N; n += gridDim.y) {
+    const T* xr = x + (int64_t)n * s.in_dim + base;
+    WordMax<T> acc[4];
+    int pt = 0, pf = 0;                        // window element w0's (pt, pf)
+    for (int w0 = 0; w0 < window; w0 += kLoads) {
+      uint4 v[kLoads];
+#pragma unroll
+      for (int c = 0; c < kLoads; ++c) {
+        if (kW || w0 + c < window) {
+          // ld.global.nc; the L1::no_allocate and .cs (evict-first)
+          // variants measured 2 % slower on an H100 at the bench shape
+          v[c] = __ldg(reinterpret_cast<const uint4*>(
+              xr + (pt * s.in_f + pf) * s.in_c));
+          if (++pf == pool_f) {
+            pf = 0;
+            ++pt;
+          }
+        }
+      }
+#pragma unroll
+      for (int c = 0; c < kLoads; ++c) {
+        if (!kW && w0 + c >= window) continue;
+#pragma unroll
+        for (int q = 0; q < 4; ++q) acc[q].add(word(v[c], q), w0 + c);
+      }
+    }
+    const int64_t o = (int64_t)n * s.out_dim + e;
+    __stcs(reinterpret_cast<uint4*>(out + o),
+           make_uint4(acc[0].value(), acc[1].value(), acc[2].value(),
+                      acc[3].value()));
+    if constexpr (!std::is_void<A>::value) {
+      int a[V];
+#pragma unroll
+      for (int j = 0; j < V; ++j) {
+        if constexpr (V == 4)
+          a[j] = acc[j].arg(0, window);
+        else
+          a[j] = acc[j >> 1].arg(j & 1, window);
+      }
+      if constexpr (sizeof(A) == 1) {
+        uint32_t lo = 0, hi = 0;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) lo |= (uint32_t)(a[j] & 0xff) << (8 * j);
+        if constexpr (V == 4) {
+          __stcs(reinterpret_cast<unsigned int*>(arg + o), lo);
+        } else {
+#pragma unroll
+          for (int j = 4; j < 8; ++j)
+            hi |= (uint32_t)(a[j] & 0xff) << (8 * (j - 4));
+          __stcs(reinterpret_cast<int2*>(arg + o),
+                 make_int2((int)lo, (int)hi));
+        }
+      } else {
+#pragma unroll
+        for (int q = 0; q < V / 4; ++q)
+          __stcs(reinterpret_cast<int4*>(arg + o) + q,
+                 make_int4(a[4 * q], a[4 * q + 1], a[4 * q + 2],
+                           a[4 * q + 3]));
+      }
+    }
+  }
+}
+
 // One thread an output element, as in the forward: it writes its whole
 // window of the input derivative, the derivative at the argmax and 0
 // elsewhere.  The windows tile the input, so every element is written
@@ -215,6 +389,37 @@ int launch_fwd(const void* x, int N, const Shape& s, void* out, void* arg,
   return (int)cudaGetLastError();
 }
 
+template <typename T, typename A>
+void launch_fwd_vec_pool(const T* x, int N, const Shape& s, T* out, A* arg,
+                         cudaStream_t stream) {
+  // x over a row's vectors in blocks of kVecThreads, y over rows
+  const int vecs = s.out_dim / (16 / (int)sizeof(T));
+  const dim3 grid((vecs + kVecThreads - 1) / kVecThreads,
+                  N < 65535 ? N : 65535);
+  if (s.pool_t == 2 && s.pool_f == 3)
+    maxpool_fwd_vec_kernel<T, A, 2, 3><<<grid, kVecThreads, 0, stream>>>(
+        x, N, s, out, arg);
+  else
+    maxpool_fwd_vec_kernel<T, A, 0, 0><<<grid, kVecThreads, 0, stream>>>(
+        x, N, s, out, arg);
+}
+
+template <typename T>
+int launch_fwd_vec(const void* x, int N, const Shape& s, void* out,
+                   void* arg, int arg_bytes, cudaStream_t stream) {
+  const T* xt = static_cast<const T*>(x);
+  T* ot = static_cast<T*>(out);
+  if (arg_bytes == 0)
+    launch_fwd_vec_pool<T, void>(xt, N, s, ot, nullptr, stream);
+  else if (arg_bytes == 1)
+    launch_fwd_vec_pool<T, int8_t>(xt, N, s, ot, static_cast<int8_t*>(arg),
+                                   stream);
+  else
+    launch_fwd_vec_pool<T, int32_t>(xt, N, s, ot, static_cast<int32_t*>(arg),
+                                    stream);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_bwd(const void* d, const void* arg, int arg_bytes, int N,
                const Shape& s, void* dx, cudaStream_t stream) {
@@ -256,6 +461,35 @@ extern "C" int kcnn_maxpool_fwd(const void* x, int N, int in_t, int in_f,
   cudaStream_t st = (cudaStream_t)stream;
   return bf16 ? launch_fwd<__nv_bfloat16>(x, N, s, out, argmax, arg_bytes, st)
               : launch_fwd<float>(x, N, s, out, argmax, arg_bytes, st);
+}
+
+// The vectorised forward, with kcnn_maxpool_fwd's arguments.  Returns
+// cudaErrorInvalidValue, besides kcnn_maxpool_fwd's cases, when pool_c is
+// not 1, in_c is not a multiple of 16 B / element, or x, out or argmax is
+// not 16-byte aligned.
+extern "C" int kcnn_maxpool_fwd_vec(const void* x, int N, int in_t, int in_f,
+                                    int in_c, int pool_t, int pool_f,
+                                    int pool_c, int bf16, void* out,
+                                    void* argmax, int arg_bytes,
+                                    void* stream) {
+  Shape s;
+  if (!make_shape(in_t, in_f, in_c, pool_t, pool_f, pool_c, &s))
+    return (int)cudaErrorInvalidValue;
+  if (arg_bytes != 0 && arg_bytes != 1 && arg_bytes != 4)
+    return (int)cudaErrorInvalidValue;
+  if (arg_bytes == 1 && pool_t * pool_f >= 128)
+    return (int)cudaErrorInvalidValue;
+  if ((arg_bytes == 0) != (argmax == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const int v = bf16 ? 8 : 4;
+  if (pool_c != 1 || in_c % v || ((uintptr_t)x | (uintptr_t)out |
+                                  (uintptr_t)argmax) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (N <= 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  return bf16 ? launch_fwd_vec<__nv_bfloat16>(x, N, s, out, argmax, arg_bytes,
+                                              st)
+              : launch_fwd_vec<float>(x, N, s, out, argmax, arg_bytes, st);
 }
 
 // out_deriv [N, out_dim] (f32, or bf16 when bf16 = 1); argmax [N, out_dim] as

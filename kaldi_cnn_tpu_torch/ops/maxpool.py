@@ -15,11 +15,17 @@ so the backward routes nothing into it.
 The kernels (``csrc/maxpool.cu``) read each window straight from the
 input row: the forward writes the maxima (and the argmax), the backward
 writes every input element once, the derivative at the argmax and 0
-elsewhere.  ``maxpool3d_reference`` and ``maxpool3d_backward_reference``
-are the plain versions: a 7-D reshape with ``amax`` and ``argmax``, and
-a where-scatter.
+elsewhere.  The forward has two kernels, and ``forward_kernel`` picks
+one from the shape and the pointers before the launch: the vectorised
+kernel (16-byte loads along the channels; ``maxpool3d.launches``) when
+``pool_c == 1``, ``in_c`` is a multiple of 16 bytes' worth of elements
+and the tensors are 16-byte aligned, as the CNN recipe's are, and the
+scalar kernel (``maxpool3d_scalar``, its own count) otherwise.
+``maxpool3d_reference`` and ``maxpool3d_backward_reference`` are the
+plain versions: a 7-D reshape with ``amax`` and ``argmax``, and a
+where-scatter.
 
-A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+A CPU tensor takes the plain version; a CUDA tensor launches a kernel
 or raises.  ``MaxPool3D`` wraps both directions as an autograd function.
 """
 
@@ -103,30 +109,66 @@ def _check_values(t: torch.Tensor, name: str) -> None:
                         "take float32 or bfloat16")
 
 
-def maxpool3d(x: torch.Tensor, pool, with_argmax: bool = False):
-    """[N, in_dim] -> [N, out_dim] maxima in x's dtype, and with
-    ``with_argmax`` the [N, out_dim] window argmax."""
+def forward_kernel(pool, dtype: torch.dtype, *pointers: int) -> str:
+    """Which forward kernel takes ``pool`` on ``dtype`` values at these
+    device addresses (the input's, the output's and the argmax's):
+    ``"vector"`` when ``pool_c == 1``, ``in_c`` is a multiple of the
+    16-byte vector's elements and every address is 16-byte aligned,
+    ``"scalar"`` otherwise."""
+    lanes = 16 // dtype.itemsize
+    if (pool.pool_c == 1 and pool.in_c % lanes == 0
+            and all(p % 16 == 0 for p in pointers)):
+        return "vector"
+    return "scalar"
+
+
+def _forward(fn: str, x: torch.Tensor, pool, with_argmax: bool):
+    """Checks x, allocates the outputs and launches the forward kernel
+    ``fn``: the maxima, and the argmax with ``with_argmax``."""
     *_, in_dim, out_dim = _dims(pool)
-    if not common.on_cuda(x):
-        return maxpool3d_reference(x, pool, with_argmax)
     n = x.shape[0]
     _check_values(x, "x")
     common.require(x, "x", x.dtype, (n, in_dim))
     out = torch.empty((n, out_dim), dtype=x.dtype, device=x.device)
     arg = (torch.empty((n, out_dim), dtype=argmax_dtype(pool),
                        device=x.device) if with_argmax else None)
-    rc = common.library().kcnn_maxpool_fwd(
-        x.data_ptr(), n, pool.in_t, pool.in_f, pool.in_c, pool.pool_t,
-        pool.pool_f, pool.pool_c, int(x.dtype == torch.bfloat16),
+    rc = getattr(common.library(), fn)(
+        x.data_ptr(), n, pool.in_t, pool.in_f, pool.in_c,
+        pool.pool_t, pool.pool_f, pool.pool_c, int(x.dtype == torch.bfloat16),
         out.data_ptr(), None if arg is None else arg.data_ptr(),
         0 if arg is None else arg.element_size(),
         common.stream_ptr(x.device))
-    common.check_launch("kcnn_maxpool_fwd", rc)
-    maxpool3d.launches += 1
+    common.check_launch(fn, rc)
     return (out, arg) if with_argmax else out
 
 
+def maxpool3d_scalar(x: torch.Tensor, pool, with_argmax: bool = False):
+    """``maxpool3d`` through the scalar forward kernel, whatever the
+    shape: one output element a thread."""
+    _dims(pool)
+    if not common.on_cuda(x):
+        return maxpool3d_reference(x, pool, with_argmax)
+    res = _forward("kcnn_maxpool_fwd", x, pool, with_argmax)
+    maxpool3d_scalar.launches += 1
+    return res
+
+
+def maxpool3d(x: torch.Tensor, pool, with_argmax: bool = False):
+    """[N, in_dim] -> [N, out_dim] maxima in x's dtype, and with
+    ``with_argmax`` the [N, out_dim] window argmax.  The outputs come
+    from PyTorch's allocator, 16-byte aligned, so x decides the kernel."""
+    _dims(pool)
+    if not common.on_cuda(x):
+        return maxpool3d_reference(x, pool, with_argmax)
+    if forward_kernel(pool, x.dtype, x.data_ptr()) == "scalar":
+        return maxpool3d_scalar(x, pool, with_argmax)
+    res = _forward("kcnn_maxpool_fwd_vec", x, pool, with_argmax)
+    maxpool3d.launches += 1
+    return res
+
+
 maxpool3d.launches = 0
+maxpool3d_scalar.launches = 0
 
 
 def maxpool3d_backward(out_deriv: torch.Tensor, argmax: torch.Tensor,

@@ -20,6 +20,7 @@ from kaldi_cnn_tpu_torch.ops import maxpool as mp
 pytestmark = pytest.mark.cuda
 
 FBANK_ATOL = 1e-3   # log-mel / log energy: two f32 sums in other orders
+# (the FFT kernel against the float64 plain version: f32 rounding alone)
 CONV_TOL = 2e-4     # rtol = atol, f32 kernel vs plain with the same operands
 # wgmma kernel vs the bf16 plain version: max abs error / max|ref| (the
 # same bf16 operands, f32 sums in another order), and vs the f32 plain
@@ -216,7 +217,9 @@ def test_maxpool_kernels_match_plain(cuda, shape, dtype, rows):
     x = torch.as_tensor(rng.normal(size=(rows, in_dim)).astype(np.float32),
                         device=cuda).to(dtype)
     x[0, 5] = float("nan")                   # one window pools to NaN
-    before = (mp.maxpool3d.launches, mp.maxpool3d_backward.launches)
+    counter = (mp.maxpool3d if mp.forward_kernel(pool, dtype, x.data_ptr())
+               == "vector" else mp.maxpool3d_scalar)
+    before = (counter.launches, mp.maxpool3d_backward.launches)
     y = mp.maxpool3d(x, pool)
     y2, arg = mp.maxpool3d(x, pool, with_argmax=True)
     want, want_arg = mp.maxpool3d_reference(x, pool, with_argmax=True)
@@ -225,7 +228,7 @@ def test_maxpool_kernels_match_plain(cuda, shape, dtype, rows):
     dx = mp.maxpool3d_backward(d, arg, pool)
     want_dx = mp.maxpool3d_backward_reference(d, want_arg, pool)
     torch.cuda.synchronize()
-    assert (mp.maxpool3d.launches, mp.maxpool3d_backward.launches) == (
+    assert (counter.launches, mp.maxpool3d_backward.launches) == (
         before[0] + 2, before[1] + 1)
     assert _equal(y, want) and _equal(y2, want)
     assert arg.dtype == mp.argmax_dtype(pool) and torch.equal(arg, want_arg)
@@ -264,3 +267,157 @@ def test_maxpool_wrappers_raise_on_what_they_do_not_take(cuda):
         mp.maxpool3d_backward(y[:2], arg, pool)
     with pytest.raises(ValueError, match="devices"):
         mp.maxpool3d_backward(y, arg.cpu(), pool)
+
+
+def _fbank_frames(cuda, sr, frames, dither, bins=None, pow2=True):
+    opts = F.FbankOptions()
+    fo = opts.frame_opts
+    fo.samp_freq = float(sr)
+    fo.dither = float(dither)
+    fo.round_to_power_of_two = pow2
+    opts.mel_opts.num_bins = bins or (36 if sr == 8000 else 23)
+    n = (frames - 1) * fo.window_shift + fo.window_size
+    wave = torch.as_tensor((np_rng(sr, "fft").normal(size=n) * 1000)
+                           .astype(np.float32), device=cuda)
+    x = F.add_dither(F.extract_frames(wave, fo), fo,
+                     torch_generator(frames, "fft")).contiguous()
+    return x, opts
+
+
+@pytest.mark.parametrize("sr", [8000, 16000])
+@pytest.mark.parametrize("frames", [1, 7, 238, 12000])
+@pytest.mark.parametrize("dither", [0, 1])
+def test_fbank_fft_kernel_matches_float64_plain(cuda, sr, frames, dither):
+    """The FFT kernel (ws 200 -> N 256, ws 400 -> N 512) against the plain
+    version in float64 with float64 DFT tables."""
+    x, opts = _fbank_frames(cuda, sr, frames, dither)
+    assert fb.fbank_kernel(opts.frame_opts) == "fft"
+    before = (fb.fbank_frames.launches, fb.fbank_frames_table.launches)
+    out, energy = fb.fbank_frames(x, opts)
+    ref, ref_e = fb.fbank_reference_frames(x.double(), opts)
+    torch.cuda.synchronize()
+    assert (fb.fbank_frames.launches, fb.fbank_frames_table.launches) == (
+        before[0] + 1, before[1])
+    assert out.shape == (frames, opts.mel_opts.num_bins)
+    assert bool(torch.isfinite(out).all())
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=FBANK_ATOL)
+    np.testing.assert_allclose(energy.cpu().numpy(), ref_e.cpu().numpy(),
+                               rtol=0, atol=FBANK_ATOL)
+
+
+@pytest.mark.parametrize("sr,bins", [(8000, 36), (16000, 23), (16000, 40)])
+def test_fbank_table_kernel_runs_without_power_of_two(cuda, sr, bins):
+    """round_to_power_of_two=False (N = ws = 200 or 400) takes the table
+    kernel, which moves its own count and matches the plain version; the
+    table kernel also still takes the power-of-two sizes."""
+    x, opts = _fbank_frames(cuda, sr, 301, 1, bins, pow2=False)
+    assert fb.fbank_kernel(opts.frame_opts) == "table"
+    before = (fb.fbank_frames.launches, fb.fbank_frames_table.launches)
+    out, energy = fb.fbank_frames(x, opts)
+    ref, ref_e = fb.fbank_reference_frames(x, opts)
+    x2, opts2 = _fbank_frames(cuda, sr, 301, 1, bins)
+    out2, _ = fb.fbank_frames_table(x2, opts2)
+    ref2, _ = fb.fbank_reference_frames(x2, opts2)
+    torch.cuda.synchronize()
+    assert (fb.fbank_frames.launches, fb.fbank_frames_table.launches) == (
+        before[0], before[1] + 2)
+    for got, want in ((out, ref), (energy, ref_e), (out2, ref2)):
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=0, atol=FBANK_ATOL)
+
+
+def test_fbank_fft_kernel_takes_misaligned_frames(cuda):
+    """Frames that start 4 bytes into an aligned buffer: the FFT kernel
+    reads them with scalar loads and still matches."""
+    x, opts = _fbank_frames(cuda, 8000, 50, 1)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == 4
+    out, energy = fb.fbank_frames(view, opts)
+    ref, ref_e = fb.fbank_reference_frames(x.double(), opts)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(out.cpu().numpy(), ref.cpu().numpy(), rtol=0,
+                               atol=FBANK_ATOL)
+    np.testing.assert_allclose(energy.cpu().numpy(), ref_e.cpu().numpy(),
+                               rtol=0, atol=FBANK_ATOL)
+
+
+def _hard_rows(rows, pool, dtype, cuda, seed=11):
+    """Rows rounded to few values (ties), with one window all -inf (row 0's
+    first), then +-inf and NaN spread over all rows."""
+    x = np.round(np_rng(seed, "hard").normal(
+        size=(rows, pool.in_t, pool.in_f, pool.in_c)) * 2).astype(np.float32)
+    x[0, :pool.pool_t, :pool.pool_f, :] = -np.inf
+    x = x.reshape(rows, -1)
+    r = np_rng(seed, "where")
+    for val in (np.inf, -np.inf, np.nan):
+        x.flat[r.integers(0, x.size, max(1, x.size // 500))] = val
+    return torch.as_tensor(x, device=cuda).to(dtype)
+
+
+@pytest.mark.parametrize("rows", [1, 67, 4096])
+@pytest.mark.parametrize("nf", [64, 128])
+@pytest.mark.parametrize("pool", [(2, 3), (1, 2)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_maxpool_vector_forward_bit_equal(cuda, rows, nf, pool, dtype):
+    """The vectorised forward on the recipe's 8x30xF conv output, with
+    and without the argmax, bit-equal to the plain version and to the
+    scalar kernel on rows holding ties, +-inf and NaN."""
+    p = mp.Pool3D(8, 30, nf, *pool, 1)
+    x = _hard_rows(rows, p, dtype, cuda)
+    assert mp.forward_kernel(p, dtype, x.data_ptr()) == "vector"
+    before = (mp.maxpool3d.launches, mp.maxpool3d_scalar.launches)
+    y = mp.maxpool3d(x, p)
+    y2, arg = mp.maxpool3d(x, p, with_argmax=True)
+    assert (mp.maxpool3d.launches, mp.maxpool3d_scalar.launches) == (
+        before[0] + 2, before[1])
+    ys, args = mp.maxpool3d_scalar(x, p, with_argmax=True)
+    want, want_arg = mp.maxpool3d_reference(x, p, with_argmax=True)
+    torch.cuda.synchronize()
+    assert want.isnan().any() and want.isinf().any()
+    assert _equal(y, want) and _equal(y2, want) and _equal(ys, want)
+    assert arg.dtype == torch.int8
+    assert torch.equal(arg, want_arg) and torch.equal(args, want_arg)
+    assert int(arg.max()) == mp.window(p)    # a NaN window
+
+
+def test_maxpool_vector_forward_int32_argmax(cuda):
+    """A 16x8 window (int32 argmax) on the vector path: the argmax leaves
+    as 16-byte stores."""
+    for dtype in (torch.float32, torch.bfloat16):
+        p = mp.Pool3D(16, 8, 16, 16, 8, 1)
+        x = _hard_rows(33, p, dtype, cuda, seed=12)
+        assert mp.forward_kernel(p, dtype, x.data_ptr()) == "vector"
+        y, arg = mp.maxpool3d(x, p, with_argmax=True)
+        want, want_arg = mp.maxpool3d_reference(x, p, with_argmax=True)
+        torch.cuda.synchronize()
+        assert arg.dtype == torch.int32 and torch.equal(arg, want_arg)
+        assert _equal(y, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_maxpool_misaligned_view_takes_the_scalar_kernel(cuda, dtype):
+    p = mp.Pool3D(8, 30, 64, 2, 3, 1)
+    x = _hard_rows(67, p, dtype, cuda)
+    buf = torch.empty(x.numel() + 1, dtype=dtype, device=cuda)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    assert mp.forward_kernel(p, dtype, view.data_ptr()) == "scalar"
+    before = (mp.maxpool3d.launches, mp.maxpool3d_scalar.launches)
+    y, arg = mp.maxpool3d(view, p, with_argmax=True)
+    want, want_arg = mp.maxpool3d_reference(x, p, with_argmax=True)
+    torch.cuda.synchronize()
+    assert (mp.maxpool3d.launches, mp.maxpool3d_scalar.launches) == (
+        before[0], before[1] + 1)
+    assert _equal(y, want) and torch.equal(arg, want_arg)
+
+
+def test_vector_kernel_refuses_what_it_does_not_take(cuda):
+    """The C entry point checks the vector conditions itself and raises
+    through the wrapper's launch check; it never falls back."""
+    p = mp.Pool3D(4, 6, 8, 2, 3, 2)
+    x = torch.zeros(4, 192, device=cuda)
+    with pytest.raises(RuntimeError, match="kcnn_maxpool_fwd_vec"):
+        mp._forward("kcnn_maxpool_fwd_vec", x, p, False)
