@@ -28,9 +28,10 @@ then runs these phases; any failure raises and the exit code is not 0.
    maxpool), the fbank wrapper's host microseconds a call, the kernel's
    bound (bytes over the HBM rate or operations over the peak rate, the
    larger) and the time of one PyTorch call computing the same function
-   where there is one (``library_ms``: F.conv2d + F.max_pool2d through
-   cuDNN; amax, max_pool3d with indices and its backward; none for
-   fbank).  The port never calls those.  The maxpool kernels must be
+   where there is one (``library_ms``, and ``library_graph_ms`` inside a
+   CUDA graph: F.conv2d + F.max_pool2d through cuDNN; amax, max_pool3d
+   with indices and its backward; none for fbank).  The port never calls
+   those.  The maxpool kernels must be
    bit-equal to their plain versions, in f32 and bf16.
 2. Slice phase: the WSJ-style recipe's serving path at the recipe's
    model width (F = 64, 2 x (Affine 1000 -> Pnorm 200 -> Normalize),
@@ -43,32 +44,48 @@ then runs these phases; any failure raises and the exit code is not 0.
 3. Replay: the same slice, same weights and dither noise, through the
    plain versions on the CPU; loglikes must agree within LOGLIKE_ATOL and
    the decoded words must be equal.
-4. Training slice: fbank volumes of the same 16 utterances on the card,
+4. Lattice slice: the recipe's production decode and scoring,
+   ``recipes.wsj.decode_and_score`` with the phase-2 model on the two
+   halves of the corpus (dev, test): fbank volumes -> loglikes_batch ->
+   decode_utterances (top-K search with lattice records on the card at
+   beam 60, max_active 2000 and the derived record capacity; lattices
+   assembled, pruned and determinized on the host) -> score_sweep on dev
+   -> best paths on test at the chosen point -> WER.  The fbank and
+   conv+maxpool launches must be > 0 and no lattice buffer may overflow;
+   each lattice's one-best must equal the host ``lattice_decode``'s on
+   the same loglikes (words; cost within LAT_COST_REL / LAT_COST_ABS)
+   and ``TopKDecoder.decode_batch``'s best path (words); a CPU replay
+   must give the same one-best words, swept point and WERs.  Prints the
+   lattices' sizes and the seconds of the frame loop, fetch, assembly +
+   prune, determinize and the sweep.
+5. Training slice: fbank volumes of the same 16 utterances on the card,
    equal alignments on the monophone graph, ``recipes.wsj.train`` at the
    recipe width for TRAIN_EPOCHS epochs (minibatch 256), then
    ``recipes.wsj.decode`` of the trained model.  The FFT fbank, the
    vectorised maxpool forward and the maxpool backward kernels must run
    in the training, the wgmma conv+maxpool kernel in the decode, and the
    trained model's valid logprob must beat the initial model's.
-5. Training replay: the same training on the CPU from the same initial
+6. Training replay: the same training on the CPU from the same initial
    parameters and egs; per-step objf, the pre-combine parameters and the
    final valid logprob must agree within the bounds below.
-6. Train-step time: ``Nnet.train_step`` at the bench shape
+7. Train-step time: ``Nnet.train_step`` at the bench shape
    (ConvnetConfig(), minibatch 4096), warm, with the maxpool kernels'
    share of it.
 
 Output: the GPU's name and power limit (nvidia-smi), the build time, one
-line per check, a JSON line {"kernels": [...]} (for each kernel its
-launches on the main path, error, ms, plain_ms, bound_ms, bound_by,
-library_ms and graph_ms, at the main path's shapes) and, last, the JSON line
-{"ok": true, "device": {...}}.  Times are for the card named on the first
-line and hold only for its power limit.
+line per check, the total seconds, a JSON line {"kernels": [...]} (for
+each kernel its launches on the main path, error, ms, plain_ms, bound_ms,
+bound_by, library_ms, graph_ms and library_graph_ms, at the main path's
+shapes) and, last, the JSON line {"ok": true, "device": {...}}.  Times
+are for the card named on the first line and hold only for its power
+limit.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
+import functools
 import json
 import os
 import shutil
@@ -83,7 +100,10 @@ import torch.nn.functional as nnf
 
 from kaldi_cnn_tpu_torch.convert import params_to_numpy
 from kaldi_cnn_tpu_torch.core.rng import np_rng, torch_generator
+from kaldi_cnn_tpu_torch.decode import topk_decoder
+from kaldi_cnn_tpu_torch.decode.decoder import lattice_decode
 from kaldi_cnn_tpu_torch.decode.graph import CompiledGraph
+from kaldi_cnn_tpu_torch.decode.lattice import shortest_path
 from kaldi_cnn_tpu_torch.decode.topk_decoder import TopKDecoder
 from kaldi_cnn_tpu_torch.features import functional as F
 from kaldi_cnn_tpu_torch.gmm.train import align_equal
@@ -115,6 +135,9 @@ CONV_BF16_REL = 0.02      # bf16 kernel vs f32 plain: max err / max|ref|
 # across a bf16 rounding boundary now and then (one bf16 step is 2^-8
 # relative)
 LOGLIKE_ATOL = 5e-2
+# lattice one-best vs the host lattice decoder on the same loglikes (the
+# JAX package's test limit)
+LAT_COST_REL, LAT_COST_ABS = 1e-4, 5e-2
 # maxpool kernels vs plain: bit-equal (both select input values)
 # training on the card vs its CPU replay (sums in other orders, cuDNN vs
 # CPU convolutions, cuSOLVER vs LAPACK eigh)
@@ -320,7 +343,7 @@ def conv_case(name, cfg, rows, dev):
              "ms": time_ms(run),
              "plain_ms": time_ms(lambda: conv2d_maxpool_reference(
                  x, w, b, conv, pt, pf, bf16=bf16)),
-             "library_ms": time_ms(lib)}
+             "library_ms": time_ms(lib), "library_graph_ms": graph_ms(lib)}
         r["bound_ms"], r["bound_by"] = bound(
             nbytes(x, w, b, got), flops, mode)
         kernel = "wgmma" if bf16 else "CUDA cores"
@@ -329,7 +352,8 @@ def conv_case(name, cfg, rows, dev):
             f"{limit}), err vs f32 plain / max|ref| {rel32:.3g}; kernel "
             f"{r['ms']:.4f} ms ({flops / r['ms'] / 1e9:.2f} TFLOP/s), plain "
             f"{r['plain_ms']:.4f} ms, library (F.conv2d {mode} + "
-            f"F.max_pool2d) {r['library_ms']:.4f} ms (max err vs plain "
+            f"F.max_pool2d) {r['library_ms']:.4f} ms, graph "
+            f"{r['library_graph_ms']:.4f} (max err vs plain "
             f"{lib_err:.3g}), bound {r['bound_ms']:.4f} ms "
             f"({r['bound_by']}, {100 * r['bound_ms'] / r['ms']:.1f}% of it)")
         if not (ok and bool(torch.isfinite(got).all())):
@@ -395,13 +419,17 @@ def maxpool_case(name, shape, rows, dtype, dev):
     k = [pt, pf, pc]
     y5, idx = nnf.max_pool3d(x5, k, return_indices=True)
     d5 = d.view(y5.shape)
-    r["fwd_library_ms"] = r["sc_fwd_library_ms"] = time_ms(lambda: x.view(
-        rows, it // pt, pt, i_f // pf, pf, ic // pc, pc).amax(dim=(2, 4, 6)))
-    r["arg_library_ms"] = r["sc_arg_library_ms"] = time_ms(
-        lambda: nnf.max_pool3d(x5, k, return_indices=True))
-    r["bwd_library_ms"] = time_ms(
-        lambda: torch.ops.aten.max_pool3d_with_indices_backward(
-            d5, x5, k, k, [0, 0, 0], [1, 1, 1], False, idx))
+    libs = {"fwd": lambda: x.view(rows, it // pt, pt, i_f // pf, pf,
+                                  ic // pc, pc).amax(dim=(2, 4, 6)),
+            "arg": lambda: nnf.max_pool3d(x5, k, return_indices=True),
+            "bwd": lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+                d5, x5, k, k, [0, 0, 0], [1, 1, 1], False, idx)}
+    for key, lib in libs.items():
+        r[f"{key}_library_ms"] = time_ms(lib)
+        r[f"{key}_library_graph_ms"] = graph_ms(lib)
+    for key in ("fwd", "arg"):
+        r[f"sc_{key}_library_ms"] = r[f"{key}_library_ms"]
+        r[f"sc_{key}_library_graph_ms"] = r[f"{key}_library_graph_ms"]
     xb, yb, ab = x.nbytes, y.nbytes, arg.nbytes
     r["fwd_bound_ms"] = r["sc_fwd_bound_ms"] = bound(xb + yb, 0, "f32")[0]
     r["arg_bound_ms"] = r["sc_arg_bound_ms"] = bound(xb + yb + ab, 0,
@@ -416,16 +444,19 @@ def maxpool_case(name, shape, rows, dtype, dev):
         f"{100 * r['fwd_bound_ms'] / r['fwd_graph_ms']:.1f}% of bound) vs "
         f"scalar {r['sc_fwd_ms']:.4f} / graph {r['sc_fwd_graph_ms']:.4f}, "
         f"plain {r['fwd_plain_ms']:.4f}, library (amax) "
-        f"{r['fwd_library_ms']:.4f}, bound {r['fwd_bound_ms']:.4f}; with "
+        f"{r['fwd_library_ms']:.4f} / graph {r['fwd_library_graph_ms']:.4f}, "
+        f"bound {r['fwd_bound_ms']:.4f}; with "
         f"argmax {r['arg_ms']:.4f} ms, graph {r['arg_graph_ms']:.4f} "
         f"({gbs(xb + yb + ab, r['arg_graph_ms']):.0f} GB/s) vs scalar "
         f"{r['sc_arg_ms']:.4f} / graph {r['sc_arg_graph_ms']:.4f}, plain "
         f"{r['arg_plain_ms']:.4f}, library (max_pool3d with indices) "
-        f"{r['arg_library_ms']:.4f}, bound {r['arg_bound_ms']:.4f}; "
+        f"{r['arg_library_ms']:.4f} / graph "
+        f"{r['arg_library_graph_ms']:.4f}, bound {r['arg_bound_ms']:.4f}; "
         f"backward {r['bwd_ms']:.4f} ms, graph {r['bwd_graph_ms']:.4f} "
         f"({gbs(yb + ab + xb, r['bwd_graph_ms']):.0f} GB/s) vs plain "
         f"{r['bwd_plain_ms']:.4f}, library (max_pool3d_with_indices_"
-        f"backward) {r['bwd_library_ms']:.4f}, bound "
+        f"backward) {r['bwd_library_ms']:.4f} / graph "
+        f"{r['bwd_library_graph_ms']:.4f}, bound "
         f"{r['bwd_bound_ms']:.4f} (bytes)")
     if not ok:
         raise AssertionError(f"maxpool kernels disagree with plain: {r}")
@@ -518,11 +549,156 @@ def wsj_model(num_pdfs: int, device) -> AmNnet:
     return AmNnet(net, num_pdfs)
 
 
+@contextlib.contextmanager
+def lattice_probes():
+    """Times the lattice path's stages (synchronising the card around
+    each), and records the loglikes decode_utterances is given and each
+    decode_batch_lattice call's (overflow, capacity).  Wraps the functions
+    where the path looks them up; restores them on exit."""
+    secs = dict.fromkeys(("decode_utterances", "frame loop", "fetch",
+                          "assembly + prune", "determinize", "score_sweep"),
+                         0.0)
+    probe = {"s": secs, "loglikes": {}, "overflow": []}
+    targets = [
+        (wsj, "decode_utterances", "decode_utterances",
+         lambda a, out: probe["loglikes"].update(a[1])),
+        (TopKDecoder, "_decode", "frame loop", None),
+        (TopKDecoder, "_fetch_lattice_run", "fetch", None),
+        (TopKDecoder, "_assemble_lattice", "assembly + prune", None),
+        (topk_decoder, "determinize_lattice", "determinize", None),
+        (wsj, "score_sweep", "score_sweep", None),
+        (TopKDecoder, "decode_batch_lattice", None,
+         lambda a, out: probe["overflow"].append(
+             (a[0].last_overflow, a[0].A_lat)))]
+
+    def wrap(fn, key, after):
+        @functools.wraps(fn)
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            if key:
+                secs[key] += time.perf_counter() - t
+            if after:
+                after(a, out)
+            return out
+        return run
+
+    saved = [(owner, name, getattr(owner, name))
+             for owner, name, _, _ in targets]
+    try:
+        for owner, name, key, after in targets:
+            setattr(owner, name, wrap(getattr(owner, name), key, after))
+        yield probe
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def one_best(lats):
+    """utt -> (words, cost) of each lattice's best path at the recipe's
+    acoustic scale."""
+    out = {}
+    for u, lat in lats.items():
+        _, w, c = shortest_path(lat, acoustic_scale=wsj.ACOUSTIC_SCALE)
+        out[u] = (w.tolist(), c)
+    return out
+
+
+def lattice_slice(am, am_cpu, corpus, hclg, word_table, dec):
+    """Phase 4: wsj.decode_and_score on the card (dev and test halves of
+    the corpus), held against the host lattice decoder and ``dec``'s best
+    path on the same loglikes, and replayed on the CPU."""
+    dev_c, test_c = corpus.split(0.5)
+    fbank_frames.launches = fbank_ops.fbank_frames_table.launches = 0
+    conv2d_maxpool.launches = conv2d_maxpool_f32.launches = 0
+    with lattice_probes() as probe:
+        t = time.perf_counter()
+        res = wsj.decode_and_score(am, dev_c, test_c, hclg, word_table,
+                                   seed=SEED)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t
+    launches = {"fbank_fft": fbank_frames.launches,
+                "conv_maxpool": conv2d_maxpool.launches}
+    lats, lls = res["lattices"], probe["loglikes"]
+    best = one_best(lats)
+    ns = [lat.num_states for lat in lats.values()]
+    na = [lat.num_arcs for lat in lats.values()]
+    sec = probe["s"]
+    log(f"lattice slice: {len(lats)} utterances ({len(dev_c.waves)} dev, "
+        f"{len(test_c.waves)} test), launches {launches}, "
+        f"decode_batch_lattice calls {len(probe['overflow'])}, (overflow, "
+        f"A_lat) {sorted(set(probe['overflow']))}; determinized lattices: "
+        f"states {sum(ns)} total / {max(ns)} largest, arcs {sum(na)} total "
+        f"/ {max(na)} largest; wsj.decode_and_score {total_s:.3f} s: "
+        f"decode_utterances {sec['decode_utterances']:.3f} s (frame loop "
+        f"{sec['frame loop']:.3f}, fetch {sec['fetch']:.3f}, assembly + "
+        f"prune {sec['assembly + prune']:.3f}, determinize "
+        f"{sec['determinize']:.3f}), score_sweep {sec['score_sweep']:.3f} "
+        f"s; dev WER {res['dev_wer']:.2f}% at {res['point']}, test WER "
+        f"{res['wer']:.2f}% ({res['errors']} errors / {res['words']} words; "
+        f"random weights, not asserted)")
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"a kernel did not run on the lattice slice: "
+                             f"{launches}")
+    if sorted(lats) != sorted(corpus.waves) or sorted(lls) != sorted(lats):
+        raise AssertionError("the lattice slice lost utterances")
+    if any(ov != (0, 0) for ov, _ in probe["overflow"]):
+        raise AssertionError(f"lattice overflow: {probe['overflow']}")
+
+    # the host lattice decoder and the best-path search on the same
+    # loglikes: K = min(2000, states) covers every state, so all three
+    # are exact Viterbi
+    t = time.perf_counter()
+    host = one_best({u: lattice_decode(
+        hclg, ll, acoustic_scale=wsj.ACOUSTIC_SCALE, beam=60.0,
+        lattice_beam=8.0, max_active=2000) for u, ll in lls.items()})
+    host_s = time.perf_counter() - t
+    utts = sorted(lls)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    paths = dec.decode_batch([lls[u] for u in utts])
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t
+    bad_host = [u for u in utts if best[u][0] != host[u][0] or abs(
+        best[u][1] - host[u][1]) > LAT_COST_ABS + LAT_COST_REL * abs(
+            host[u][1])]
+    bad_path = [u for u, (_, w, _) in zip(utts, paths)
+                if best[u][0] != w.tolist()]
+    log(f"lattice vs host lattice_decode ({host_s:.1f} s, same loglikes, "
+        f"beam 60, lattice beam 8): one-best words and costs (limit rel "
+        f"{LAT_COST_REL} / abs {LAT_COST_ABS}) differ on {bad_host}; vs "
+        f"decode_batch best path (warm, {batch_s:.3f} s for the "
+        f"{len(utts)} utterances in one batch) words differ on {bad_path}")
+    if bad_host or bad_path:
+        raise AssertionError("the lattice one-best disagrees with the host "
+                             "lattice decoder or the best-path search")
+
+    t = time.perf_counter()
+    res_c = wsj.decode_and_score(am_cpu, dev_c, test_c, hclg, word_table,
+                                 seed=SEED)
+    cpu_s = time.perf_counter() - t
+    best_c = one_best(res_c["lattices"])
+    same = all(best[u][0] == best_c[u][0] for u in utts)
+    log(f"lattice replay on cpu ({cpu_s:.1f} s): one-best words equal: "
+        f"{same}, test hyps at the point equal: "
+        f"{res_c['hyps'] == res['hyps']}; point {res_c['point']} vs "
+        f"{res['point']}, dev WER "
+        f"{res_c['dev_wer']:.2f}% vs {res['dev_wer']:.2f}%, test WER "
+        f"{res_c['wer']:.2f}% vs {res['wer']:.2f}%")
+    if not same or any(res_c[k] != res[k]
+                       for k in ("point", "dev_wer", "wer")):
+        raise AssertionError("the card's lattice slice disagrees with the "
+                             "CPU replay")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
               "test runs on an NVIDIA GPU", file=sys.stderr)
         return 1
+    t_start = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -645,7 +821,10 @@ def main() -> int:
     if ll_err > LOGLIKE_ATOL or not same_words or not cost_ok:
         raise AssertionError("the card's slice disagrees with the CPU replay")
 
-    # ---- 4. training slice ----------------------------------------------
+    # ---- 4. lattice slice -----------------------------------------------
+    lattice_slice(am, am_cpu, corpus, hclg, lang.word_table, dec)
+
+    # ---- 5. training slice ----------------------------------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         fbank_frames.launches = fbank_ops.fbank_frames_table.launches = 0
@@ -701,7 +880,7 @@ def main() -> int:
         if dec_launches <= 0:
             raise AssertionError("conv_maxpool did not run in the decode")
 
-        # ---- 5. training replay on the CPU --------------------------------
+        # ---- 6. training replay on the CPU --------------------------------
         am_c, cpu_s, objfs_c, last_c = train_slice(
             tvols, ali, t2p, num_pdfs, "cpu", os.path.join(tmp, "cpu"))
     finally:
@@ -720,7 +899,7 @@ def main() -> int:
         raise AssertionError("the card's training disagrees with the CPU "
                              "replay")
 
-    # ---- 6. train-step time at the bench shape ---------------------------
+    # ---- 7. train-step time at the bench shape ---------------------------
     warm_ms, steady_ms = train_step_ms(dev)
     mp_ms = mp_bench["arg_ms"] + mp_bench["bwd_ms"]
     log(f"train step bench (ConvnetConfig(), mb {BENCH_TRAIN_ROWS}, f32 "
@@ -738,7 +917,8 @@ def main() -> int:
                 "bound_ms": r.get(f"{pre}bound_ms"),
                 "bound_by": r.get("bound_by", "bytes"),
                 "library_ms": r.get(f"{pre}library_ms"),
-                "graph_ms": r.get(f"{pre}graph_ms")}
+                "graph_ms": r.get(f"{pre}graph_ms"),
+                "library_graph_ms": r.get(f"{pre}library_graph_ms")}
 
     # maxpool at the training slice's shape (8x30x64, f32, 256 rows, the
     # argmax kept); the error is the largest over every maxpool case
@@ -760,6 +940,7 @@ def main() -> int:
         entry("maxpool_bwd", "maxpool.cu", "maxpool_pallas.py:43",
               train_launches["maxpool_bwd"], mp_wsj, "bwd_"),
     ]
+    log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

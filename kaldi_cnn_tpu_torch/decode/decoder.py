@@ -1,7 +1,9 @@
-"""Host Viterbi forced alignment over CSR-packed graphs: verbatim twin
-of ``viterbi_align`` and its helpers in ``kaldi_cnn_tpu/decode/decoder.py``
-(ref: src/decoder/faster-decoder.{h,cc}), importable without jax (the JAX
-package's ``decode/__init__.py`` imports the jax decoders).  Like the
+"""Host Viterbi decoders over CSR-packed graphs: verbatim twin of
+``kaldi_cnn_tpu/decode/decoder.py`` (forced alignment ``viterbi_align``,
+best path ``viterbi_decode``, the lattice decoder ``lattice_decode`` and
+their helpers; ref: src/decoder/faster-decoder.{h,cc},
+lattice-faster-decoder.cc), importable without jax (the JAX package's
+``decode/__init__.py`` imports the jax decoders).  Like the
 original it uses the C++ core (the port's copy in ``native``) when a
 toolchain is there, else numpy.
 """
@@ -191,6 +193,130 @@ def _viterbi(
             np.asarray(olabels[::-1], np.int32), best_cost)
 
 
+def lattice_decode(
+    graph: CompiledGraph,
+    loglikes: np.ndarray,
+    acoustic_scale: float = 0.1,
+    beam: float = 16.0,
+    lattice_beam: float = 8.0,
+    max_active: int = 7000,
+):
+    """Lattice-generating beam decode (ref: lattice-faster-decoder.cc
+    LatticeFasterDecoder::Decode + GetRawLattice + final PruneLattice):
+    the forward pass keeps, per frame, every within-beam arc into every
+    surviving state (not just the Viterbi-best), then the raw lattice is
+    pruned backward to ``lattice_beam``.  Acoustic costs are stored
+    unscaled for downstream rescoring sweeps."""
+    from kaldi_cnn_tpu_torch.decode.lattice import Lattice, prune_lattice
+    g = graph
+    T = loglikes.shape[0]
+    am_raw = -loglikes  # unscaled acoustic costs
+
+    # node bookkeeping: one lattice state per (frame, graph state)
+    state_time: List[int] = []
+    a_src: List[np.ndarray] = []
+    a_dst: List[np.ndarray] = []
+    a_il: List[np.ndarray] = []
+    a_ol: List[np.ndarray] = []
+    a_g: List[np.ndarray] = []
+    a_ac: List[np.ndarray] = []
+
+    def new_nodes(states: np.ndarray, t: int) -> np.ndarray:
+        base = len(state_time)
+        state_time.extend([t] * len(states))
+        node = np.full(g.num_states, -1, np.int64)
+        node[states] = np.arange(base, base + len(states))
+        return node
+
+    def record(src_nodes, dst_nodes, il, ol, gw, ac):
+        a_src.append(np.asarray(src_nodes, np.int64))
+        a_dst.append(np.asarray(dst_nodes, np.int64))
+        a_il.append(np.asarray(il, np.int32))
+        a_ol.append(np.asarray(ol, np.int32))
+        a_g.append(np.asarray(gw, np.float32))
+        a_ac.append(np.asarray(ac, np.float32))
+
+    def record_eps(cost: np.ndarray, node: np.ndarray, cutoff: float):
+        if g.num_eps_arcs == 0:
+            return
+        keep = np.nonzero(
+            (node[g.n_src] >= 0) & (node[g.n_dst] >= 0)
+            & (cost[g.n_src] + g.n_weight <= cutoff))[0]
+        if len(keep):
+            record(node[g.n_src[keep]], node[g.n_dst[keep]],
+                   np.zeros(len(keep), np.int32), g.n_olabel[keep],
+                   g.n_weight[keep], np.zeros(len(keep), np.float32))
+
+    trace = _Trace()
+    cost = np.full(g.num_states, INF, np.float32)
+    tok = np.zeros(g.num_states, np.int64)
+    cost[g.start] = 0.0
+    cost, tok = _eps_expand(g, cost, tok, trace)
+    if np.isfinite(beam):
+        cost[cost > cost.min() + beam] = INF
+    active = np.nonzero(np.isfinite(cost))[0]
+    node = new_nodes(active, 0)
+    record_eps(cost, node, float(cost.min() + (beam if np.isfinite(beam)
+                                               else 1e30)))
+
+    for t in range(T):
+        src_cost = cost[g.e_src]
+        cand = (src_cost + g.e_weight
+                + acoustic_scale * am_raw[t, g.e_pdf])
+        new_cost, _ = _group_min(g.e_dst, cand, g.num_states)
+        cutoff = float(new_cost.min() + beam) if np.isfinite(beam) \
+            else float("inf")
+        surviving = new_cost <= cutoff
+        if max_active and surviving.sum() > max_active:
+            kth = np.partition(new_cost, max_active)[max_active]
+            cutoff = min(cutoff, float(kth))
+            surviving = new_cost <= cutoff
+        new_cost[~surviving] = INF
+        # eps closure on costs (cheap trace reuse; lattice arcs recorded
+        # separately below)
+        tok2 = np.zeros(g.num_states, np.int64)
+        new_cost, tok2 = _eps_expand(g, new_cost, tok2, trace)
+        new_cost[new_cost > cutoff] = INF
+        act2 = np.nonzero(np.isfinite(new_cost))[0]
+        if len(act2) == 0:
+            break
+        node2 = new_nodes(act2, t + 1)
+        # record emitting arcs into surviving states
+        keep = np.nonzero((node[g.e_src] >= 0) & (node2[g.e_dst] >= 0)
+                          & (cand <= cutoff))[0]
+        if len(keep):
+            record(node[g.e_src[keep]], node2[g.e_dst[keep]],
+                   g.e_ilabel[keep], g.e_olabel[keep], g.e_weight[keep],
+                   am_raw[t, g.e_pdf[keep]])
+        record_eps(new_cost, node2, cutoff)
+        cost, node = new_cost, node2
+
+    n = len(state_time)
+    final_graph = np.full(n, INF, np.float32)
+    last = node >= 0
+    final_graph[node[last]] = g.final[last]
+    lat = Lattice(
+        num_states=n, start=0,
+        state_time=np.asarray(state_time, np.int32),
+        arc_src=(np.concatenate(a_src) if a_src
+                 else np.zeros(0, np.int64)).astype(np.int32),
+        arc_dst=(np.concatenate(a_dst) if a_dst
+                 else np.zeros(0, np.int64)).astype(np.int32),
+        arc_ilabel=np.concatenate(a_il) if a_il else np.zeros(0, np.int32),
+        arc_olabel=np.concatenate(a_ol) if a_ol else np.zeros(0, np.int32),
+        arc_graph=np.concatenate(a_g) if a_g else np.zeros(0, np.float32),
+        arc_acoustic=(np.concatenate(a_ac) if a_ac
+                      else np.zeros(0, np.float32)),
+        final_graph=final_graph,
+    )
+    if not np.isfinite(lat.final_graph).any():
+        # no token reached a final state: make best last-frame states
+        # final with zero cost (ref: GetRawLattice use_final_probs=false)
+        lat.final_graph[node[last]] = 0.0
+    return prune_lattice(lat, lattice_beam, lm_scale=1.0,
+                         acoustic_scale=acoustic_scale)
+
+
 def viterbi_align(
     graph: CompiledGraph,
     loglikes: np.ndarray,
@@ -204,3 +330,17 @@ def viterbi_align(
     if len(tids) != loglikes.shape[0]:
         return None
     return tids
+
+
+def viterbi_decode(
+    graph: CompiledGraph,
+    loglikes: np.ndarray,
+    acoustic_scale: float = 0.1,
+    beam: float = 16.0,
+    max_active: int = 7000,
+    word_ins_penalty: float = 0.0,
+) -> Tuple[np.ndarray, np.ndarray, float]:
+    """Best-path decode: returns (alignment tids, word ids, cost)
+    (ref: gmm-latgen-faster / nnet-latgen-faster best path)."""
+    return _viterbi(graph, loglikes, acoustic_scale, beam, max_active,
+                    word_ins_penalty=word_ins_penalty)

@@ -1,9 +1,11 @@
-"""Batched top-K beam search over a CSR-packed HCLG, best path only.
+"""Batched top-K beam search over a CSR-packed HCLG, with on-device
+lattice records.
 
 Port of ``kaldi_cnn_tpu/decode/topk_decoder.py`` (``TopKGraph``,
-``_recombine_topk``, ``_lookup`` and the best-path part of
-``TpuTopKDecoder``) to PyTorch (ref: src/decoder/lattice-faster-decoder.cc
-ProcessEmitting / ProcessNonemitting / PruneActiveTokens):
+``_recombine_topk``, ``_lookup``, ``TpuTopKDecoder`` and
+``decode_utterances``) to PyTorch (ref:
+src/decoder/lattice-faster-decoder.cc ProcessEmitting /
+ProcessNonemitting / PruneActiveTokens / GetRawLattice):
 
   tokens   = K active (state, cost) pairs per utterance, kept sorted by
              state so that membership lookup is a binary search;
@@ -15,23 +17,36 @@ ProcessEmitting / ProcessNonemitting / PruneActiveTokens):
              acoustic lookahead;
   eps      = the same expand/recombine on the eps arcs, iterated to the
              eps-DAG depth;
-  backptrs = one resolution pass per frame; the host walks them back.
+  backptrs = best path: one resolution pass per frame; the host walks
+             them back;
+  lattice  = or, per frame, every within-lattice-beam candidate arc
+             between surviving tokens compacted into a fixed-size record
+             buffer kept on the device; after the frame loop the records
+             are compressed on the device, cross to the host in one
+             transfer and become a ``Lattice`` there (assembled, pruned
+             and optionally determinized).
 
 ``vmap`` over utterances is an explicit leading batch dimension, and
 ``lax.scan`` over frames is a Python loop of tensor ops on the device.
-Lattice emission, the on-device backtrace and the mesh are not ported
+The on-device best-path backtrace, the mesh and streaming are not ported
 yet.  ``TopKGraph`` is a copy of the JAX package's numpy packing (the
 port imports nothing of that package).
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as nnf
 
+from kaldi_cnn_tpu_torch.core.logging import get_logger
 from kaldi_cnn_tpu_torch.decode.graph import CompiledGraph
+from kaldi_cnn_tpu_torch.decode.lattice import (Lattice, determinize_lattice,
+                                                prune_lattice)
+
+logger = get_logger(__name__)
 
 BIG = np.float32(1e30)
 INVALID = np.int32(2**31 - 1)
@@ -271,17 +286,25 @@ def _lookup(sorted_states, values, query, default):
 
 
 class TopKDecoder:
-    """Batched top-K beam decoder, best path only (counterpart of
-    ``kaldi_cnn_tpu.decode.topk_decoder.TpuTopKDecoder``).
+    """Batched top-K beam decoder with optional lattice records
+    (counterpart of ``kaldi_cnn_tpu.decode.topk_decoder.TpuTopKDecoder``).
 
     Exact Viterbi whenever ``max_active`` covers all simultaneously
     alive states and the beam is generous; otherwise the usual beam
     search approximation.  Per frame the token sets of all utterances
     advance together as [B, K] tensors on ``device``; the frame loop is a
-    Python loop.  The backtrace runs on the host."""
+    Python loop.  ``decode_batch`` backtraces the best path on the host;
+    ``decode_batch_lattice`` keeps lattice records on the device and
+    builds the lattices on the host.
+
+    ``lattice_arcs_per_frame``: per-frame lattice record capacity.  0
+    disables lattice output (best path only); None derives the capacity
+    from ``max_active`` (``_derive_lattice_arcs``)."""
 
     def __init__(self, graph: CompiledGraph, beam: float = 16.0,
                  max_active: int = 2048, acoustic_scale: float = 0.1,
+                 lattice_beam: float = 8.0,
+                 lattice_arcs_per_frame: Optional[int] = 0,
                  max_emit_deg: int = 16, max_eps_deg: int = 8,
                  device="cuda"):
         self.g0 = graph
@@ -292,6 +315,12 @@ class TopKDecoder:
         self.K = int(min(max_active, g.num_states)) if max_active > 0 \
             else g.num_states
         self.acoustic_scale = float(np.float32(acoustic_scale))
+        self.lattice_beam = float(lattice_beam)
+        self.A_lat = (self._derive_lattice_arcs(self.K)
+                      if lattice_arcs_per_frame is None
+                      else int(lattice_arcs_per_frame))
+        # (arcs dropped, frames affected) of the last lattice decode
+        self.last_overflow: Optional[Tuple[int, int]] = None
         self.De = max(g.max_emit_deg, 1)
         self.Dn = max(g.max_eps_deg, 1)
         self.He = len(g.e_hub_arcs)
@@ -452,18 +481,7 @@ class TopKDecoder:
         emit_hit = (ecost_at - fc).abs() <= tol
         if self.eps_iters > 0:
             d = self.d
-            valid = fs != _INVALID
-            sc = torch.where(valid, fs, 0).long()
-            base = d["ni_off"][sc]
-            deg = d["ni_off"][sc + 1] - base
-            j = torch.arange(self.Di, device=self.device)
-            hi = max(int(self.g.num_eps_arcs) - 1, 0)
-            arc = d["ni_arc"][(base[..., None] + j).clamp_(0, hi)]
-            ok = ((j < deg[..., None]) & valid[..., None]
-                  & ~d["ni_is_hub"][sc][..., None])
-            src = torch.where(ok, d["n_src"][arc], _INVALID)
-            scost, sslot = _lookup(fs, fc, src.reshape(B, -1), _BIG)
-            scost, sslot = scost.reshape(src.shape), sslot.reshape(src.shape)
+            arc, ok, scost, sslot = self._eps_in_arcs(fs, fc)
             match = ok & (sslot >= 0) & (
                 (scost + d["n_w"][arc] - fc[..., None]).abs() <= tol)
             arc_m = torch.where(match, arc, _INVALID)
@@ -487,7 +505,9 @@ class TopKDecoder:
                     1, torch.where(hdslot >= 0, hdslot, 0)))
                 h_src = init.scatter_reduce(
                     1, seg, torch.where(win, hslot, _INVALID), "amin")[:, :K]
-                is_ihub = d["ni_is_hub"][sc] & valid
+                valid = fs != _INVALID
+                is_ihub = d["ni_is_hub"][torch.where(valid, fs, 0).long()] \
+                    & valid
                 best_arc = torch.where(is_ihub, h_arc, best_arc)
                 best_src = torch.where(is_ihub, h_src, best_src)
             eps_hit = best_arc != _INVALID
@@ -508,24 +528,125 @@ class TopKDecoder:
         return (torch.where(dead, -1, bp_arc),
                 torch.where(dead, -1, bp_prev))
 
-    def _frame(self, prev_fs, prev_fc, am_row, am_next_row):
-        """One decode frame (the best-path variant: no lattice records)."""
+    def _eps_in_arcs(self, fs, fc):
+        """Each surviving token's own eps in-arcs from the by-destination
+        in-CSR, a [B, K, Di] window (tokens of in-hub states masked out):
+        (arc ids, ok, the source's cost and slot in the active set)."""
+        d = self.d
+        valid = fs != _INVALID
+        sc = torch.where(valid, fs, 0).long()
+        base = d["ni_off"][sc]
+        deg = d["ni_off"][sc + 1] - base
+        j = torch.arange(self.Di, device=self.device)
+        hi = max(int(self.g.num_eps_arcs) - 1, 0)
+        arc = d["ni_arc"][(base[..., None] + j).clamp_(0, hi)]
+        ok = ((j < deg[..., None]) & valid[..., None]
+              & ~d["ni_is_hub"][sc][..., None])
+        src = torch.where(ok, d["n_src"][arc], _INVALID)
+        scost, sslot = _lookup(fs, fc, src.reshape(fs.shape[0], -1), _BIG)
+        return arc, ok, scost.reshape(src.shape), sslot.reshape(src.shape)
+
+    # -- lattice records ---------------------------------------------------
+    def _emit_records(self, fs, fc, cdst, ccost, srcslot, arc, ok):
+        """GetRawLattice emitting-arc records for one frame: the candidate
+        arcs into surviving tokens that pass the exact per-destination
+        lattice-beam cut ``ccost <= fc[dst] + lattice_beam`` (f32, as the
+        JAX package computes it).  An arc beyond the cut lies on no path
+        within the lattice beam of the best, so ``prune_lattice`` would
+        drop it on the host anyway."""
+        lbeam = float(np.float32(self.lattice_beam))
+        dcost, dslot = _lookup(fs, fc, cdst, _BIG)
+        keep = ok & (dslot >= 0) & (ccost <= dcost + lbeam)
+        return self._compact(keep, (srcslot, dslot, arc), self.A_lat)
+
+    def _eps_records(self, fs, fc):
+        """Same-level eps-arc records under the same per-destination cut,
+        from the by-destination in-CSR: each surviving token gathers its
+        own eps in-arcs ([K, Di] window, then the dense in-hub table) and
+        looks the source up in the active set.  The candidate order (the
+        window first, then the in-hub arcs) is the JAX package's, so the
+        compacted records come out in its order."""
+        B, K = fs.shape
+        if self.eps_iters == 0:
+            return (torch.full((B, 3, self.A_lat), -1, dtype=torch.int64,
+                               device=self.device),
+                    torch.zeros(B, dtype=torch.int32, device=self.device))
+        lbeam = float(np.float32(self.lattice_beam))
+        d = self.d
+        arc, ok, scost, sslot = self._eps_in_arcs(fs, fc)
+        keep = ok & (sslot >= 0) & (
+            scost + d["n_w"][arc] <= fc[..., None] + lbeam)
+        dslot = torch.arange(K, device=self.device)[None, :, None].expand(
+            B, K, self.Di)
+        keeps = [keep.reshape(B, -1)]
+        srcs = [sslot.reshape(B, -1)]
+        dsts = [dslot.reshape(B, -1)]
+        arcs = [arc.reshape(B, -1)]
+        if self.Hni:
+            ha, hsrc, hdst, hw = d["ni_hub"]
+            hscost, hslot = _lookup(fs, fc, hsrc.expand(B, -1), _BIG)
+            hdcost, hdslot = _lookup(fs, fc, hdst.expand(B, -1), _BIG)
+            keeps.append((hslot >= 0) & (hdslot >= 0)
+                         & (hscost + hw <= hdcost + lbeam))
+            srcs.append(hslot)
+            dsts.append(hdslot)
+            arcs.append(ha.expand(B, -1))
+        return self._compact(
+            torch.cat(keeps, -1),
+            (torch.cat(srcs, -1), torch.cat(dsts, -1), torch.cat(arcs, -1)),
+            self.A_lat)
+
+    @staticmethod
+    def _compact(mask, arrays, out_len):
+        """Compacts each row's mask-selected entries to its first
+        ``out_len`` slots, in candidate order (a stable sort of ~mask, as
+        in the JAX package).  Returns the records [B, len(arrays),
+        out_len] (int64, -1 past the row's count) and each row's TRUE
+        (unclamped) count, so that the host can detect and report an
+        overflow (count > out_len: arcs were dropped on this frame)."""
+        B, n = mask.shape
+        take = min(out_len, n)
+        order = torch.sort((~mask).to(torch.int8), dim=-1,
+                           stable=True).indices[:, :take]
+        cnt_true = mask.sum(-1, dtype=torch.int32)
+        live = torch.arange(take, device=mask.device) < cnt_true[:, None]
+        vals = torch.stack(arrays, 1).gather(
+            -1, order[:, None].expand(-1, len(arrays), -1))
+        out = torch.where(live[:, None], vals, -1)
+        if take < out_len:
+            out = nnf.pad(out, (0, out_len - take), value=-1)
+        return out, cnt_true
+
+    # -- one frame ---------------------------------------------------------
+    def _frame(self, prev_fs, prev_fc, am_row, am_next_row, lattice=False):
+        """One decode frame: (fs, fc, bp_arc, bp_prev) in the best-path
+        variant; (fs, fc, emit records, eps records) in the lattice
+        variant, which skips the backpointer pass (the best path comes
+        from the lattice itself)."""
         arc, cdst, ccost, srcslot, ok = self._expand_emit(prev_fs, prev_fc)
         pdf = self.d["e_pdf"][torch.where(ok, arc, 0)]
         ccost = torch.where(
             ok, ccost + self.acoustic_scale * am_row.gather(1, pdf), _BIG)
+        am_ext = self._am_ext(am_next_row)
+        if lattice:
+            es, ec = _recombine_topk(cdst, ccost, (), self.K, self.beam)
+            fs, fc = self._eps_fixpoint(es, ec, am_ext)
+            return (fs, fc,
+                    self._emit_records(fs, fc, cdst, ccost, srcslot, arc, ok),
+                    self._eps_records(fs, fc))
         es, ec, e_arc, e_prev = _recombine_topk(
             cdst, ccost, (arc, srcslot), self.K, self.beam)
-        fs, fc = self._eps_fixpoint(es, ec, self._am_ext(am_next_row))
+        fs, fc = self._eps_fixpoint(es, ec, am_ext)
         bp_arc, bp_prev = self._resolve_bp(fs, fc, es, ec, e_arc, e_prev)
         return fs, fc, bp_arc, bp_prev
 
     # -- full decode -------------------------------------------------------
     @torch.no_grad()
-    def _decode(self, am: torch.Tensor):
-        """am [B, T, P] raw acoustic costs (-loglikes) on the device.
-        Returns host histories fs, fc, bp_arc, bp_prev [B, T+1, K]
-        (level 0 = start token + eps closure)."""
+    def _decode(self, am: torch.Tensor, lattice: bool = False):
+        """am [B, T, P] raw acoustic costs (-loglikes) on the device; level
+        0 is the start token + eps closure.  Best path: host histories
+        fs, fc, bp_arc, bp_prev [B, T+1, K].  Lattice: ``_decode_lattice``'s
+        device histories."""
         B, T, P = am.shape
         K = self.K
         s0 = torch.full((B, K), int(_INVALID), dtype=torch.int32,
@@ -535,31 +656,65 @@ class TopKDecoder:
                         device=self.device)
         c0[:, 0] = 0.0
         fs, fc = self._eps_fixpoint(s0, c0, self._am_ext(am[:, 0]))
+        am_next = torch.cat([am[:, 1:], am[:, -1:]], dim=1)
+        if lattice:
+            return self._decode_lattice(am, am_next, fs, fc)
         root = torch.full((B, K), -1, dtype=torch.int64, device=self.device)
         levels = [(fs, fc) + self._resolve_bp(fs, fc, s0, c0, root, root)]
-        am_next = torch.cat([am[:, 1:], am[:, -1:]], dim=1)
         for t in range(T):
             levels.append(self._frame(fs, fc, am[:, t], am_next[:, t]))
             fs, fc = levels[-1][0], levels[-1][1]
         return {k: torch.stack([lv[i] for lv in levels], dim=1).cpu().numpy()
                 for i, k in enumerate(("fs", "fc", "bp_arc", "bp_prev"))}
 
+    def _decode_lattice(self, am, am_next, fs, fc):
+        """The lattice variant's frame loop.  Its histories stay on the
+        device, preallocated: fs [T+1, B, K]; emit records e_rec [T, B, 3,
+        A_lat] (row t: arcs into level t+1) with true counts e_cnt [T, B];
+        eps records n_rec [T+1, B, 3, A_lat] (row t: arcs within level t)
+        with n_cnt [T+1, B].  A record is (source slot, destination slot,
+        arc id), -1 past the count."""
+        B, T, _ = am.shape
+        i32 = dict(dtype=torch.int32, device=self.device)
+        A = self.A_lat
+        r = {"fs": torch.empty((T + 1, B, self.K), **i32),
+             "e_rec": torch.empty((T, B, 3, A), **i32),
+             "e_cnt": torch.empty((T, B), **i32),
+             "n_rec": torch.empty((T + 1, B, 3, A), **i32),
+             "n_cnt": torch.empty((T + 1, B), **i32)}
+        r["fs"][0] = fs
+        r["n_rec"][0], r["n_cnt"][0] = self._eps_records(fs, fc)
+        for t in range(T):
+            fs, fc, e, n = self._frame(fs, fc, am[:, t], am_next[:, t],
+                                       lattice=True)
+            r["fs"][t + 1] = fs
+            r["e_rec"][t], r["e_cnt"][t] = e
+            r["n_rec"][t + 1], r["n_cnt"][t + 1] = n
+        return r
+
+    @staticmethod
+    def _pad(loglikes: List[np.ndarray], pad_frames: int = 0):
+        """Host am [B, T, P] = -loglikes, zero frames padding each
+        utterance to the longest one (or to ``pad_frames``), and the true
+        lengths [B]."""
+        B = len(loglikes)
+        T = max(max(x.shape[0] for x in loglikes), pad_frames)
+        am = np.zeros((B, T, loglikes[0].shape[1]), np.float32)
+        lengths = np.zeros((B,), np.int32)
+        for i, x in enumerate(loglikes):
+            am[i, :x.shape[0]] = -x
+            lengths[i] = x.shape[0]
+        return am, lengths
+
     def decode_batch(self, loglikes: List[np.ndarray]
                      ) -> List[Tuple[np.ndarray, np.ndarray, float]]:
         """Best-path decode; per utterance (tids, word ids, total cost).
         Shorter utterances are padded to the longest; padding frames
         carry zero acoustics and are ignored by the backtrace."""
-        B = len(loglikes)
-        T = max(x.shape[0] for x in loglikes)
-        P = loglikes[0].shape[1]
-        am = np.zeros((B, T, P), np.float32)
-        lengths = np.zeros((B,), np.int32)
-        for i, x in enumerate(loglikes):
-            am[i, :x.shape[0]] = -x
-            lengths[i] = x.shape[0]
+        am, lengths = self._pad(loglikes)
         r = self._decode(torch.as_tensor(am, device=self.device))
         return [self._best_path(r, am, int(lengths[b]), b)
-                for b in range(B)]
+                for b in range(len(loglikes))]
 
     def _level(self, r, t, b):
         return tuple(r[k][b, t] for k in ("fs", "fc", "bp_arc", "bp_prev"))
@@ -676,3 +831,266 @@ class TopKDecoder:
                 return int(slots[0]), t - 1, tids, words
         # reached the start state inside level 0
         return 0, -1, tids, words
+
+    # -- lattice path ------------------------------------------------------
+    @staticmethod
+    def _derive_lattice_arcs(max_active: int) -> int:
+        """Initial per-frame lattice record capacity derived from the
+        token budget: a frame's records are the candidate arcs of the
+        <=K surviving tokens that pass the per-destination lattice-beam
+        cut, and the densest frames carry up to ~1.7*K records at the
+        reference settings (the JAX package's measurement).  2*K rounded
+        up to a power of two, at least 2048, covers that with headroom,
+        so a default-sized decode pays no auto-grow re-decode."""
+        return 1 << max(11, (2 * int(max_active) - 1).bit_length())
+
+    @staticmethod
+    def _overflow_from_counts(init_cnt, e_cnt, n_cnt, lengths, cap
+                              ) -> Tuple[int, int]:
+        """(arcs dropped, frames affected) across the batch: per-frame
+        candidate counts above A_lat mean _compact clipped that frame's
+        lattice arcs (the 'no silent caps' rule: surfaced, not
+        swallowed).  Only each utterance's own frames count."""
+        dropped, frames = 0, 0
+        for b, T in enumerate(lengths):
+            cnts = np.concatenate(
+                [init_cnt[b:b + 1], e_cnt[:T, b], n_cnt[:T, b]])
+            over = np.maximum(cnts.astype(np.int64) - cap, 0)
+            dropped += int(over.sum())
+            frames += int((over > 0).sum())
+        return dropped, frames
+
+    def _compress(self, rec, cnt, lvl0, lengths, cap):
+        """Device-side cut of one record history [R, B, 3, A] (counts
+        [R, B]; row r holds level r + lvl0) to what the host needs: per
+        utterance, the valid records of its own levels (bucket padding
+        frames drop here), in (level, record) order by a stable sort of
+        the mask, truncated to ``cap``.  Returns [B, 4, cap] (src slot,
+        dst slot, arc, level; -1 past the count) and the counts [B]."""
+        R, B, _, A = rec.shape
+        dev = rec.device
+        lvl = torch.arange(R, device=dev)[:, None, None]
+        j = torch.arange(A, device=dev)
+        ok = ((j < cnt.clamp(max=A)[..., None])
+              & (lvl + lvl0 <= lengths[:, None])
+              & (rec[:, :, 0] >= 0) & (rec[:, :, 1] >= 0))
+        ok = ok.transpose(0, 1).reshape(B, R * A)
+        take = min(cap, R * A)
+        order = torch.sort((~ok).to(torch.int8), dim=-1,
+                           stable=True).indices[:, :take]
+        n = ok.sum(-1, dtype=torch.int32).clamp(max=take)
+        row = order // A
+        idx = (row * B + torch.arange(B, device=dev)[:, None]) * (3 * A) \
+            + order % A
+        flat = rec.reshape(-1)
+        out = torch.stack([flat[idx + k * A] for k in range(3)]
+                          + [(row + lvl0).to(torch.int32)], 1)
+        live = torch.arange(take, device=dev) < n[:, None]
+        return torch.where(live[:, None], out, -1), n
+
+    def _fetch_lattice_run(self, r, lengths, e_cnt, n_cnt):
+        """Host fetch of a lattice run.  The per-frame counts are on the
+        host already; each utterance's records are compressed on the
+        device to the largest per-utterance total, and the records, their
+        counts and each utterance's final-level states cross in ONE
+        transfer."""
+        B = len(lengths)
+        A = int(self.A_lat)
+        Ls = lengths.astype(np.int64)
+        msk = np.arange(e_cnt.shape[0])[:, None] < Ls[None, :]
+        ce = int((np.minimum(e_cnt, A) * msk).sum(0).max(initial=0))
+        cn = int((np.minimum(n_cnt[1:], A) * msk).sum(0).max(initial=0)
+                 + np.minimum(n_cnt[0], A).max(initial=0))
+        L = torch.as_tensor(Ls, device=self.device)
+        e_out, e_n = self._compress(r["e_rec"], r["e_cnt"], 1, L,
+                                    max(ce, 1))
+        n_out, n_n = self._compress(r["n_rec"], r["n_cnt"], 0, L,
+                                    max(cn, 1))
+        fsT = r["fs"][L, torch.arange(B, device=self.device)]
+        parts = (e_out, e_n, n_out, n_n, fsT)
+        flat = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
+        e_out, e_n, n_out, n_n, fsT = (
+            x.reshape(p.shape) for x, p in zip(np.split(
+                flat, np.cumsum([p.numel() for p in parts])[:-1]), parts))
+        return {"e": tuple(e_out[:, k] for k in range(4)) + (e_n,),
+                "n": tuple(n_out[:, k] for k in range(4)) + (n_n,),
+                "fsT": fsT}
+
+    def decode_batch_lattice(self, loglikes: List[np.ndarray],
+                             determinize: bool = True,
+                             auto_grow: bool = True,
+                             max_grow: int = 3,
+                             pad_frames: int = 0) -> List[Lattice]:
+        """Batched lattice decode.  ``determinize`` applies word-level
+        lattice determinization to each assembled lattice (ref:
+        GetRawLattice -> DeterminizeLatticePruned), so no duplicate word
+        sequences reach rescoring.  ``auto_grow`` re-runs with doubled
+        ``lattice_arcs_per_frame`` (up to ``max_grow`` doublings) when
+        per-frame record buffers overflowed; any residual overflow is
+        logged, never silent."""
+        if self.A_lat <= 0:
+            raise ValueError("construct the decoder with "
+                             "lattice_arcs_per_frame > 0 (or None) for "
+                             "lattice output")
+        am, lengths = self._pad(loglikes, pad_frames)
+        am_dev = torch.as_tensor(am, device=self.device)
+        T = am.shape[1]
+        for attempt in range(max_grow + 1):
+            r = self._decode(am_dev, lattice=True)
+            cnt = torch.cat([r["e_cnt"], r["n_cnt"]]).cpu().numpy()
+            e_cnt, n_cnt = cnt[:T], cnt[T:]
+            dropped, frames = self._overflow_from_counts(
+                n_cnt[0], e_cnt, n_cnt[1:], lengths, self.A_lat)
+            if dropped == 0 or not auto_grow or attempt == max_grow:
+                break
+            new_cap = self.A_lat * 2
+            logger.warning(
+                "lattice buffers overflowed: %d arcs dropped on %d "
+                "frames at lattice_arcs_per_frame=%d; re-running with "
+                "%d", dropped, frames, self.A_lat, new_cap)
+            self.A_lat = new_cap
+        self.last_overflow = (dropped, frames)
+        if dropped:
+            logger.warning(
+                "lattice overflow (final): %d arcs dropped on %d frames "
+                "at lattice_arcs_per_frame=%d: lattices are thinner "
+                "than the lattice beam implies", dropped, frames,
+                self.A_lat)
+        fetch = self._fetch_lattice_run(r, lengths, e_cnt, n_cnt)
+        lats = [self._assemble_lattice(fetch, am, int(lengths[b]), b)
+                for b in range(len(loglikes))]
+        if determinize:
+            lats = [determinize_lattice(
+                lat, lm_scale=1.0, acoustic_scale=self.acoustic_scale)
+                for lat in lats]
+        return lats
+
+    def _assemble_lattice(self, fetch, am, T, b) -> Lattice:
+        """Builds one utterance's Lattice from the host fetch (numpy, as in
+        the JAX package): lattice states are the (level, slot) tokens that
+        appear as a record endpoint, arcs the records with their graph
+        weights and raw acoustic costs from the padded host ``am``; then
+        ``prune_lattice`` to the lattice beam."""
+        g = self.g
+        K = self.K
+        # compact per-utterance records (flat, -1-padded): emit entries
+        # carry their DST level, eps entries their (same-src/dst) level
+        esb, edb, eab, elv = (x[b][:int(fetch["e"][4][b])]
+                              for x in fetch["e"][:4])
+        nsb, ndb, nab, nlv = (x[b][:int(fetch["n"][4][b])]
+                              for x in fetch["n"][:4])
+        esb_c = np.clip(esb, 0, K - 1)
+        edb_c = np.clip(edb, 0, K - 1)
+        nsb_c = np.clip(nsb, 0, K - 1)
+        ndb_c = np.clip(ndb, 0, K - 1)
+
+        # number ONLY tokens that appear as a record endpoint (every
+        # beam-surviving token's achieving arc is itself a record, so
+        # connected tokens are covered; the rest would only bloat
+        # prune_lattice)
+        used = np.zeros((T + 1, K), bool)
+        used[elv - 1, esb_c] = True
+        used[elv, edb_c] = True
+        used[nlv, nsb_c] = True
+        used[nlv, ndb_c] = True
+        fsT = fetch["fsT"][b]
+        if not (len(esb) or len(nsb)):      # nothing survived: empty
+            return Lattice(
+                num_states=1, start=0,
+                state_time=np.zeros(1, np.int32),
+                arc_src=np.zeros(0, np.int32),
+                arc_dst=np.zeros(0, np.int32),
+                arc_ilabel=np.zeros(0, np.int32),
+                arc_olabel=np.zeros(0, np.int32),
+                arc_graph=np.zeros(0, np.float32),
+                arc_acoustic=np.zeros(0, np.float32),
+                final_graph=np.zeros(1, np.float32))
+        flat = used.ravel()
+        node = np.where(flat, np.cumsum(flat) - 1, -1).reshape(T + 1, K)
+        nid = max(int(flat.sum()), 1)
+        times = np.repeat(np.arange(T + 1), used.sum(axis=1))
+
+        a_src = [node[elv - 1, esb_c]]
+        a_dst = [node[elv, edb_c]]
+        a_il = [g.e_ilabel[eab]]
+        a_ol = [g.e_olabel[eab]]
+        a_gw = [g.e_w[eab]]
+        a_ac = [am[b][elv - 1, g.e_pdf[eab]]]
+        a_src.append(node[nlv, nsb_c])
+        a_dst.append(node[nlv, ndb_c])
+        a_il.append(np.zeros(len(nab), np.int32))
+        a_ol.append(g.n_olabel[nab])
+        a_gw.append(g.n_w[nab])
+        a_ac.append(np.zeros(len(nab), np.float32))
+
+        final_graph = np.full(nid, np.inf, np.float32)
+        last = used[T]
+        final_graph[node[T, last]] = g.final[
+            np.where(fsT[last] == INVALID, 0, fsT[last])]
+        lat = Lattice(
+            num_states=nid, start=0,
+            state_time=np.asarray(times, np.int32),
+            arc_src=np.concatenate(a_src).astype(np.int32),
+            arc_dst=np.concatenate(a_dst).astype(np.int32),
+            arc_ilabel=np.concatenate(a_il).astype(np.int32),
+            arc_olabel=np.concatenate(a_ol).astype(np.int32),
+            arc_graph=np.concatenate(a_gw).astype(np.float32),
+            arc_acoustic=np.concatenate(a_ac).astype(np.float32),
+            final_graph=final_graph)
+        if not np.isfinite(lat.final_graph).any():
+            lat.final_graph[node[T, last]] = 0.0
+        return prune_lattice(lat, self.lattice_beam, lm_scale=1.0,
+                             acoustic_scale=self.acoustic_scale)
+
+
+# ---------------------------------------------------------------------------
+# Production entry point: the recipe's lattice decode
+# ---------------------------------------------------------------------------
+
+def decode_utterances(graph: CompiledGraph,
+                      loglikes: Dict[str, np.ndarray],
+                      acoustic_scale: float = 0.1,
+                      beam: float = 16.0,
+                      lattice_beam: float = 8.0,
+                      max_active: int = 7000,
+                      lattice_arcs_per_frame: Optional[int] = None,
+                      batch_size: int = 16,
+                      bucket_frames: int = 128,
+                      determinize: bool = True,
+                      decoder: Optional[TopKDecoder] = None,
+                      device="cuda") -> Dict[str, Lattice]:
+    """Batched lattice decode of a keyed utterance set, the recipes'
+    decode path (ref: nnet2bin/nnet-latgen-faster.cc's role; the
+    determinization mirrors GetRawLattice -> DeterminizeLatticePruned).
+
+    Utterances are bucketed by padded length (multiples of
+    ``bucket_frames``) and decoded in batches of ``batch_size``; a short
+    last batch is padded by repeating its last utterance and the
+    duplicates are dropped.  ``lattice_arcs_per_frame=None`` derives the
+    record capacity from ``max_active``
+    (``TopKDecoder._derive_lattice_arcs``)."""
+    dec = decoder or TopKDecoder(
+        graph, beam=beam, max_active=max_active,
+        acoustic_scale=acoustic_scale, lattice_beam=lattice_beam,
+        lattice_arcs_per_frame=lattice_arcs_per_frame, device=device)
+    if dec.A_lat <= 0:
+        raise ValueError("decode_utterances needs a decoder with lattice "
+                         "records (lattice_arcs_per_frame > 0 or None)")
+    buckets: Dict[int, List[str]] = {}
+    for utt in sorted(loglikes):
+        t = loglikes[utt].shape[0]
+        tb = -(-max(t, 1) // bucket_frames) * bucket_frames
+        buckets.setdefault(tb, []).append(utt)
+    out: Dict[str, Lattice] = {}
+    for tb in sorted(buckets):
+        us = buckets[tb]
+        for i in range(0, len(us), batch_size):
+            chunk = us[i:i + batch_size]
+            lls = [np.asarray(loglikes[u], np.float32) for u in chunk]
+            n_pad = batch_size - len(chunk)
+            if n_pad:
+                lls = lls + [lls[-1]] * n_pad
+            lats = dec.decode_batch_lattice(lls, determinize=determinize,
+                                            pad_frames=tb)
+            out.update(zip(chunk, lats[:len(chunk)]))
+    return out

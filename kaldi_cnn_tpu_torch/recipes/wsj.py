@@ -5,12 +5,14 @@
   train: volumes + alignments -> spliced egs -> CNN trained with NG-SGD
          (maxpool forward/backward kernels) -> model combination -> priors
   decode: splice +-5 -> CNN acoustic model              (conv+maxpool kernel)
-       -> pseudo log-likelihoods -> top-K beam search -> words -> WER
+       -> pseudo log-likelihoods -> top-K beam search
+       -> ``decode_and_score``: lattices (``decode_utterances``: records
+          on the device, assembled, pruned and determinized on the host)
+          -> rescoring sweep on dev -> best path on test -> WER
+       -> ``decode``: the best path of ``TopKDecoder.decode_batch`` -> WER
 
-The GMM bootstrap that gives the recipe its alignments and the lattice
-path (decode_utterances, the rescoring sweep) are not ported yet:
-``train`` takes alignments from the caller and ``decode`` takes the best
-path of ``TopKDecoder.decode_batch``.
+The GMM bootstrap that gives the recipe its alignments is not ported yet:
+``train`` takes alignments from the caller.
 """
 
 from __future__ import annotations
@@ -22,12 +24,15 @@ import numpy as np
 from kaldi_cnn_tpu_torch.core.logging import Timer, get_logger
 from kaldi_cnn_tpu_torch.core.rng import np_rng
 from kaldi_cnn_tpu_torch.decode.graph import CompiledGraph
+from kaldi_cnn_tpu_torch.decode.lattice import Lattice, shortest_path
 from kaldi_cnn_tpu_torch.decode.score import wer_details
-from kaldi_cnn_tpu_torch.decode.topk_decoder import TopKDecoder
+from kaldi_cnn_tpu_torch.decode.topk_decoder import (TopKDecoder,
+                                                     decode_utterances)
 from kaldi_cnn_tpu_torch.features import functional as F
 from kaldi_cnn_tpu_torch.features.extractor import FeatureExtractor
 from kaldi_cnn_tpu_torch.models.factory import ConvnetConfig, make_convnet
 from kaldi_cnn_tpu_torch.models.nnet import AmNnet
+from kaldi_cnn_tpu_torch.recipes.rm import score_sweep
 from kaldi_cnn_tpu_torch.train.egs import Egs
 from kaldi_cnn_tpu_torch.train.trainer import TrainConfig, train_nnet
 
@@ -172,4 +177,54 @@ def decode(am: AmNnet, corpus, hclg: CompiledGraph, word_table,
         costs[utt] = cost
     res = wer_details(corpus.transcripts, hyps)
     res.update(hyps=hyps, costs=costs, loglikes=lls)
+    return res
+
+
+def nnet_decode(am: AmNnet, volumes: Dict[str, np.ndarray],
+                hclg: CompiledGraph, beam: float = 60.0,
+                max_active: int = 2000,
+                arcs_per_frame: Optional[int] = None) -> Dict[str, Lattice]:
+    """The recipe's lattice decode (wsj.py run ``nnet_decode``): one
+    padded scoring stream over all utterances, then ``decode_utterances``
+    on the model's device at acoustic scale 0.1 and lattice beam 8.
+    Returns utt -> determinized ``Lattice``."""
+    lls = am.loglikes_batch({utt: splice_volume(v, CONTEXT, CONTEXT)
+                             for utt, v in volumes.items()})
+    return decode_utterances(
+        hclg, lls, acoustic_scale=ACOUSTIC_SCALE, beam=beam,
+        lattice_beam=8.0, max_active=max_active,
+        lattice_arcs_per_frame=arcs_per_frame, device=am.nnet.device)
+
+
+def decode_and_score(am: AmNnet, dev, test, hclg: CompiledGraph, word_table,
+                     volumes: Optional[Dict[str, np.ndarray]] = None,
+                     seed: int = 0, beam: float = 60.0,
+                     max_active: int = 2000,
+                     arcs_per_frame: Optional[int] = None) -> Dict:
+    """The recipe's scoring (wsj.py run ``decode_and_score``): lattices of
+    the ``dev`` and ``test`` corpora, the rescoring sweep on dev picks the
+    (acoustic scale, word insertion penalty) point, and the test
+    lattices' best paths at that point give ``wer_details``, plus
+    ``dev_wer``, ``point``, ``hyps`` (test utt -> words) and ``lattices``
+    (utt -> Lattice, dev and test).  Fbank volumes are computed on the
+    model's device unless given in ``volumes`` (utt -> volume)."""
+    def lattices(corpus):
+        vols = (compute_fbank_volumes(corpus, seed=seed,
+                                      device=am.nnet.device)
+                if volumes is None else
+                {u: volumes[u] for u in corpus.waves})
+        return nnet_decode(am, vols, hclg, beam, max_active, arcs_per_frame)
+
+    dev_lats, test_lats = lattices(dev), lattices(test)
+    dev_wer, pt, _ = score_sweep(dev_lats, dev.transcripts, word_table)
+    logger.info("dev WER %.2f%% at %s", dev_wer, pt)
+    hyps = {}
+    for utt, lat in test_lats.items():
+        _, wids, _ = shortest_path(lat, 1.0, pt[0], pt[1])
+        hyps[utt] = [word_table.sym(int(w)) for w in wids]
+    res = wer_details(test.transcripts, hyps)
+    logger.info("test WER %.2f%% (%d err / %d words)", res["wer"],
+                res["errors"], res["words"])
+    res.update(dev_wer=dev_wer, point=pt, hyps=hyps,
+               lattices={**dev_lats, **test_lats})
     return res

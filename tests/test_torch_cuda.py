@@ -11,11 +11,16 @@ import pytest
 import torch
 
 from kaldi_cnn_tpu_torch.core.rng import np_rng, torch_generator
+from kaldi_cnn_tpu_torch.decode import topk_decoder as TK
+from kaldi_cnn_tpu_torch.decode.graph import CompiledGraph
 from kaldi_cnn_tpu_torch.features import functional as F
+from kaldi_cnn_tpu_torch.lang.arpa import make_unigram_arpa
+from kaldi_cnn_tpu_torch.lang.hclg import Lang, make_hclg_from_arpa
 from kaldi_cnn_tpu_torch.models.components import Conv2DComponent
 from kaldi_cnn_tpu_torch.ops import conv as tc
 from kaldi_cnn_tpu_torch.ops import fbank as fb
 from kaldi_cnn_tpu_torch.ops import maxpool as mp
+from kaldi_cnn_tpu_torch.recipes import synthetic
 
 pytestmark = pytest.mark.cuda
 
@@ -421,3 +426,77 @@ def test_vector_kernel_refuses_what_it_does_not_take(cuda):
     x = torch.zeros(4, 192, device=cuda)
     with pytest.raises(RuntimeError, match="kcnn_maxpool_fwd_vec"):
         mp._forward("kcnn_maxpool_fwd_vec", x, p, False)
+
+
+@pytest.mark.parametrize("n,out_len,density", [
+    (300, 64, 0.5), (5000, 2048, 0.3), (40000, 2048, 0.01), (200, 256, 1.0)])
+def test_compact_on_card_matches_cpu(cuda, n, out_len, density):
+    """Lattice record compaction: the same records in the same order and
+    the same true counts on the card as on the CPU."""
+    rng = np_rng(n, "compact")
+    mask = torch.as_tensor(rng.random((16, n)) < density)
+    arrays = tuple(torch.as_tensor(rng.integers(-1, 1 << 20, (16, n)))
+                   for _ in range(3))
+    want = TK.TopKDecoder._compact(mask, arrays, out_len)
+    got = TK.TopKDecoder._compact(mask.to(cuda),
+                                  tuple(a.to(cuda) for a in arrays), out_len)
+    assert got[0].device.type == "cuda"
+    assert torch.equal(got[0].cpu(), want[0])
+    assert torch.equal(got[1].cpu(), want[1])
+
+
+def _digits_lattice_case():
+    lex = synthetic.digits_lexicon()
+    wp = {w: 0.1 for w in lex.entries}
+    lang = Lang.create(lex)
+    g = CompiledGraph(make_hclg_from_arpa(lang, make_unigram_arpa(wp)),
+                      lang.trans_model.trans_id_to_pdf_array())
+    P = lang.trans_model.num_pdfs
+    rng = np_rng(5, "lattice")
+    lls = []
+    for T_ in (40, 55, 31, 47):
+        ll = rng.normal(size=(T_, P)).astype(np.float32)
+        path = np.repeat(rng.integers(0, P, size=T_ // 4 + 1), 4)[:T_]
+        ll[np.arange(T_), path] += 6.0
+        lls.append(ll)
+    return g, lls
+
+
+@pytest.mark.parametrize("determinize", [False, True])
+def test_decode_batch_lattice_on_card_matches_cpu(cuda, determinize):
+    """K covers every state: the card's lattices equal the CPU's arc for
+    arc (costs within 1e-5), and the search stays on the card."""
+    g, lls = _digits_lattice_case()
+    kw = dict(beam=14.0, max_active=g.num_states + 32, acoustic_scale=0.1,
+              lattice_beam=7.0, lattice_arcs_per_frame=None)
+    dec = TK.TopKDecoder(g, device=cuda, **kw)
+    assert all(v.device.type == "cuda" for v in dec.d.values()
+               if isinstance(v, torch.Tensor))
+    got = dec.decode_batch_lattice(lls, determinize=determinize)
+    want = TK.TopKDecoder(g, device="cpu", **kw).decode_batch_lattice(
+        lls, determinize=determinize)
+    assert dec.last_overflow == (0, 0)
+    for a, b in zip(got, want):
+        assert a.num_arcs > 0
+        assert (a.num_states, a.start) == (b.num_states, b.start)
+        for k in ("state_time", "arc_src", "arc_dst", "arc_ilabel",
+                  "arc_olabel"):
+            np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
+        for k in ("arc_graph", "arc_acoustic", "final_graph"):
+            np.testing.assert_allclose(getattr(a, k), getattr(b, k),
+                                       rtol=0, atol=1e-5)
+
+
+def test_decode_utterances_on_card_matches_cpu(cuda):
+    """Buckets, a padded last batch and overflow counts on the card."""
+    g, lls = _digits_lattice_case()
+    keyed = {f"u{i}": ll for i, ll in enumerate(lls)}
+    kw = dict(beam=14.0, max_active=g.num_states + 32, lattice_beam=7.0,
+              lattice_arcs_per_frame=256, batch_size=3, bucket_frames=32)
+    got = TK.decode_utterances(g, keyed, device=cuda, **kw)
+    want = TK.decode_utterances(g, keyed, device="cpu", **kw)
+    assert sorted(got) == sorted(want) == sorted(keyed)
+    for u in keyed:
+        for k in ("arc_src", "arc_dst", "arc_olabel"):
+            np.testing.assert_array_equal(getattr(got[u], k),
+                                          getattr(want[u], k))
