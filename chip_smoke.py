@@ -71,12 +71,27 @@ then runs these phases; any failure raises and the exit code is not 0.
 7. Train-step time: ``Nnet.train_step`` at the bench shape
    (ConvnetConfig(), minibatch 4096), warm, with the maxpool kernels'
    share of it.
+8. Recipe: ``recipes.wsj.run`` end to end on the card at the recipe's
+   width (F = 64) on RECIPE_UTTS utterances with RECIPE_EPOCHS epochs
+   and the matched p-norm DNN: MFCC through the fbank kernel, the GMM
+   bootstrap (mono -> triphone tree) on the host, fbank volumes, CNN and
+   DNN training, lattice decode of dev and test on the triphone HCLG,
+   the paired sign test.  The fbank kernel must run in the "mfcc" stage,
+   the fbank, maxpool forward and backward and wgmma conv kernels in the
+   run, and no lattice buffer may overflow; one utterance's MFCC from
+   the card must agree with ``mfcc_reference`` on the CPU on the same
+   noise, cepstrum c within MFCC_REL x its lifter coefficient and the
+   energy column within MFCC_ENERGY_ATOL.  Prints each stage's seconds,
+   the tree's leaves, the graph's states and K, both WERs and the sign
+   test (the WERs are not asserted).
 
 Output: the GPU's name and power limit (nvidia-smi), the build time, one
 line per check, the total seconds, a JSON line {"kernels": [...]} (for
-each kernel its launches on the main path, error, ms, plain_ms, bound_ms,
-bound_by, library_ms, graph_ms and library_graph_ms, at the main path's
-shapes) and, last, the JSON line {"ok": true, "device": {...}}.  Times
+each kernel its launches in the recipe run of phase 8, the whole main
+path, with each phase's count in ``launches_by_phase``; error, ms,
+plain_ms, bound_ms, bound_by, library_ms, graph_ms and library_graph_ms,
+at the main path's shapes) and, last, the JSON line {"ok": true,
+"device": {...}}.  Times
 are for the card named on the first line and hold only for its power
 limit.
 """
@@ -146,6 +161,13 @@ OBJF_STEP_ATOL = 1e-3     # per-step training objf
 PARAM_REL = 1e-3          # pre-combine params, per tensor ||a-b|| / ||b||
 VALID_ATOL = 1e-2         # final valid logprob
 BENCH_TRAIN_ROWS = 4096
+# the recipe run (wsj.run): cut from 160 utterances and 25 epochs
+RECIPE_UTTS = 40
+RECIPE_EPOCHS = 3
+# MFCC on the card vs mfcc_reference on the CPU: log-mel agrees to 1e-3,
+# the DCT is orthonormal and the lifter scales cepstrum c by up to 12
+MFCC_REL = 2e-3           # cepstrum c: MFCC_REL * lifter_coeffs[c]
+MFCC_ENERGY_ATOL = 1e-3   # column 0, the raw log energy
 # published H100 SXM peaks (NVIDIA data sheet, dense) for bound_ms
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -693,6 +715,115 @@ def lattice_slice(am, am_cpu, corpus, hclg, word_table, dec):
                              "CPU replay")
 
 
+def mfcc_check(corpus, dev) -> float:
+    """One utterance's MFCC through the kernel on the card against
+    mfcc_reference on the CPU, on the same dither noise (the recipe's
+    options and the stage of utterance 0); returns the largest error
+    relative to each column's limit (must be <= 1)."""
+    opts = F.MfccOptions()
+    opts.frame_opts.samp_freq = float(corpus.sample_rate)
+    opts.frame_opts.dither = 1.0
+    wave = corpus.waves[sorted(corpus.waves)[0]]
+    gen = lambda: torch_generator(SEED, "mfcc_dither", 0)
+    card = fbank_ops.mfcc(torch.as_tensor(wave, device=dev), opts, gen())
+    cpu = fbank_ops.mfcc_reference(torch.as_tensor(wave), opts, gen())
+    err = (card.cpu().double() - cpu.double()).abs().amax(dim=0).numpy()
+    limit = MFCC_REL * F.lifter_coeffs(opts.num_ceps,
+                                       opts.cepstral_lifter).astype(float)
+    limit[0] = MFCC_ENERGY_ATOL
+    worst = float((err / limit).max())
+    log(f"mfcc card vs cpu: {tuple(card.shape)} (23 bins + energy, 13 "
+        f"cepstra, dither 1 from the same generator), max |err| energy "
+        f"{err[0]:.3g} (limit {MFCC_ENERGY_ATOL}), cepstra "
+        f"{err[1:].max():.3g}; worst err / limit {worst:.3g}")
+    if card.shape != cpu.shape or not bool(torch.isfinite(card).all()) \
+            or worst > 1.0:
+        raise AssertionError("the card's MFCC disagrees with the plain "
+                             "version on the CPU")
+    return worst
+
+
+def reset_launches() -> None:
+    fbank_frames.launches = fbank_ops.fbank_frames_table.launches = 0
+    conv2d_maxpool.launches = conv2d_maxpool_f32.launches = 0
+    mp.maxpool3d.launches = mp.maxpool3d_backward.launches = 0
+    mp.maxpool3d_scalar.launches = 0
+
+
+def read_launches() -> dict:
+    return {"fbank_fft": fbank_frames.launches,
+            "fbank_table": fbank_ops.fbank_frames_table.launches,
+            "conv_maxpool": conv2d_maxpool.launches,
+            "conv_maxpool_f32": conv2d_maxpool_f32.launches,
+            "maxpool_fwd_vec": mp.maxpool3d.launches,
+            "maxpool_fwd_scalar": mp.maxpool3d_scalar.launches,
+            "maxpool_bwd": mp.maxpool3d_backward.launches}
+
+
+def recipe_phase(dev, tmp):
+    """Phase 8: wsj.run on the card, eval_dnn on; returns (launches in
+    the run, of which the "mfcc" stage's fbank launches, the result)."""
+    mfcc_launches = []
+    features = wsj.compute_features
+
+    def counted(*a, **k):
+        before = fbank_frames.launches
+        out = features(*a, **k)
+        mfcc_launches.append(fbank_frames.launches - before)
+        return out
+
+    reset_launches()
+    wsj.compute_features = counted
+    try:
+        with lattice_probes() as probe:
+            t = time.perf_counter()
+            res = wsj.run(num_utts=RECIPE_UTTS, nnet_epochs=RECIPE_EPOCHS,
+                          eval_dnn=True, seed=SEED, device=dev,
+                          exp_dir=os.path.join(tmp, "wsj"))
+            torch.cuda.synchronize()
+            total_s = time.perf_counter() - t
+    finally:
+        wsj.compute_features = features
+    launches = read_launches()
+    sec = probe["s"]
+    K = min(2000, res["graph_states"])
+    log(f"recipe: wsj.run({RECIPE_UTTS} utterances, {RECIPE_EPOCHS} epochs, "
+        f"F = 64, eval_dnn) {total_s:.3f} s; stage seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["seconds"].items())
+        + f"; MFCC fbank launches {mfcc_launches}; run launches {launches}; "
+        f"triphone tree {res['tree_leaves']} leaves, HCLG "
+        f"{res['graph_states']} states, K {K}; decode_batch_lattice calls "
+        f"{len(probe['overflow'])}, (overflow, A_lat) "
+        f"{sorted(set(probe['overflow']))}; lattice stages (CNN + DNN): "
+        f"frame loop {sec['frame loop']:.3f} s, fetch {sec['fetch']:.3f}, "
+        f"assembly + prune {sec['assembly + prune']:.3f}, determinize "
+        f"{sec['determinize']:.3f}, score_sweep {sec['score_sweep']:.3f}; "
+        f"train {res['train_audio_ss']:.1f} audio-s/s, decode RTF "
+        f"{res['decode_rtf']:.3f}; CNN dev WER {res['dev_wer']:.2f}% test "
+        f"WER {res['wer']:.2f}% ({res['errors']} errors / {res['words']} "
+        f"words), valid logprob {res['valid_logprob']:.4f}; DNN dev WER "
+        f"{res['dnn_dev_wer']:.2f}% test WER {res['dnn_wer']:.2f}%, valid "
+        f"logprob {res['dnn_valid_logprob']:.4f}; sign test: CNN better on "
+        f"{res['cnn_better_utts']} utterances, DNN on "
+        f"{res['dnn_better_utts']}, p = {res['cnn_vs_dnn_p']:.4g} (WERs "
+        f"of {RECIPE_EPOCHS} epochs, not asserted)")
+    if len(mfcc_launches) != 1 or mfcc_launches[0] <= 0:
+        raise AssertionError(f"the fbank kernel did not run in the mfcc "
+                             f"stage: {mfcc_launches}")
+    need = ("fbank_fft", "conv_maxpool", "maxpool_fwd_vec", "maxpool_bwd")
+    if min(launches[k] for k in need) <= 0:
+        raise AssertionError(f"a kernel did not run in the recipe: "
+                             f"{launches}")
+    if not probe["overflow"] or any(ov != (0, 0)
+                                    for ov, _ in probe["overflow"]):
+        raise AssertionError(f"lattice overflow: {probe['overflow']}")
+    if not (res["words"] > 0 and res["missing_utts"] == 0
+            and np.isfinite([res["valid_logprob"],
+                             res["dnn_valid_logprob"]]).all()):
+        raise AssertionError(f"the recipe's result is malformed: {res}")
+    return launches, mfcc_launches[0], res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -733,6 +864,10 @@ def main() -> int:
     slice_opts.mel_opts.num_bins = 36
     utt0 = sorted(corpus.waves)[0]
     fb = fbank_case("wsj-8k", slice_opts, corpus.waves[utt0], dev)
+    mfcc_opts = F.MfccOptions()
+    mfcc_opts.frame_opts.samp_freq = float(corpus.sample_rate)
+    fb_mfcc = fbank_case("mfcc-8k", F.mfcc_fbank_options(mfcc_opts),
+                         corpus.waves[utt0], dev)
     cb = conv_case("bench-F128", ConvnetConfig(), 4096, dev)
     cv = conv_case("wsj-F64", ConvnetConfig(num_filters=64), 4096, dev)
     for cname, c in (("bench-F128", cb), ("wsj-F64", cv)):
@@ -908,6 +1043,19 @@ def main() -> int:
         f"with argmax + backward {mp_ms:.4f} ms = "
         f"{100 * mp_ms / steady_ms:.1f}% of the steady step")
 
+    # ---- 8. the recipe end to end -----------------------------------------
+    mfcc_check(corpus, dev)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        recipe_launches, mfcc_n, _ = recipe_phase(dev, tmp)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    by_phase = {
+        "slice": {**launches, "fbank_table": table_launches,
+                  "conv_maxpool_f32": f32_launches},
+        "train": {**train_launches, "maxpool_fwd_scalar": scalar_launches},
+        "recipe": recipe_launches, "recipe_mfcc_stage": {"fbank_fft": mfcc_n}}
+
     def entry(name, source, replaces, n, r, pre=""):
         return {"name": name, "route": "cuda",
                 "source": f"kaldi_cnn_tpu_torch/csrc/{source}",
@@ -918,7 +1066,9 @@ def main() -> int:
                 "bound_by": r.get("bound_by", "bytes"),
                 "library_ms": r.get(f"{pre}library_ms"),
                 "graph_ms": r.get(f"{pre}graph_ms"),
-                "library_graph_ms": r.get(f"{pre}library_graph_ms")}
+                "library_graph_ms": r.get(f"{pre}library_graph_ms"),
+                "launches_by_phase": {p: c[name] for p, c in
+                                      by_phase.items() if name in c}}
 
     # maxpool at the training slice's shape (8x30x64, f32, 256 rows, the
     # argmax kept); the error is the largest over every maxpool case
@@ -926,20 +1076,25 @@ def main() -> int:
     mp_wsj["max_abs_err"] = max(r["max_abs_err"] for r in pools.values())
     kernels = [
         entry("fbank_fft", "fbank.cu", "fbank_pallas.py:63",
-              launches["fbank_fft"], fb),
+              recipe_launches["fbank_fft"], fb),
         entry("fbank_table", "fbank.cu", "fbank_pallas.py:63",
-              table_launches, fb["table"]),
+              recipe_launches["fbank_table"], fb["table"]),
         entry("conv_maxpool", "conv_maxpool.cu", "conv_pallas.py:43",
-              launches["conv_maxpool"], cv["bf16"]),
+              recipe_launches["conv_maxpool"], cv["bf16"]),
         entry("conv_maxpool_f32", "conv_maxpool.cu", "conv_pallas.py:43",
-              f32_launches, cv["f32"]),
+              recipe_launches["conv_maxpool_f32"], cv["f32"]),
         entry("maxpool_fwd_vec", "maxpool.cu", "maxpool_pallas.py:43",
-              train_launches["maxpool_fwd_vec"], mp_wsj, "arg_"),
+              recipe_launches["maxpool_fwd_vec"], mp_wsj, "arg_"),
         entry("maxpool_fwd_scalar", "maxpool.cu", "maxpool_pallas.py:43",
-              scalar_launches, mp_wsj, "sc_arg_"),
+              recipe_launches["maxpool_fwd_scalar"], mp_wsj, "sc_arg_"),
         entry("maxpool_bwd", "maxpool.cu", "maxpool_pallas.py:43",
-              train_launches["maxpool_bwd"], mp_wsj, "bwd_"),
+              recipe_launches["maxpool_bwd"], mp_wsj, "bwd_"),
     ]
+    # the fbank kernel at the MFCC's shape (23 bins, the energy kept)
+    kernels[0]["mfcc_8k"] = {k: fb_mfcc[k] for k in (
+        "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms")}
+    kernels[0]["max_abs_err"] = max(fb["max_abs_err"],
+                                    fb_mfcc["max_abs_err"])
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -58,3 +58,33 @@ def wer_details(refs: Dict[str, List], hyps: Dict[str, List]) -> Dict:
     return {"wer": wer, "errors": total_err, "words": total_words,
             "sub": s, "ins": i_, "del": d, "missing_utts": missing,
             "per_utt": per_utt}
+
+
+def paired_sign_test(per_utt_a: Dict[str, Tuple[int, int]],
+                     per_utt_b: Dict[str, Tuple[int, int]]) -> Dict:
+    """Matched-pairs sign test on per-utterance error counts — the
+    sclite 'matched pairs sentence segment' idea reduced to its exact
+    binomial core (ref: compute-wer per-utt counts + sclite sig tests).
+
+    Returns b = #utts where system A has fewer errors, c = where B
+    does, and the two-sided exact binomial p-value of b successes in
+    b+c tries at p=1/2 (ties carry no information and are dropped,
+    McNemar-style)."""
+    from math import comb
+    b = c = 0
+    for utt in per_utt_a:
+        if utt not in per_utt_b:
+            continue
+        ea, eb = per_utt_a[utt][0], per_utt_b[utt][0]
+        if ea < eb:
+            b += 1
+        elif eb < ea:
+            c += 1
+    n = b + c
+    if n == 0:
+        return {"a_better": 0, "b_better": 0, "p_value": 1.0}
+    k = min(b, c)
+    # two-sided: P(X <= k) + P(X >= n-k) for X ~ Binom(n, 1/2)
+    tail = sum(comb(n, j) for j in range(0, k + 1)) / 2.0 ** n
+    p = min(1.0, 2.0 * tail)
+    return {"a_better": b, "b_better": c, "p_value": p}

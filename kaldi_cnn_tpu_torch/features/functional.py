@@ -1,9 +1,10 @@
-"""Kaldi-semantics feature extraction in PyTorch: the serving subset.
+"""Kaldi-semantics feature extraction in PyTorch: fbank, MFCC and deltas.
 
 Twin of ``kaldi_cnn_tpu/features/functional.py``: options, framing,
-windows, the mel and DFT tables (numpy, identical to the JAX package's),
-the rfft-based ``compute_fbank`` reference and ``compute_deltas``.  The
-fused kernel path is ``kaldi_cnn_tpu_torch.ops.fbank``.
+windows, the mel, DFT and DCT tables and the lifter (numpy, identical to
+the JAX package's), the rfft-based ``compute_fbank`` and
+``compute_mfcc`` references and ``compute_deltas``.  The fused kernel
+path is ``kaldi_cnn_tpu_torch.ops.fbank``.
 
 Dither is ``opts.dither * randn`` drawn from an explicit
 ``torch.Generator`` and added to the raw frames before DC removal
@@ -71,6 +72,23 @@ class FbankOptions:
     energy_floor: float = 0.0
     raw_energy: bool = True
     use_log_fbank: bool = True
+
+    def __post_init__(self):
+        if self.frame_opts is None:
+            self.frame_opts = FrameExtractionOptions()
+        if self.mel_opts is None:
+            self.mel_opts = MelBanksOptions()
+
+
+@configclass
+class MfccOptions:
+    frame_opts: FrameExtractionOptions = None  # type: ignore
+    mel_opts: MelBanksOptions = None  # type: ignore
+    num_ceps: int = 13
+    use_energy: bool = True
+    energy_floor: float = 0.0
+    raw_energy: bool = True
+    cepstral_lifter: float = 22.0
 
     def __post_init__(self):
         if self.frame_opts is None:
@@ -209,6 +227,23 @@ def mel_banks(opts: MelBanksOptions,
         frame_opts.samp_freq, frame_opts.padded_window_size)
 
 
+def dct_matrix(num_rows: int, num_cols: int) -> np.ndarray:
+    """Orthonormal DCT-II matrix [num_rows, num_cols]
+    (ref: matrix/matrix-functions.cc ComputeDctMatrix)."""
+    m = np.zeros((num_rows, num_cols))
+    m[0, :] = math.sqrt(1.0 / num_cols)
+    scale = math.sqrt(2.0 / num_cols)
+    for k in range(1, num_rows):
+        m[k, :] = scale * np.cos(math.pi / num_cols * (np.arange(num_cols) + 0.5) * k)
+    return m.astype(np.float32)
+
+
+def lifter_coeffs(num_ceps: int, q: float) -> np.ndarray:
+    """Cepstral liftering coefficients (ref: feature-mfcc.cc ComputeLifterCoeffs)."""
+    i = np.arange(num_ceps)
+    return (1.0 + 0.5 * q * np.sin(math.pi * i / q)).astype(np.float32)
+
+
 def dft_matrices(padded_window_size: int):
     """Real DFT as two matmul operands: cos/sin matrices [N, N/2 + 1]."""
     n = padded_window_size
@@ -222,7 +257,7 @@ def dft_matrices(padded_window_size: int):
 
 
 # --------------------------------------------------------------------------
-# fbank reference (rfft) and deltas
+# fbank and MFCC references (rfft), deltas
 # --------------------------------------------------------------------------
 
 def compute_fbank(
@@ -253,6 +288,54 @@ def compute_fbank(
             energy = torch.clamp_min(energy, math.log(opts.energy_floor))
         feats = torch.cat([energy[:, None], feats], dim=1)
     return feats
+
+
+def mfcc_fbank_options(opts: MfccOptions) -> FbankOptions:
+    """The log-mel fbank under an MFCC: the same frames and bins, with the
+    raw log energy (Kaldi's default, and what the JAX package's
+    ``compute_mfcc`` and the fbank kernels always give) beside it."""
+    return FbankOptions(frame_opts=opts.frame_opts, mel_opts=opts.mel_opts,
+                        use_energy=True, raw_energy=True, use_log_fbank=True)
+
+
+@lru_cache(maxsize=None)
+def cepstral_matrix(num_ceps: int, num_bins: int,
+                    cepstral_lifter: float) -> np.ndarray:
+    """[num_bins, num_ceps] f32: the DCT with the lifter folded in, so
+    that log-mel @ it gives the liftered cepstra in one product."""
+    m = dct_matrix(num_ceps, num_bins).T.astype(np.float64)
+    if cepstral_lifter != 0.0:
+        m = m * lifter_coeffs(num_ceps, cepstral_lifter)[None, :]
+    return m.astype(np.float32)
+
+
+def cepstra(log_mel: torch.Tensor, energy: torch.Tensor,
+            opts: MfccOptions) -> torch.Tensor:
+    """log-mel [T, num_bins] and raw log energy [T] -> MFCC [T, num_ceps]:
+    the DCT and the lifter as one product on log-mel's device, then,
+    with ``use_energy``, the (floored) energy in column 0."""
+    m = torch.as_tensor(cepstral_matrix(opts.num_ceps, opts.mel_opts.num_bins,
+                                        float(opts.cepstral_lifter)),
+                        device=log_mel.device, dtype=log_mel.dtype)
+    feats = log_mel @ m
+    if opts.use_energy:
+        if opts.energy_floor > 0.0:
+            energy = torch.clamp_min(energy, math.log(opts.energy_floor))
+        feats = torch.cat([energy[:, None].to(feats.dtype), feats[:, 1:]],
+                          dim=1)
+    return feats
+
+
+def compute_mfcc(
+    wave: torch.Tensor,
+    opts: Optional[MfccOptions] = None,
+    generator: Optional[torch.Generator] = None,
+) -> torch.Tensor:
+    """wave [N] -> MFCC [T, num_ceps] (ref: feature-mfcc.cc Mfcc::Compute):
+    log-mel and raw log energy from ``compute_fbank``, then ``cepstra``."""
+    opts = opts or MfccOptions()
+    both = compute_fbank(wave, mfcc_fbank_options(opts), generator)
+    return cepstra(both[:, 1:], both[:, 0], opts)
 
 
 def compute_deltas(feats: torch.Tensor, order: int = 2,

@@ -1,5 +1,6 @@
 """Standard acoustic-model architectures (twin of
-``kaldi_cnn_tpu/models/factory.py``): the fork's CNN AM."""
+``kaldi_cnn_tpu/models/factory.py``): the fork's CNN AM and the p-norm
+DNN it is compared with."""
 
 from __future__ import annotations
 
@@ -48,6 +49,39 @@ def make_convnet(cfg: Optional[ConvnetConfig] = None, fused: bool = True,
                                  cfg.pool_t, cfg.pool_f, cfg.pool_c)
     comps = [conv, pool]
     dim = pool.output_dim
+    for _ in range(cfg.num_hidden_layers):
+        comps += [
+            AffineComponent(dim, cfg.pnorm_input_dim, device=device),
+            PnormComponent(cfg.pnorm_input_dim, cfg.pnorm_output_dim),
+            NormalizeComponent(cfg.pnorm_output_dim),
+        ]
+        dim = cfg.pnorm_output_dim
+    comps += [
+        AffineComponent(dim, cfg.num_pdfs, param_stddev=0.0, device=device),
+        SoftmaxComponent(cfg.num_pdfs),
+    ]
+    return Nnet(comps)
+
+
+@configclass
+class PnormDnnConfig:
+    """p-norm DNN on (typically fMLLR) features
+    (ref: steps/nnet2/train_pnorm_simple.sh, the RM config)."""
+
+    input_dim: int = 360     # 40-d fMLLR spliced ±4
+    num_hidden_layers: int = 3
+    pnorm_input_dim: int = 1000
+    pnorm_output_dim: int = 200
+    num_pdfs: int = 1500
+
+
+def make_pnorm_dnn(cfg: Optional[PnormDnnConfig] = None,
+                   device="cuda") -> Nnet:
+    """hidden x (Affine -> Pnorm -> Normalize) -> Affine -> Softmax, with
+    zero parameters (``Nnet.init`` draws them)."""
+    cfg = cfg or PnormDnnConfig()
+    comps = []
+    dim = cfg.input_dim
     for _ in range(cfg.num_hidden_layers):
         comps += [
             AffineComponent(dim, cfg.pnorm_input_dim, device=device),

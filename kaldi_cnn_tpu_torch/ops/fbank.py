@@ -1,6 +1,7 @@
 """Fused log-mel filterbank: the CUDA kernels and their plain version.
 
-Port of ``kaldi_cnn_tpu/ops/fbank_pallas.py`` (``fbank_pallas``).  The
+Port of ``kaldi_cnn_tpu/ops/fbank_pallas.py`` (``fbank_pallas`` and
+``mfcc_pallas``).  The
 kernels (``csrc/fbank.cu``) run the whole per-frame chain
 
     DC-offset removal -> raw log energy -> preemphasis -> window
@@ -17,6 +18,11 @@ sums against cos/sin tables (``fbank_frames_table``, its own count).
 frames' dtype (float32, or float64 with float64 DFT tables).  Dither is
 added to the raw frames before either; energy flooring and
 ``use_energy`` are applied after it.
+
+``mfcc`` runs the same kernel with the energy kept and then the DCT
+and the lifter as one small product on the device, as ``mfcc_pallas``
+does them outside its Pallas call; it counts its launches through
+``fbank_frames``.
 
 A CPU tensor takes the plain version; a CUDA tensor launches a kernel
 or raises.
@@ -228,3 +234,23 @@ def fbank_reference(wave: torch.Tensor,
     opts = opts or F.FbankOptions()
     return _finish(*fbank_reference_frames(
         _frames(wave, opts, generator), opts), opts)
+
+
+def mfcc(wave: torch.Tensor, opts: Optional[F.MfccOptions] = None,
+         generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """wave [N] -> MFCC [T, num_ceps]: log-mel and raw log energy from
+    ``fbank_frames`` (the kernel on a CUDA tensor, the plain version on a
+    CPU tensor), then ``F.cepstra``."""
+    opts = opts or F.MfccOptions()
+    fb = F.mfcc_fbank_options(opts)
+    return F.cepstra(*fbank_frames(_frames(wave, fb, generator), fb), opts)
+
+
+def mfcc_reference(wave: torch.Tensor, opts: Optional[F.MfccOptions] = None,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
+    """The plain PyTorch version of ``mfcc`` on any device."""
+    opts = opts or F.MfccOptions()
+    fb = F.mfcc_fbank_options(opts)
+    return F.cepstra(*fbank_reference_frames(_frames(wave, fb, generator),
+                                             fb), opts)

@@ -311,6 +311,30 @@ def test_fbank_fft_kernel_matches_float64_plain(cuda, sr, frames, dither):
                                rtol=0, atol=FBANK_ATOL)
 
 
+@pytest.mark.parametrize("sr", [8000, 16000])
+@pytest.mark.parametrize("dither", [0, 1])
+def test_mfcc_on_card_matches_plain_on_cpu(cuda, sr, dither):
+    """ops.fbank.mfcc launches the FFT kernel once and agrees with
+    mfcc_reference on the CPU on the same noise: cepstrum c within 2e-3 x
+    its lifter coefficient, the energy column within 1e-3."""
+    opts = F.MfccOptions()
+    opts.frame_opts.samp_freq = float(sr)
+    opts.frame_opts.dither = float(dither)
+    wave = (np_rng(9, "mfcc").normal(size=sr) * 1000).astype(np.float32)
+    before = fb.fbank_frames.launches
+    got = fb.mfcc(torch.as_tensor(wave, device=cuda), opts,
+                  torch_generator(9, "mfcc_dither"))
+    torch.cuda.synchronize()
+    assert fb.fbank_frames.launches == before + 1
+    want = fb.mfcc_reference(torch.as_tensor(wave), opts,
+                             torch_generator(9, "mfcc_dither"))
+    assert got.shape == want.shape == (F.num_frames(sr, opts.frame_opts), 13)
+    limit = 2e-3 * F.lifter_coeffs(13, 22.0).astype(np.float64)
+    limit[0] = 1e-3
+    err = np.abs(got.cpu().double().numpy() - want.double().numpy())
+    assert (err.max(axis=0) <= limit).all(), err.max(axis=0)
+
+
 @pytest.mark.parametrize("sr,bins", [(8000, 36), (16000, 23), (16000, 40)])
 def test_fbank_table_kernel_runs_without_power_of_two(cuda, sr, bins):
     """round_to_power_of_two=False (N = ws = 200 or 400) takes the table

@@ -149,7 +149,8 @@ def _tiny_graph():
 
 @pytest.mark.parametrize("entry", [
     "make_convnet", "FeatureExtractor", "TopKDecoder",
-    "compute_fbank_volumes", "Conv2DComponent", "ng_init"])
+    "compute_fbank_volumes", "Conv2DComponent", "ng_init", "wsj.run",
+    "compute_features", "mfcc FeatureExtractor", "make_pnorm_dnn"])
 def test_entry_points_default_to_the_card(entry):
     """Left without ``device``, the port's entry points run on the card;
     where there is none they raise, at construction or at the first call,
@@ -160,7 +161,9 @@ def test_entry_points_default_to_the_card(entry):
     from kaldi_cnn_tpu_torch.features.extractor import FeatureExtractor
     from kaldi_cnn_tpu_torch.decode.topk_decoder import TopKDecoder
     from kaldi_cnn_tpu_torch.models.components import Conv2DComponent
+    from kaldi_cnn_tpu_torch.models.factory import make_pnorm_dnn
     from kaldi_cnn_tpu_torch.models.ng_sgd import OnlineNaturalGradient
+    from kaldi_cnn_tpu_torch.recipes.yesno import compute_features
     wave = np.zeros(800, np.float32)
     lex = synthetic.digits_lexicon()
     wp = {w: 1.0 / len(lex.entries) for w in lex.entries}
@@ -174,6 +177,12 @@ def test_entry_points_default_to_the_card(entry):
             synthetic.make_noisy_corpus(lex, wp, 1, 1, 1, seed=1), NUM_BINS),
         "Conv2DComponent": lambda: Conv2DComponent(6, 10, 1, 2, 3, 8),
         "ng_init": lambda: OnlineNaturalGradient().init(8),
+        "wsj.run": lambda: wsj.run(num_utts=2, nnet_epochs=1),
+        "compute_features": lambda: compute_features(
+            synthetic.make_noisy_corpus(lex, wp, 1, 1, 1, seed=1)),
+        "mfcc FeatureExtractor": lambda: FeatureExtractor(
+            TF.MfccOptions())(wave),
+        "make_pnorm_dnn": lambda: make_pnorm_dnn(),
     }
     with pytest.raises((RuntimeError, AssertionError),
                        match="CUDA|NVIDIA|cuda"):
