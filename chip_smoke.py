@@ -14,7 +14,9 @@ then runs these phases; any failure raises and the exit code is not 0.
    frames of 16 kHz audio; conv+maxpool at ConvnetConfig() defaults,
    F = 128, 4096 rows; maxpool forward, with and without the argmax, and
    backward on that conv output) and at the WSJ slice's shapes (fbank on
-   one 8 kHz utterance, 36 bins; conv+maxpool at F = 64, 4096 rows;
+   one 8 kHz utterance, 36 bins, and one 0.2 s streaming chunk of it at
+   36 bins and at the MFCC's 23 bins; conv+maxpool at F = 64, 4096 rows
+   and at the 512 rows that AmNnet.loglikes pads a streaming chunk to;
    maxpool at F = 64 and 256 rows, the recipe's minibatch, and with
    pool_c = 2), with the error and both times from CUDA events.
    Fbank runs both kernels at the power-of-two sizes: the FFT kernel the
@@ -84,11 +86,43 @@ then runs these phases; any failure raises and the exit code is not 0.
    energy column within MFCC_ENERGY_ATOL.  Prints each stage's seconds,
    the tree's leaves, the graph's states and K, both WERs and the sign
    test (the WERs are not asserted).
+9. Streaming: phase 8's artifacts (the triphone Lang and GMM, the CNN's
+   parameters and priors) served through the online2 path on phase 8's
+   test split (``wsj.split_corpus`` of the corpus phase 8 ran on) in
+   STREAM_CHUNK_S chunks, one recognizer piece of the chunk's 20 frames
+   a chunk: an OnlineRecognizer on the card with an
+   OnlineFeaturePipeline("fbank", 36 bins, dither 0, CMVN frozen at
+   zeros), a StreamingSplicer(+-5) around the CNN (each spliced row
+   reordered from (t, c, f) to (t, f, c)) and a StreamingDecoder (each
+   block of 16, 4 or 1 frames one CUDA graph replay, one fetch a chunk)
+   over TopKDecoder(beam 60, max_active 2000).  The fbank and wgmma conv
+   kernels must run in the phase; the streamed words and tids must equal
+   TopKDecoder.decode_batch on the rows the decoder received (cost within
+   STREAM_COST_ABS); the streamed loglikes must be within LOGLIKE_ATOL of
+   the same pipeline finished in one call and spliced offline; all three
+   block graphs must have been captured.  One utterance is replayed
+   through the same objects on the CPU (same words), and the CPU's eager
+   StreamingDecoder on the card's rows must give the card's tids, words
+   and cost.  Then the
+   online2-wav-latgen verb (cli.main) on the triphone GMM .mdl, the HCLG
+   as text and the test waves, on the card and with --host-decode: the
+   MFCC kernel launches > 0, each lattice's shortest path equals its hyp
+   line, and the two runs give the same hyps.  Last, the bounded window:
+   the triphone GMM's loglikes of all the test utterances as one stream
+   (beam 30, acoustic scale 1, commit_every 16) must keep the traceback
+   window within 8 x commit_every, commit >= 90 % of the path and equal
+   decode_batch (the CNN's 3-epoch posteriors are too flat for the live
+   tokens to merge, in the JAX package too, so its window is printed and
+   not held).  Prints the streaming RTF, the median and p95 ms of an
+   accept_waveform call, the split between features, AM and search, each
+   graph's capture seconds and the verb's WERs (not asserted).
 
 Output: the GPU's name and power limit (nvidia-smi), the build time, one
 line per check, the total seconds, a JSON line {"kernels": [...]} (for
 each kernel its launches in the recipe run of phase 8, the whole main
-path, with each phase's count in ``launches_by_phase``; error, ms,
+path, with each phase's count in ``launches_by_phase``, phase 9's as
+its recognizer run "streaming" and its two verb runs "verb_card" and
+"verb_host"; error, ms,
 plain_ms, bound_ms, bound_by, library_ms, graph_ms and library_graph_ms,
 at the main path's shapes) and, last, the JSON line {"ok": true,
 "device": {...}}.  Times
@@ -101,8 +135,10 @@ from __future__ import annotations
 import contextlib
 import copy
 import functools
+import glob
 import json
 import os
+import pickle
 import shutil
 import subprocess
 import sys
@@ -113,15 +149,21 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 
-from kaldi_cnn_tpu_torch.convert import params_to_numpy
+from kaldi_cnn_tpu_torch import cli
+from kaldi_cnn_tpu_torch.cli_train import AdvanceRecorder
+from kaldi_cnn_tpu_torch.convert import params_from_jax, params_to_numpy
 from kaldi_cnn_tpu_torch.core.rng import np_rng, torch_generator
 from kaldi_cnn_tpu_torch.decode import topk_decoder
 from kaldi_cnn_tpu_torch.decode.decoder import lattice_decode
 from kaldi_cnn_tpu_torch.decode.graph import CompiledGraph
-from kaldi_cnn_tpu_torch.decode.lattice import shortest_path
-from kaldi_cnn_tpu_torch.decode.topk_decoder import TopKDecoder
+from kaldi_cnn_tpu_torch.decode.lattice import load_lattices, shortest_path
+from kaldi_cnn_tpu_torch.decode.score import wer_details
+from kaldi_cnn_tpu_torch.decode.topk_decoder import (StreamingDecoder,
+                                                     TopKDecoder)
 from kaldi_cnn_tpu_torch.features import functional as F
 from kaldi_cnn_tpu_torch.gmm.train import align_equal
+from kaldi_cnn_tpu_torch.io.kaldi_model import write_gmm_model
+from kaldi_cnn_tpu_torch.io.wave import write_wave
 from kaldi_cnn_tpu_torch.lang.arpa import make_unigram_arpa
 from kaldi_cnn_tpu_torch.lang.hclg import (Lang, compile_training_graph,
                                            make_hclg_from_arpa)
@@ -129,6 +171,8 @@ from kaldi_cnn_tpu_torch.models.components import (
     AffineComponent, Conv2DComponent)
 from kaldi_cnn_tpu_torch.models.factory import ConvnetConfig, make_convnet
 from kaldi_cnn_tpu_torch.models.nnet import AmNnet, Nnet
+from kaldi_cnn_tpu_torch.online2 import (OnlineCmvn, OnlineFeaturePipeline,
+                                         OnlineRecognizer, StreamingSplicer)
 from kaldi_cnn_tpu_torch.ops import common
 from kaldi_cnn_tpu_torch.ops import fbank as fbank_ops
 from kaldi_cnn_tpu_torch.ops import maxpool as mp
@@ -168,6 +212,11 @@ RECIPE_EPOCHS = 3
 # the DCT is orthonormal and the lifter scales cepstrum c by up to 12
 MFCC_REL = 2e-3           # cepstrum c: MFCC_REL * lifter_coeffs[c]
 MFCC_ENERGY_ATOL = 1e-3   # column 0, the raw log energy
+# streaming (phase 9): chunks of the recipe's test waves; the streamed
+# best path vs decode_batch on the same rows (the JAX package's bar,
+# tests/test_online2.py)
+STREAM_CHUNK_S = 0.2
+STREAM_COST_ABS = 1e-2
 # published H100 SXM peaks (NVIDIA data sheet, dense) for bound_ms
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -760,9 +809,10 @@ def read_launches() -> dict:
             "maxpool_bwd": mp.maxpool3d_backward.launches}
 
 
-def recipe_phase(dev, tmp):
-    """Phase 8: wsj.run on the card, eval_dnn on; returns (launches in
-    the run, of which the "mfcc" stage's fbank launches, the result)."""
+def recipe_phase(dev, tmp, corpus):
+    """Phase 8: wsj.run on ``corpus`` on the card, eval_dnn on; returns
+    (launches in the run, of which the "mfcc" stage's fbank launches, the
+    result)."""
     mfcc_launches = []
     features = wsj.compute_features
 
@@ -777,7 +827,7 @@ def recipe_phase(dev, tmp):
     try:
         with lattice_probes() as probe:
             t = time.perf_counter()
-            res = wsj.run(num_utts=RECIPE_UTTS, nnet_epochs=RECIPE_EPOCHS,
+            res = wsj.run(corpus=corpus, nnet_epochs=RECIPE_EPOCHS,
                           eval_dnn=True, seed=SEED, device=dev,
                           exp_dir=os.path.join(tmp, "wsj"))
             torch.cuda.synchronize()
@@ -824,6 +874,344 @@ def recipe_phase(dev, tmp):
     return launches, mfcc_launches[0], res
 
 
+def stream_utterance(wave, rate, am, stream, secs, chunk_frames=None):
+    """One utterance through an OnlineRecognizer on ``am``'s device (fbank
+    36 bins + deltas, CMVN frozen at zeros, +-5 splice with the rows
+    reordered (t, c, f) -> (t, f, c) for the Conv2D), fed STREAM_CHUNK_S
+    chunks, one piece of the chunk's frame count a chunk (as the verb
+    does) unless ``chunk_frames`` is given.  Returns (tids, words, cost, the rows the decoder received,
+    the ms of each accept_waveform call, the largest traceback window)."""
+    dev = am.nnet.device
+    opts = F.FbankOptions()
+    opts.frame_opts.samp_freq = float(rate)
+    opts.frame_opts.dither = 0.0
+    opts.mel_opts.num_bins = 36
+    cmvn = OnlineCmvn()
+    cmvn.freeze(np.zeros(36, np.float32))
+    pipe = OnlineFeaturePipeline("fbank", opts, cmvn=cmvn, device=dev)
+    conv = am.nnet.components[0]
+
+    def timed(owner, name, key):
+        fn = getattr(owner, name)
+
+        def run(*a, **k):
+            t = time.perf_counter()
+            out = fn(*a, **k)
+            secs[key] += time.perf_counter() - t
+            return out
+        setattr(owner, name, run)
+
+    timed(pipe.base, "accept_waveform", "base features")
+    timed(pipe, "get_frames", "cmvn + deltas")
+
+    def scorer(rows):
+        t = time.perf_counter()
+        v = rows.reshape(len(rows), conv.in_t, conv.in_c, conv.in_f)
+        out = am.loglikes(v.transpose(0, 1, 3, 2).reshape(len(rows), -1))
+        secs["am"] += time.perf_counter() - t
+        return out
+
+    stream.reset()
+    rec_dec = AdvanceRecorder(stream)
+    timed(rec_dec, "advance", "search")
+    timed(rec_dec, "finalize", "search")
+    chunk = max(1, int(STREAM_CHUNK_S * rate))
+    rec = OnlineRecognizer(None, StreamingSplicer(scorer, wsj.CONTEXT,
+                                                  wsj.CONTEXT),
+                           pipeline=pipe, decoder=rec_dec,
+                           chunk_frames=chunk_frames
+                           or chunk // opts.frame_opts.window_shift)
+    call_ms, window = [], 0
+    for i in range(0, len(wave), chunk):
+        t = time.perf_counter()
+        rec.accept_waveform(wave[i:i + chunk])
+        call_ms.append(1e3 * (time.perf_counter() - t))
+        window = max(window, len(stream._buf))
+    rec.input_finished()
+    tids, words, cost = rec.result()
+    return tids, words, cost, np.concatenate(rec_dec.rows), call_ms, window
+
+
+def offline_loglikes(wave, rate, am):
+    """The streaming pipeline finished in one call, spliced offline
+    (wsj.splice_volume on (t, f, c) volumes) and scored."""
+    opts = F.FbankOptions()
+    opts.frame_opts.samp_freq = float(rate)
+    opts.frame_opts.dither = 0.0
+    opts.mel_opts.num_bins = 36
+    cmvn = OnlineCmvn()
+    cmvn.freeze(np.zeros(36, np.float32))
+    pipe = OnlineFeaturePipeline("fbank", opts, cmvn=cmvn,
+                                 device=am.nnet.device)
+    pipe.accept_waveform(wave)
+    pipe.finish()
+    f = pipe.get_frames(0, pipe.num_frames_ready())
+    v = f.reshape(len(f), 3, 36).transpose(0, 2, 1)
+    return am.loglikes(wsj.splice_volume(v, wsj.CONTEXT, wsj.CONTEXT))
+
+
+def load_stage(exp_dir, name):
+    """A stage pickle of phase 8's wsj.run."""
+    (path,) = glob.glob(os.path.join(exp_dir, f"stage*_{name}.pkl"))
+    with open(path, "rb") as f:
+        return pickle.load(f)
+
+
+def streaming_model(dev, exp_dir, test):
+    """Phase 8's artifacts for serving ``test``: (the triphone Lang, its
+    GMM, the unigram HCLG as an Fst and compiled, the CNN's AmNnet on
+    ``dev``, a StreamingDecoder over TopKDecoder(beam 60, max_active
+    2000) on ``dev``)."""
+    am_gmm, _, tri = load_stage(exp_dir, "gmm_bootstrap")
+    egs_train, _ = wsj.split_valid(load_stage(exp_dir, "egs"))
+    t2p = tri.trans_model.trans_id_to_pdf_array()
+    num_pdfs = tri.trans_model.num_pdfs
+    hclg_fst = make_hclg_from_arpa(tri, make_unigram_arpa(test.word_probs))
+    hclg = CompiledGraph(hclg_fst, t2p)
+    net = make_convnet(wsj.model_config(36, num_pdfs), fused=True,
+                       device=dev)
+    params_from_jax(net, load_stage(exp_dir, "nnet_train"))
+    am = wsj.acoustic_model(net, egs_train, num_pdfs)
+    stream = StreamingDecoder(TopKDecoder(
+        hclg, beam=60.0, max_active=2000, acoustic_scale=wsj.ACOUSTIC_SCALE,
+        device=dev))
+    return tri, am_gmm, hclg_fst, hclg, am, stream
+
+
+def streaming_phase(dev, exp_dir, tmp, test):
+    """Phase 9: the streaming path on phase 8's artifacts and its test
+    split ``test``; returns the kernels' launches of each run: the
+    recognizer ("streaming") and the verb on the card and with the host
+    search ("verb_card", "verb_host")."""
+    rate = test.sample_rate
+    tri, am_gmm, hclg_fst, hclg, am, stream = streaming_model(dev, exp_dir,
+                                                              test)
+    num_pdfs = tri.trans_model.num_pdfs
+    utts = sorted(test.waves)
+
+    # ---- the Python API on the card -----------------------------------
+    reset_launches()
+    secs = dict.fromkeys(("base features", "cmvn + deltas", "am", "search"),
+                         0.0)
+    out, call_ms, window = {}, [], 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for u in utts:
+        *res, rows, ms, win = stream_utterance(test.waves[u], rate, am,
+                                               stream, secs)
+        out[u] = (*res, rows)
+        call_ms += ms
+        window = max(window, win)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = read_launches()
+    audio_s = sum(len(test.waves[u]) for u in utts) / rate
+    frames = sum(len(out[u][3]) for u in utts)
+    bad_batch, ll_err = [], 0.0
+    for u, (tids, words, cost, rows) in out.items():
+        ((bt, bw, bc),) = stream.dec.decode_batch([rows])
+        if (list(bt) != list(tids) or list(bw) != list(words)
+                or abs(bc - cost) > STREAM_COST_ABS):
+            bad_batch.append(u)
+        off = offline_loglikes(test.waves[u], rate, am)
+        ll_err = max(ll_err, float(np.abs(off - rows).max())
+                     if off.shape == rows.shape else np.inf)
+    hyps = {u: [tri.word_table.sym(int(w)) for w in out[u][1]] for u in utts}
+    res = wer_details(test.transcripts, hyps)
+    host = secs["base features"] + secs["cmvn + deltas"]
+    log(f"streaming: {len(utts)} test utterances of phase 8 ({audio_s:.2f} s "
+        f"of audio, {frames} frames) in {STREAM_CHUNK_S} s chunks, "
+        f"OnlineRecognizer -> fbank pipeline -> StreamingSplicer -> CNN "
+        f"(F = 64) -> StreamingDecoder (K {stream.dec.K}, beam 60): "
+        f"{wall:.3f} s, RTF {wall / audio_s:.4f} (without the graph "
+        f"captures {(wall - sum(stream.capture_seconds.values())) / audio_s:.4f}"
+        f"); accept_waveform "
+        f"{len(call_ms)} calls, median {np.median(call_ms):.2f} ms, p95 "
+        f"{np.percentile(call_ms, 95):.2f} ms, max {max(call_ms):.2f} ms; "
+        f"split: base features {secs['base features']:.3f} s, cmvn + deltas "
+        f"(recomputed over the stream every chunk) {secs['cmvn + deltas']:.3f}"
+        f" s, AM {secs['am']:.3f} s, search {secs['search']:.3f} s (host "
+        f"pipeline share {100 * host / wall:.1f} %); graph capture s "
+        f"{ {k: round(v, 3) for k, v in sorted(stream.capture_seconds.items())} }"
+        f"; launches {launches}; traceback window max {window} levels "
+        f"(commit_every {stream.commit_every}; not asserted: at this model's "
+        f"WER the live tokens do not merge within an utterance, in the JAX "
+        f"package too); vs decode_batch on the same rows "
+        f"(words, tids, cost within {STREAM_COST_ABS}) differ on {bad_batch}; "
+        f"streamed vs offline loglikes max |diff| {ll_err:.3g} (limit "
+        f"{LOGLIKE_ATOL}); WER {res['wer']:.2f}% ({res['errors']} errors / "
+        f"{res['words']} words; not asserted)")
+    if launches["fbank_fft"] <= 0 or launches["conv_maxpool"] <= 0:
+        raise AssertionError(f"a kernel did not run in the streaming phase: "
+                             f"{launches}")
+    if bad_batch or ll_err > LOGLIKE_ATOL:
+        raise AssertionError("the streamed decode disagrees with the offline "
+                             "one")
+
+    log(f"streaming block graphs captured {sorted(stream.capture_seconds)} "
+        f"(the ladder {StreamingDecoder.CHUNK_BLOCKS})")
+    if sorted(stream.capture_seconds) != sorted(StreamingDecoder.CHUNK_BLOCKS):
+        raise AssertionError("a block graph did not run in the recognizer")
+    # device time of a block: its graph replayed back to back (the carry
+    # is garbage by now; reset() precedes any further use)
+    per_frame = {k: time_ms(b.graph.replay, iters=10) / k
+                 for k, b in sorted(stream._blocks.items())}
+    torch.cuda.synchronize()
+    stream.reset()
+    log(f"streaming block graphs: device ms a frame by CUDA events over 10 "
+        f"replays: " + ", ".join(f"{k}-frame block {v:.4f}"
+                                 for k, v in per_frame.items())
+        + f"; search wall ms a frame in the recognizer run "
+        f"{1e3 * secs['search'] / frames:.4f}")
+
+    # ---- CPU replay of the shortest utterance ----------------------------
+    u = min(utts, key=lambda k: len(test.waves[k]))
+    am_cpu = AmNnet(copy.deepcopy(am.nnet).to("cpu"), num_pdfs)
+    am_cpu.priors = am.priors.copy()
+    cpu_stream = StreamingDecoder(TopKDecoder(
+        hclg, beam=60.0, max_active=2000, acoustic_scale=wsj.ACOUSTIC_SCALE,
+        device="cpu"))
+    t = time.perf_counter()
+    tids_c, words_c, cost_c, rows_c, _, _ = stream_utterance(
+        test.waves[u], rate, am_cpu, cpu_stream, dict.fromkeys(secs, 0.0))
+    cpu_s = time.perf_counter() - t
+    tids, words, cost, rows = out[u]
+    # the CPU's eager frames on the card's own rows, in the same chunks
+    same_rows = stream_rows(cpu_stream, rows)
+    diff_tids = int(np.sum(np.asarray(tids_c) != np.asarray(tids))) \
+        if len(tids_c) == len(tids) else -1
+    log(f"streaming replay on cpu ({u}, {len(rows)} frames, {cpu_s:.1f} s): "
+        f"words equal: {list(words_c) == list(words)}, tids differing "
+        f"{diff_tids}, cost {cost_c:.4f} vs {cost:.4f} (loglikes max |diff| "
+        f"{float(np.abs(rows_c - rows).max()):.3g}); eager StreamingDecoder "
+        f"on the card's rows: tids and words equal: "
+        f"{list(same_rows[0]) == list(tids) and list(same_rows[1]) == list(words)}"
+        f", cost {same_rows[2]:.4f} vs {cost:.4f} (limit {STREAM_COST_ABS})")
+    if (list(words_c) != list(words) or list(same_rows[0]) != list(tids)
+            or list(same_rows[1]) != list(words)
+            or abs(same_rows[2] - cost) > STREAM_COST_ABS):
+        raise AssertionError("the card's streaming decode disagrees with the "
+                             "CPU replay")
+
+    # ---- the online2-wav-latgen verb --------------------------------------
+    d = os.path.join(tmp, "verb")
+    os.makedirs(os.path.join(d, "lang"))
+    write_gmm_model(os.path.join(d, "tri.mdl"), tri.trans_model, am_gmm)
+    with open(os.path.join(d, "HCLG.txt"), "w") as f:
+        hclg_fst.write_text(f)
+    tri.word_table.write(os.path.join(d, "lang", "words.txt"))
+    with open(os.path.join(d, "wav.scp"), "w") as f:
+        for u in utts:
+            path = os.path.join(d, f"{u}.wav")
+            write_wave(path, test.waves[u], rate)
+            f.write(f"{u} {path}\n")
+    verb, by_run = {}, {"streaming": launches}
+    for tag, extra in (("card", []), ("host", ["--host-decode"])):
+        reset_launches()
+        lat_path = os.path.join(d, f"lats_{tag}.npz")
+        hyp_path = os.path.join(d, f"hyp_{tag}.txt")
+        t = time.perf_counter()
+        rc = cli.main(["online2-wav-latgen", "--feature-type=mfcc",
+                       "--no-online-cmvn", "--beam=200", "--max-active=0",
+                       f"--device={dev}",
+                       f"--lattice-wspecifier={lat_path}",
+                       f"--lang-dir={os.path.join(d, 'lang')}", *extra,
+                       os.path.join(d, "tri.mdl"),
+                       os.path.join(d, "HCLG.txt"),
+                       os.path.join(d, "wav.scp"), hyp_path])
+        torch.cuda.synchronize()
+        secs_v = time.perf_counter() - t
+        n = read_launches()
+        with open(hyp_path) as f:
+            lines = dict((ln.split(None, 1) + [""])[:2]
+                         for ln in f.read().splitlines())
+        lats = load_lattices(lat_path)
+        bad = [u for u in utts if " ".join(
+            tri.word_table.sym(int(w)) for w in shortest_path(
+                lats[u], 1.0, wsj.ACOUSTIC_SCALE)[1]) != lines[u].strip()]
+        wer = wer_details(test.transcripts,
+                          {u: lines[u].split() for u in lines})
+        verb[tag] = lines
+        log(f"verb online2-wav-latgen ({tag}: {'host incremental Viterbi' if extra else 'StreamingDecoder'}"
+            f", MFCC + deltas on the triphone GMM, {len(lats)} lattices): rc "
+            f"{rc}, {secs_v:.3f} s, MFCC (fbank kernel) launches "
+            f"{n['fbank_fft']}; lattice one-best differs from the hyp on "
+            f"{bad}; WER {wer['wer']:.2f}% ({wer['errors']} errors / "
+            f"{wer['words']} words; not asserted)")
+        if rc != 0 or n["fbank_fft"] <= 0 or bad or sorted(lats) != utts:
+            raise AssertionError(f"online2-wav-latgen ({tag}) failed")
+        by_run[f"verb_{tag}"] = n
+    log(f"verb: card and host hyps equal: {verb['card'] == verb['host']}")
+    if verb["card"] != verb["host"]:
+        raise AssertionError("the verb's card and host decodes disagree")
+    bounded_stream(tri, am_gmm, hclg, test, dev)
+    return by_run
+
+
+def bounded_stream(tri, am_gmm, hclg, test, dev):
+    """The streaming decoder's bounded host memory (the JAX package's
+    tests/test_online2.py long-stream bar, on the card): the triphone
+    GMM's loglikes of the test utterances' MFCC + deltas (the verb's
+    features, through the fbank kernel), end to end as one stream in
+    20-frame chunks, polled with best_path after every chunk, at beam
+    30, acoustic scale 1 and commit_every 16.  The traceback window must
+    stay within 8 x commit_every, the committed prefix must be >= 90 % of
+    the path, and the result must equal decode_batch of the same rows
+    (words, tids, cost within rel 1e-5)."""
+    opts = F.MfccOptions()
+    opts.frame_opts.samp_freq = float(test.sample_rate)
+    opts.frame_opts.dither = 0.0
+    rows = []
+    for u in sorted(test.waves):
+        cmvn = OnlineCmvn()
+        cmvn.freeze(np.zeros(opts.num_ceps, np.float32))
+        pipe = OnlineFeaturePipeline("mfcc", opts, cmvn=cmvn, device=dev)
+        pipe.accept_waveform(test.waves[u])
+        pipe.finish()
+        rows.append(am_gmm.loglikes(pipe.get_frames(
+            0, pipe.num_frames_ready())))
+    rows = np.concatenate(rows).astype(np.float32)
+    dec = TopKDecoder(hclg, beam=30.0, max_active=2000, acoustic_scale=1.0,
+                      device=dev)
+    stream = StreamingDecoder(dec, commit_every=16)
+    window = 0
+    t = time.perf_counter()
+    for i in range(0, len(rows), 20):
+        stream.advance(rows[i:i + 20])
+        stream.best_path(use_final=False)
+        window = max(window, len(stream._buf))
+    stream.finalize()
+    tids, words, cost = stream.best_path()
+    stream_s = time.perf_counter() - t
+    t = time.perf_counter()
+    ((tids_o, words_o, cost_o),) = dec.decode_batch([rows])
+    batch_s = time.perf_counter() - t
+    same = (list(tids) == list(tids_o) and list(words) == list(words_o)
+            and abs(cost - cost_o) <= 1e-5 * abs(cost_o))
+    log(f"streaming bounded: {len(rows)} frames of triphone-GMM loglikes in "
+        f"20-frame chunks (beam 30, acoustic scale 1, K {dec.K}), "
+        f"{stream_s:.3f} s with a best_path poll a chunk (decode_batch "
+        f"{batch_s:.3f} s): window max {window} levels (limit "
+        f"{8 * stream.commit_every}), committed {len(stream._ctids)} of "
+        f"{len(tids)} tids (limit 90 %); equal to decode_batch: {same} (cost "
+        f"{cost:.4f} vs {cost_o:.4f})")
+    if (window > 8 * stream.commit_every or not same
+            or len(stream._ctids) < 0.9 * len(tids)):
+        raise AssertionError("the streaming decoder's window grew or its "
+                             "result differs from decode_batch")
+
+
+def stream_rows(stream, rows):
+    """``rows`` fed to ``stream`` in the frame counts of STREAM_CHUNK_S
+    chunks; its final (tids, words, cost)."""
+    stream.reset()
+    step = max(1, int(round(STREAM_CHUNK_S * 100)))
+    for i in range(0, len(rows), step):
+        stream.advance(rows[i:i + step])
+    stream.finalize()
+    return stream.best_path()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; this smoke "
@@ -868,9 +1256,18 @@ def main() -> int:
     mfcc_opts.frame_opts.samp_freq = float(corpus.sample_rate)
     fb_mfcc = fbank_case("mfcc-8k", F.mfcc_fbank_options(mfcc_opts),
                          corpus.waves[utt0], dev)
+    # one streaming chunk (STREAM_CHUNK_S of 8 kHz audio: 18 frames)
+    chunk = corpus.waves[utt0][:int(STREAM_CHUNK_S * corpus.sample_rate)]
+    fb_stream = fbank_case("stream-8k", slice_opts, chunk, dev)
+    fb_stream_mfcc = fbank_case("mfcc-stream-8k",
+                                F.mfcc_fbank_options(mfcc_opts), chunk, dev)
     cb = conv_case("bench-F128", ConvnetConfig(), 4096, dev)
     cv = conv_case("wsj-F64", ConvnetConfig(num_filters=64), 4096, dev)
-    for cname, c in (("bench-F128", cb), ("wsj-F64", cv)):
+    # the rows AmNnet.loglikes pads a streaming chunk to
+    cv512 = conv_case("wsj-F64 512 rows", ConvnetConfig(num_filters=64), 512,
+                      dev)
+    for cname, c in (("bench-F128", cb), ("wsj-F64", cv),
+                     ("wsj-F64 512 rows", cv512)):
         log(f"conv {cname}: wgmma (bf16) {c['bf16']['ms']:.4f} ms = "
             f"{100 * c['bf16']['bound_ms'] / c['bf16']['ms']:.1f}% of its "
             f"{c['bf16']['bound_ms']:.4f} ms bound, cuDNN bf16 yardstick "
@@ -1047,14 +1444,22 @@ def main() -> int:
     mfcc_check(corpus, dev)
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        recipe_launches, mfcc_n, _ = recipe_phase(dev, tmp)
+        recipe_corpus = wsj.make_corpus(RECIPE_UTTS, SEED)
+        recipe_launches, mfcc_n, _ = recipe_phase(dev, tmp, recipe_corpus)
+
+        # ---- 9. streaming on phase 8's artifacts --------------------------
+        t = time.perf_counter()
+        stream_launches = streaming_phase(dev, os.path.join(tmp, "wsj"), tmp,
+                                          wsj.split_corpus(recipe_corpus)[2])
+        log(f"streaming phase: {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     by_phase = {
         "slice": {**launches, "fbank_table": table_launches,
                   "conv_maxpool_f32": f32_launches},
         "train": {**train_launches, "maxpool_fwd_scalar": scalar_launches},
-        "recipe": recipe_launches, "recipe_mfcc_stage": {"fbank_fft": mfcc_n}}
+        "recipe": recipe_launches, "recipe_mfcc_stage": {"fbank_fft": mfcc_n},
+        **stream_launches}
 
     def entry(name, source, replaces, n, r, pre=""):
         return {"name": name, "route": "cuda",
@@ -1093,8 +1498,22 @@ def main() -> int:
     # the fbank kernel at the MFCC's shape (23 bins, the energy kept)
     kernels[0]["mfcc_8k"] = {k: fb_mfcc[k] for k in (
         "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms")}
+    # and at one streaming chunk (fbank volumes' 36 bins, the MFCC's 23)
+    for key, r in (("stream_8k", fb_stream),
+                   ("mfcc_stream_8k", fb_stream_mfcc)):
+        kernels[0][key] = {k: r[k] for k in (
+            "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
+            "host_us")}
     kernels[0]["max_abs_err"] = max(fb["max_abs_err"],
-                                    fb_mfcc["max_abs_err"])
+                                    fb_mfcc["max_abs_err"],
+                                    fb_stream["max_abs_err"],
+                                    fb_stream_mfcc["max_abs_err"])
+    # the wgmma conv at a streaming chunk's 512 rows
+    kernels[2]["wsj_f64_512"] = {k: cv512["bf16"][k] for k in (
+        "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
+        "library_graph_ms")}
+    kernels[2]["max_abs_err"] = max(cv["bf16"]["max_abs_err"],
+                                    cv512["bf16"]["max_abs_err"])
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

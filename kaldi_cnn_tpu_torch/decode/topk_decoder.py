@@ -1,9 +1,9 @@
 """Batched top-K beam search over a CSR-packed HCLG, with on-device
-lattice records.
+lattice records, and its streaming interface.
 
 Port of ``kaldi_cnn_tpu/decode/topk_decoder.py`` (``TopKGraph``,
-``_recombine_topk``, ``_lookup``, ``TpuTopKDecoder`` and
-``decode_utterances``) to PyTorch (ref:
+``_recombine_topk``, ``_lookup``, ``TpuTopKDecoder``,
+``TpuStreamingDecoder`` and ``decode_utterances``) to PyTorch (ref:
 src/decoder/lattice-faster-decoder.cc ProcessEmitting /
 ProcessNonemitting / PruneActiveTokens / GetRawLattice):
 
@@ -27,14 +27,16 @@ ProcessNonemitting / PruneActiveTokens / GetRawLattice):
              and optionally determinized).
 
 ``vmap`` over utterances is an explicit leading batch dimension, and
-``lax.scan`` over frames is a Python loop of tensor ops on the device.
-The on-device best-path backtrace, the mesh and streaming are not ported
+``lax.scan`` over frames is a Python loop of tensor ops on the device;
+``StreamingDecoder`` runs each block of frames as one CUDA graph
+replay.  The on-device best-path backtrace and the mesh are not ported
 yet.  ``TopKGraph`` is a copy of the JAX package's numpy packing (the
 port imports nothing of that package).
 """
 
 from __future__ import annotations
 
+import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -1041,6 +1043,490 @@ class TopKDecoder:
             lat.final_graph[node[T, last]] = 0.0
         return prune_lattice(lat, self.lattice_beam, lm_scale=1.0,
                              acoustic_scale=self.acoustic_scale)
+
+
+# ---------------------------------------------------------------------------
+# Streaming (chunked) decode on the same frame
+# ---------------------------------------------------------------------------
+
+class _Block:
+    """One captured block size: its CUDA graph, its static device input
+    (``size + 1`` raw acoustic rows: frame j and its lookahead row j+1)
+    and output (the stacked levels, packed [size, 4, K] int32: states,
+    cost bits, bp_arc, bp_prev)."""
+
+    def __init__(self, size: int, num_pdfs: int, k: int, device):
+        self.size = size
+        self.am = torch.zeros((size + 1, num_pdfs), dtype=torch.float32,
+                              device=device)
+        self.out = torch.zeros((size, 4, k), dtype=torch.int32,
+                               device=device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+
+
+class _Staging:
+    """A chunk's rows and levels on their way to and from the blocks:
+    pinned host and device buffers of ``capacity`` frames."""
+
+    def __init__(self, capacity: int, num_pdfs: int, k: int, device):
+        self.capacity = capacity
+        self.rows_host = torch.zeros((capacity + 1, num_pdfs),
+                                     dtype=torch.float32, pin_memory=True)
+        self.rows = torch.zeros((capacity + 1, num_pdfs),
+                                dtype=torch.float32, device=device)
+        self.out = torch.zeros((capacity, 4, k), dtype=torch.int32,
+                               device=device)
+        self.out_host = torch.zeros((capacity, 4, k), dtype=torch.int32,
+                                    pin_memory=True)
+
+
+class StreamingDecoder:
+    """AdvanceDecoding-style chunked interface over ``TopKDecoder``
+    (counterpart of the JAX package's ``TpuStreamingDecoder``; ref:
+    online2/online-nnet2-decoding.cc
+    SingleUtteranceNnet2Decoder::AdvanceDecoding): feed acoustic chunks
+    as they arrive; token state (the sorted top-K active set) carries
+    across chunk boundaries on the device.
+
+    Exactly matches offline ``decode_batch`` of the same rows: the
+    acoustic-lookahead ranking needs frame t+1's row when pruning frame
+    t, so one frame is held back per ``advance`` and flushed by
+    ``finalize()`` using itself as lookahead.
+
+    On a CUDA device a chunk runs as greedy blocks from
+    ``CHUNK_BLOCKS``, each block size one CUDA graph of
+    ``TopKDecoder._frame`` (the best-path variant) over the block's
+    frames, captured at its first use on this decoder; the graphs share
+    one memory pool, and ``reset()`` keeps them.  A chunk costs one copy
+    of its rows from pinned host memory, then for each block a copy of
+    its rows into the graph's input buffer, one replay (which leaves the
+    carry (fs, fc) in the decoder's state buffers) and a copy of its
+    levels out, then one copy of all the levels back to pinned host
+    memory and one sync.  On the CPU the same block function runs
+    eagerly, frame by frame.  One decoder is one configuration: the
+    graphs bake in the decoder's beam, acoustic scale, K and eps depth.
+
+    Host memory is bounded as in the JAX package: only a traceback
+    window of recent levels is retained; every ``commit_every`` frames
+    the prefix on which all live tokens agree is committed
+    (``_try_commit``), and ``max_history`` optionally force-commits
+    along the best token.  The host commit machinery is the JAX
+    package's, verbatim."""
+
+    # a chunk of n frames runs as greedy blocks from this ladder: the
+    # online recognizer's 20-frame pieces (0.2 s of audio) as 16 + 4, a
+    # piece's tail and finalize()'s held-back frame as 1s
+    CHUNK_BLOCKS = (16, 4, 1)
+
+    def __init__(self, decoder: TopKDecoder,
+                 frame_shift_sec: float = 0.01,
+                 commit_every: int = 24,
+                 max_history: Optional[int] = None,
+                 walk_limit: Optional[int] = None):
+        self.dec = decoder
+        self.frame_shift = frame_shift_sec
+        self.commit_every = int(commit_every)
+        self.max_history = max_history
+        # commit checks walk at most this many recent levels, keeping
+        # the per-check cost O(1) in the stream length even when live
+        # hypotheses refuse to converge (e.g. an effectively infinite
+        # beam keeps parallel token families alive forever)
+        self.walk_limit = (max(256, 8 * self.commit_every)
+                           if walk_limit is None else int(walk_limit))
+        K, dev = decoder.K, decoder.device
+        # the carry between blocks: every graph reads and writes these
+        self._fs = torch.full((1, K), _INVALID, dtype=torch.int32,
+                              device=dev)
+        self._fc = torch.full((1, K), _BIG, dtype=torch.float32, device=dev)
+        self._blocks: Dict[int, _Block] = {}
+        self._staging: Optional[_Staging] = None
+        self._pool = None
+        self.capture_seconds: Dict[int, float] = {}   # block size -> s
+        self.reset()
+
+    def reset(self) -> None:
+        self._pending: Optional[np.ndarray] = None   # held-back raw row
+        self._state = None                           # set by _ensure_init
+        self.num_frames = 0                          # processed frames
+        # committed-prefix state (see class docstring)
+        self._frontier: Optional[Tuple[np.ndarray, ...]] = None
+        self._frontier_slot: int = 0
+        self._buf: List[Tuple[np.ndarray, ...]] = []  # levels after frontier
+        self._ctids: List[int] = []                   # committed labels
+        self._cwords: List[int] = []
+        self._since_check = 0
+
+    # -- the device side ---------------------------------------------------
+    def _frames(self, fs, fc, am, out):
+        """The block function: ``out.shape[0]`` best-path frames from the
+        carry (fs, fc) [1, K] over raw acoustic rows ``am`` [size + 1, P]
+        (row j + 1 is frame j's lookahead); each level goes into ``out``.
+        Returns the new carry."""
+        for j in range(out.shape[0]):
+            fs, fc, ba, bp = self.dec._frame(fs, fc, am[j:j + 1],
+                                             am[j + 1:j + 2])
+            out[j, 0].copy_(fs[0])
+            out[j, 1].copy_(fc[0].view(torch.int32))
+            out[j, 2].copy_(ba[0])
+            out[j, 3].copy_(bp[0])
+        return fs, fc
+
+    def _graph_body(self, blk: _Block) -> None:
+        fs, fc = self._frames(self._fs, self._fc, blk.am, blk.out)
+        self._fs.copy_(fs)
+        self._fc.copy_(fc)
+
+    def _capture(self, blk: _Block) -> None:
+        """Warm the block up once on a side stream (the sort, top-K and
+        searchsorted scratch is allocated there, outside the capture),
+        put the carry back, then capture it into the shared pool."""
+        t = time.perf_counter()
+        carry = (self._fs.clone(), self._fc.clone())
+        side = torch.cuda.Stream(self.dec.device)
+        side.wait_stream(torch.cuda.current_stream(self.dec.device))
+        with torch.cuda.stream(side):
+            self._graph_body(blk)
+        torch.cuda.current_stream(self.dec.device).wait_stream(side)
+        self._fs.copy_(carry[0])
+        self._fc.copy_(carry[1])
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        # sharing the pool is safe in any replay order: a graph's pool
+        # memory holds only its own temporaries; its inputs, outputs and
+        # the carry are allocated outside every capture
+        blk.graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(blk.graph, pool=self._pool):
+            self._graph_body(blk)
+        torch.cuda.synchronize(self.dec.device)
+        self.capture_seconds[blk.size] = time.perf_counter() - t
+
+    @torch.no_grad()
+    def _run_frames(self, rows: np.ndarray) -> Tuple[np.ndarray, ...]:
+        """``len(rows) - 1`` frames over raw rows [n + 1, P]; returns the
+        levels (fs, fc, bp_arc, bp_prev), each [n, K] on the host."""
+        n, dev, K = len(rows) - 1, self.dec.device, self.dec.K
+        if dev.type != "cuda":
+            out = torch.empty((n, 4, K), dtype=torch.int32)
+            self._fs, self._fc = self._frames(
+                self._fs, self._fc, torch.as_tensor(rows, device=dev), out)
+            packed = out.numpy()
+        else:
+            sizes, left = [], n
+            while left:
+                sizes.append(next(b for b in self.CHUNK_BLOCKS if b <= left))
+                left -= sizes[-1]
+            for size in sorted(set(sizes)):
+                if size not in self._blocks:
+                    blk = self._blocks[size] = _Block(
+                        size, rows.shape[1], K, dev)
+                    self._capture(blk)
+            st = self._staging
+            if st is None or st.capacity < n:
+                st = self._staging = _Staging(
+                    max(64, 1 << (n - 1).bit_length()), rows.shape[1], K,
+                    dev)
+            st.rows_host.numpy()[:n + 1] = rows
+            st.rows[:n + 1].copy_(st.rows_host[:n + 1], non_blocking=True)
+            i = 0
+            for size in sizes:
+                blk = self._blocks[size]
+                blk.am.copy_(st.rows[i:i + size + 1])
+                blk.graph.replay()
+                st.out[i:i + size].copy_(blk.out)
+                i += size
+            st.out_host[:n].copy_(st.out[:n], non_blocking=True)
+            torch.cuda.current_stream(dev).synchronize()
+            packed = st.out_host[:n].numpy().copy()
+        return (packed[:, 0], packed[:, 1].view(np.float32), packed[:, 2],
+                packed[:, 3])
+
+    @torch.no_grad()
+    def _ensure_init(self, am_row0: np.ndarray) -> None:
+        """Level 0: the start token, its eps closure ranked with frame 0's
+        lookahead, and its backpointers (eagerly, once an utterance)."""
+        if self._state is not None:
+            return
+        dec, K = self.dec, self.dec.K
+        s0 = torch.full((1, K), _INVALID, dtype=torch.int32,
+                        device=dec.device)
+        s0[:, 0] = dec.g.start
+        c0 = torch.full((1, K), _BIG, dtype=torch.float32, device=dec.device)
+        c0[:, 0] = 0.0
+        am0 = torch.as_tensor(am_row0[None], device=dec.device)
+        fs0, fc0 = dec._eps_fixpoint(s0, c0, dec._am_ext(am0))
+        root = torch.full((1, K), -1, dtype=torch.int64, device=dec.device)
+        bp_a, bp_p = dec._resolve_bp(fs0, fc0, s0, c0, root, root)
+        self._fs.copy_(fs0)
+        self._fc.copy_(fc0)
+        lvl = tuple(x[0].cpu().numpy() for x in (fs0, fc0, bp_a, bp_p))
+        self._frontier = lvl + (None,)
+        root = np.nonzero((lvl[2] < 0)
+                          & (lvl[0] == self.dec.g.start))[0]
+        self._frontier_slot = int(root[0]) if len(root) else 0
+        self._state = (self._fs, self._fc)
+
+    def _append_level(self, lvl: Tuple[np.ndarray, ...]) -> None:
+        """Host bookkeeping for one processed frame: retain the level
+        in the traceback window, run the commit-cadence checks."""
+        self._buf.append(lvl)
+        self.num_frames += 1
+        self._since_check += 1
+        if self._since_check >= self.commit_every:
+            self._since_check = 0
+            self._try_commit()
+        if self.max_history and len(self._buf) > self.max_history:
+            self._force_commit()
+
+    def advance(self, loglikes: np.ndarray) -> None:
+        """Feed [n, num_pdfs] acoustic log-likelihoods.  On the card the
+        frames run as blocks (CHUNK_BLOCKS), one graph replay each, and
+        their levels come back in one fetch."""
+        rows = -np.asarray(loglikes, np.float32)
+        if rows.size == 0:
+            return
+        if self._pending is not None:
+            rows = np.concatenate([self._pending[None], rows])
+        if len(rows) < 2:
+            self._pending = rows[-1]
+            return
+        self._ensure_init(rows[0])
+        levels = self._run_frames(rows)
+        for j in range(len(rows) - 1):
+            self._append_level(tuple(x[j] for x in levels) + (rows[j],))
+        self._pending = rows[-1]
+
+    def finalize(self) -> None:
+        """Flush the held-back frame (end of input) through the size-1
+        block, with itself as lookahead."""
+        if self._pending is not None:
+            row = self._pending
+            self._ensure_init(row)
+            levels = self._run_frames(np.stack([row, row]))
+            self._append_level(tuple(x[0] for x in levels) + (row,))
+            self._pending = None
+
+    # -- committed-prefix machinery ---------------------------------------
+    def _collapse_eps(self, lvl, cur: np.ndarray) -> np.ndarray:
+        """Map token slots to their within-level eps-ROOT slot (a path
+        through an eps-descendant also passes through its root); broken
+        chains go to -1 only if an unresolved backpointer interrupts."""
+        _, _, ba, bp = lvl[:4]
+        hi = len(ba) - 1
+        n_e = self.dec.g.num_emitting_arcs
+        for _ in range(self.dec.eps_iters + 1):
+            a = ba[np.clip(cur, 0, hi)]
+            is_eps = (cur >= 0) & (a >= n_e)
+            if not is_eps.any():
+                break
+            cur = np.where(is_eps, bp[np.clip(cur, 0, hi)], cur)
+        return cur
+
+    def _emit_hop(self, lvl, cur: np.ndarray) -> np.ndarray:
+        """Map eps-root slots at one level to their emitting-predecessor
+        slots at the previous level (-1 when unresolved)."""
+        _, _, ba, bp = lvl[:4]
+        hi = len(ba) - 1
+        cur_c = np.clip(cur, 0, hi)
+        a = ba[cur_c]
+        n_e = self.dec.g.num_emitting_arcs
+        return np.where((cur >= 0) & (a >= 0) & (a < n_e), bp[cur_c], -1)
+
+    def _step_back(self, lvl, cur: np.ndarray) -> np.ndarray:
+        return self._emit_hop(lvl, self._collapse_eps(lvl, cur))
+
+    def _try_commit(self) -> None:
+        """Walk the live tokens' backpointer chains backward through the
+        window; the LATEST level at which all chains pass through one
+        token (an eps-root shared by every chain) is provably on the
+        final path no matter what audio follows — Viterbi backpointers
+        are unique per token, so merged paths stay merged — and the
+        prefix up to it commits."""
+        W = len(self._buf)
+        if W == 0:
+            return
+        valid = self._buf[-1][0] != INVALID
+        if not valid.any():
+            return
+        K = self.dec.K
+        cur = np.where(valid, np.arange(K), -1)
+        for i in range(W, max(W - self.walk_limit, -1), -1):
+            lvl = self._buf[i - 1] if i > 0 else self._frontier
+            cur = self._collapse_eps(lvl, cur)
+            if (cur[valid] < 0).any():     # a chain broke: cannot prove
+                return
+            u = np.unique(cur[valid])
+            if len(u) == 1:
+                self._commit_to(i, int(u[0]))
+                return
+            if i > 0:
+                cur = self._emit_hop(lvl, cur)
+                if (cur[valid] < 0).any():
+                    return
+
+    def _force_commit(self) -> None:
+        """max_history exceeded: commit along the CURRENT BEST token's
+        path even though other live tokens disagree (forced partial
+        traceback — bounded memory, approximate in the non-converging
+        case; see class docstring)."""
+        W = len(self._buf)
+        target = W - max(self.max_history // 2, 1)
+        if target < 0:
+            return
+        fs, fc = self._buf[-1][:2]
+        valid = fs != INVALID
+        if not valid.any():
+            return
+        s = np.asarray([int(np.argmin(np.where(valid, fc, BIG)))])
+        for i in range(W, target, -1):
+            s = self._step_back(self._buf[i - 1], s)
+            if s[0] < 0:
+                return
+        s = self._collapse_eps(
+            self._buf[target - 1] if target > 0 else self._frontier, s)
+        if s[0] < 0:
+            return
+        self._commit_to(target, int(s[0]))
+
+    def _commit_to(self, off: int, slot: int) -> None:
+        try:
+            tids, words = self._trace(off, slot)
+        except RuntimeError:
+            return          # rare unresolved chain: retry a later check
+        self._ctids.extend(tids)
+        self._cwords.extend(words)
+        if off > 0:
+            self._frontier = self._buf[off - 1]
+            self._buf = self._buf[off:]
+        self._frontier_slot = slot
+
+    def _level_host(self, i: int) -> Tuple[np.ndarray, ...]:
+        """Window level i: 0 = the committed frontier, i = _buf[i-1]."""
+        return self._frontier if i == 0 else self._buf[i - 1]
+
+    def _trace(self, i: int, slot: int
+               ) -> Tuple[List[int], List[int]]:
+        """Backpointer walk from (window level i, slot) back to the
+        committed frontier token; forward-order (tids, words)."""
+        g = self.dec.g
+        n_e = g.num_emitting_arcs
+        tids_r: List[int] = []
+        words_r: List[int] = []
+        guard, limit = 0, (i + 2) * (self.dec.eps_iters + 2) + 16
+        while not (i == 0 and slot == self._frontier_slot):
+            guard += 1
+            if guard > limit:
+                raise RuntimeError("streaming traceback loop")
+            _, _, ba, bp = self._level_host(i)[:4]
+            a, p = int(ba[slot]), int(bp[slot])
+            if a < 0 or (i == 0 and a < n_e):
+                if i == 0:
+                    raise RuntimeError(
+                        "streaming traceback: chain does not reach the "
+                        "commit frontier")
+                slot, i2, tids2, words2 = self._window_fix(i, slot)
+                i = i2
+                tids_r.extend(tids2)
+                words_r.extend(words2)
+                continue
+            if a >= n_e:
+                a -= n_e
+                if g.n_olabel[a] > 0:
+                    words_r.append(int(g.n_olabel[a]))
+                slot = p
+            else:
+                tids_r.append(int(g.e_ilabel[a]))
+                if g.e_olabel[a] > 0:
+                    words_r.append(int(g.e_olabel[a]))
+                slot = p
+                i -= 1
+        return tids_r[::-1], words_r[::-1]
+
+    def _window_fix(self, i: int, slot: int):
+        """Host repair of an unresolved backpointer inside the window
+        (the streaming analogue of TopKDecoder._host_fix; window
+        level 0 — the committed frontier — plays the init role).  The
+        port's ``_host_fix`` reads histories [B, levels, K] with level 0
+        in them."""
+        levels = [self._level_host(j)
+                  for j in range(len(self._buf) + 1)]
+        r = {name: np.stack([lv[j] for lv in levels])[None]
+             for j, name in enumerate(("fs", "fc", "bp_arc", "bp_prev"))}
+        am = np.stack([lv[4] for lv in levels[1:]])[None]
+        return self.dec._host_fix(r, am, i, 0, slot)
+
+    def best_path(self, use_final: bool = True
+                  ) -> Tuple[np.ndarray, np.ndarray, float]:
+        """Current best (tids, words, cost) over the processed frames —
+        committed prefix + traceback over the retained window only."""
+        if self._state is None:
+            return (np.zeros(0, np.int32), np.zeros(0, np.int32),
+                    float("inf"))
+        g = self.dec.g
+        fs, fc = self._level_host(len(self._buf))[:2]
+        valid = fs != INVALID
+        if not valid.any():
+            return (np.zeros(0, np.int32), np.zeros(0, np.int32),
+                    float("inf"))
+        if use_final:
+            total = np.where(valid, fc + g.final[np.where(valid, fs, 0)],
+                             BIG)
+        else:
+            total = np.where(valid, fc, BIG)
+        slot = int(np.argmin(total))
+        cost = float(total[slot])
+        if cost >= BIG:      # no final state reached: best active token
+            total = np.where(valid, fc, BIG)
+            slot = int(np.argmin(total))
+            cost = float(total[slot])
+        tids, words = self._trace(len(self._buf), slot)
+        return (np.asarray(self._ctids + tids, np.int32),
+                np.asarray(self._cwords + words, np.int32), cost)
+
+    # -- endpointing (same rules as the host online decoder) --------------
+    def trailing_silence_frames(self, trans_model, silence_phone: int
+                                ) -> int:
+        tids, _, _ = self.best_path(use_final=False)
+        n = 0
+        for tid in tids[::-1]:
+            if trans_model.id_to_phone(int(tid)) == silence_phone:
+                n += 1
+            else:
+                break
+        return n
+
+    def endpoint_detected(self, trans_model, silence_phone: int,
+                          config=None) -> bool:
+        """(ref: online-endpoint.cc EndpointDetected, over the top-K
+        active set instead of the dense cost vector)."""
+        from kaldi_cnn_tpu_torch.online2.decoder import EndpointConfig
+        config = config or EndpointConfig()
+        t = self.num_frames
+        if t == 0:
+            return False
+        utt_sec = t * self.frame_shift
+        _, words, _ = self.best_path(use_final=False)
+        trailing_sec = self.trailing_silence_frames(
+            trans_model, silence_phone) * self.frame_shift
+        said_something = len(words) > 0
+        if not said_something and utt_sec >= config.silence_timeout_sec:
+            return True
+        r = config.rule_trailing
+        if said_something or not r.must_contain_nonsilence:
+            if (trailing_sec >= r.min_trailing_silence_sec
+                    and utt_sec >= r.min_utterance_length_sec):
+                fs, fc = self._level_host(len(self._buf))[:2]
+                valid = fs != INVALID
+                if valid.any():
+                    final = self.dec.g.final[np.where(valid, fs, 0)]
+                    best_final = float(np.min(np.where(
+                        valid, fc + final, BIG)))
+                    best_any = float(np.min(np.where(valid, fc, BIG)))
+                    if (best_final < BIG and
+                            best_final - best_any <= r.max_relative_cost):
+                        return True
+        if utt_sec >= config.max_utterance_length_sec:
+            return True
+        return False
 
 
 # ---------------------------------------------------------------------------

@@ -279,6 +279,27 @@ def _audio_seconds(volumes: Dict[str, np.ndarray]) -> float:
     return sum(v.shape[0] for v in volumes.values()) / 100.0
 
 
+def make_corpus(num_utts: int = 160, seed: int = 37,
+                noise_std: float = 250.0, formant_jitter: float = 0.08):
+    """``run``'s default corpus: ``num_utts`` synthetic digit strings of
+    2-5 words at uniform word probabilities, hardened by ``noise_std``
+    (additive noise) and ``formant_jitter`` (per-utterance spectral
+    shift) so that test WER is non-zero."""
+    lex = synthetic.digits_lexicon()
+    wp = {w: 1.0 / len(lex.entries) for w in lex.entries}
+    return synthetic.make_noisy_corpus(
+        lex, wp, num_utts, 2, 5, seed, noise_std=noise_std,
+        formant_jitter=formant_jitter)
+
+
+def split_corpus(corpus):
+    """``run``'s (train, dev, test) split of a corpus without an eval
+    corpus: 20 % test, then 15 % of the rest dev."""
+    traindev, test = corpus.split(0.2)
+    train, dev = traindev.split(0.15)
+    return train, dev, test
+
+
 def run(
     num_utts: int = 160,
     seed: int = 37,
@@ -307,11 +328,10 @@ def run(
     """The whole recipe on ``device`` (twin of the JAX package's
     ``wsj.run``, same stages, stage names and result keys).
 
-    corpus: any object with the SyntheticCorpus shape; defaults to the
-    synthetic digits corpus of ``num_utts`` utterances, hardened by
-    ``noise_std`` (additive noise) and ``formant_jitter`` (per-utterance
-    spectral shift) so that test WER is non-zero.  ``eval_utts > 0``
-    needs the default corpus, and raises with a given one.
+    corpus: any object with the SyntheticCorpus shape; defaults to
+    ``make_corpus(num_utts, seed, noise_std, formant_jitter)``, and
+    ``split_corpus`` splits it unless ``eval_utts > 0``, which needs the
+    default corpus and raises with a given one.
     ext_alignments: transition-id alignments used instead of the GMM
     bootstrap's; they must come from this run's transition model
     (checked by the largest id).  batched_decode: dev/test lattices from
@@ -331,11 +351,7 @@ def run(
     device = torch.device(device)
     torch.zeros(1, device=device)      # no card: raise before any work
     if corpus is None:
-        lex = synthetic.digits_lexicon()
-        wp = {w: 1.0 / len(lex.entries) for w in lex.entries}
-        corpus = synthetic.make_noisy_corpus(
-            lex, wp, num_utts, 2, 5, seed, noise_std=noise_std,
-            formant_jitter=formant_jitter)
+        corpus = make_corpus(num_utts, seed, noise_std, formant_jitter)
     elif eval_utts > 0:
         raise ValueError("eval_utts draws a synthetic eval corpus; it "
                          "cannot be combined with a given corpus")
@@ -347,8 +363,7 @@ def run(
         dev, test = eval_corpus.split(0.5)
         train = corpus
     else:
-        traindev, test = corpus.split(0.2)
-        train, dev = traindev.split(0.15)
+        train, dev, test = split_corpus(corpus)
     logger.info("corpus: %d train / %d dev / %d test",
                 len(train.waves), len(dev.waves), len(test.waves))
 

@@ -524,3 +524,105 @@ def test_decode_utterances_on_card_matches_cpu(cuda):
         for k in ("arc_src", "arc_dst", "arc_olabel"):
             np.testing.assert_array_equal(getattr(got[u], k),
                                           getattr(want[u], k))
+
+
+# ---------------------------------------------------------------- streaming
+
+@pytest.mark.parametrize("kind,bins", [("fbank", 36), ("mfcc", 23)])
+@pytest.mark.parametrize("frames", list(range(1, 21)))
+def test_fbank_and_mfcc_at_streaming_piece_lengths(cuda, kind, bins, frames):
+    """An online piece can be one frame long: the kernel at T = 1..20
+    (8 kHz, N = 256) against the plain version on the CPU."""
+    if kind == "mfcc":
+        opts = F.MfccOptions()
+    else:
+        opts = F.FbankOptions()
+    opts.frame_opts.samp_freq = 8000.0
+    opts.mel_opts.num_bins = bins
+    fo = opts.frame_opts
+    n = (frames - 1) * fo.window_shift + fo.window_size
+    wave = (np_rng(frames, "piece").normal(size=n) * 1000).astype(np.float32)
+    run = fb.mfcc if kind == "mfcc" else fb.fbank
+    ref = fb.mfcc_reference if kind == "mfcc" else fb.fbank_reference
+    before = fb.fbank_frames.launches
+    got = run(torch.as_tensor(wave, device=cuda), opts,
+              torch_generator(1, "piece"))
+    want = ref(torch.as_tensor(wave), opts, torch_generator(1, "piece"))
+    assert fb.fbank_frames.launches == before + 1
+    assert got.shape == want.shape and got.shape[0] == frames
+    err = (got.cpu().double() - want.double()).abs().amax(dim=0).numpy()
+    if kind == "mfcc":
+        limit = 2e-3 * F.lifter_coeffs(13, 22.0).astype(float)
+        limit[0] = 1e-3
+    else:
+        limit = np.full(bins, FBANK_ATOL)
+    assert (err <= limit).all(), err
+
+
+@pytest.mark.parametrize("kind,bins,chunk", [
+    ("fbank", 36, 1600), ("fbank", 36, 160), ("mfcc", 23, 1600),
+    ("mfcc", 23, 333)])
+def test_online_base_feature_on_card_matches_plain(cuda, kind, bins, chunk):
+    """OnlineBaseFeature on the card (each ready piece through the
+    kernel) against the same stream on the CPU (the plain version)."""
+    from kaldi_cnn_tpu_torch.online2 import OnlineBaseFeature
+    wave = (np_rng(3, "online").normal(size=9000) * 800).astype(np.float32)
+
+    def run(dev):
+        opts = F.MfccOptions() if kind == "mfcc" else F.FbankOptions()
+        opts.frame_opts.samp_freq = 8000.0
+        opts.frame_opts.dither = 0.0
+        opts.mel_opts.num_bins = bins
+        ob = OnlineBaseFeature(kind, opts, device=dev)
+        for i in range(0, len(wave), chunk):
+            ob.accept_waveform(wave[i:i + chunk])
+        ob.finish()
+        return ob.get_frames(0, ob.num_frames_ready())
+    before = fb.fbank_frames.launches
+    got = run(cuda)
+    assert fb.fbank_frames.launches > before
+    want = run("cpu")
+    assert got.shape == want.shape
+    err = np.abs(got.astype(np.float64) - want).max(axis=0)
+    if kind == "mfcc":
+        limit = 2e-3 * F.lifter_coeffs(13, 22.0).astype(float)
+        limit[0] = 1e-3
+    else:
+        limit = np.full(bins, FBANK_ATOL)
+    assert (err <= limit).all(), err
+
+
+def _stream(stream, ll, chunk):
+    stream.reset()
+    parts = []
+    for i in range(0, ll.shape[0], chunk):
+        stream.advance(ll[i:i + chunk])
+        parts.append(stream.best_path(use_final=False))
+    stream.finalize()
+    return parts + [stream.best_path()]
+
+
+def test_streaming_decoder_on_card_matches_cpu(cuda):
+    """Blocks of 16, 4 and 1 frames as CUDA graph replays: the same
+    partial and final best paths as the eager frames on the CPU and as
+    the card's own decode_batch; each graph is captured once and kept
+    across reset()."""
+    g, lls = _digits_lattice_case()
+    kw = dict(beam=14.0, max_active=g.num_states + 32, acoustic_scale=0.1)
+    card = TK.StreamingDecoder(TK.TopKDecoder(g, device=cuda, **kw))
+    cpu = TK.StreamingDecoder(TK.TopKDecoder(g, device="cpu", **kw))
+    offline = card.dec.decode_batch(lls)
+    for n, (ll, off) in enumerate(zip(lls, offline)):
+        chunk = (9, 13, 41, 50)[n]
+        got, want = _stream(card, ll, chunk), _stream(cpu, ll, chunk)
+        for (t, w, c), (jt, jw, jc) in zip(got, want):
+            assert list(t) == list(jt) and list(w) == list(jw)
+            assert c == pytest.approx(jc, rel=1e-5, abs=1e-4)
+        t, w, c = got[-1]
+        assert list(t) == list(off[0]) and list(w) == list(off[1])
+        assert c == pytest.approx(off[2], rel=1e-5, abs=1e-4)
+        if n == 0:
+            captured = dict(card.capture_seconds)
+    assert set(card.capture_seconds) == {16, 4, 1}
+    assert set(captured) == {4, 1}
+    assert all(card.capture_seconds[k] == v for k, v in captured.items())

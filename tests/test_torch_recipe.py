@@ -122,6 +122,42 @@ class _Stop(Exception):
     pass
 
 
+def test_make_corpus_and_split_are_the_reference_run_s():
+    """wsj.make_corpus and wsj.split_corpus against the corpus the JAX
+    package's run draws when none is given (digit strings of 2-5 words at
+    uniform word probabilities, noise 250, formant jitter 0.08) and its
+    20 % test, then 15 % dev split."""
+    from kaldi_cnn_tpu.recipes import synthetic as jsyn
+    lex = jsyn.digits_lexicon()
+    want = jsyn.make_noisy_corpus(
+        lex, {w: 1.0 / len(lex.entries) for w in lex.entries}, 20, 2, 5, 41,
+        noise_std=250.0, formant_jitter=0.08)
+    got = wsj.make_corpus(20, 41)
+    assert got.word_probs == want.word_probs
+    assert got.transcripts == want.transcripts
+    for u in want.waves:
+        np.testing.assert_array_equal(got.waves[u], want.waves[u])
+    traindev, test = want.split(0.2)
+    train, dev = traindev.split(0.15)
+    for g, w in zip(wsj.split_corpus(got), (train, dev, test)):
+        assert sorted(g.waves) == sorted(w.waves)
+
+
+def test_run_draws_make_corpus_and_splits_it(monkeypatch):
+    """Without a corpus, run trains on split_corpus(make_corpus(...))'s
+    train part, so that a caller can rebuild run's test split."""
+    seen = {}
+
+    def stop(train, seed, device):
+        seen["train"] = sorted(train.waves)
+        raise _Stop
+    monkeypatch.setattr(wsj, "compute_features", stop)
+    with pytest.raises(_Stop):
+        wsj.run(num_utts=20, seed=41, device="cpu")
+    assert seen["train"] == sorted(
+        wsj.split_corpus(wsj.make_corpus(20, 41))[0].waves)
+
+
 def test_decode_and_score_dithers_dev_and_test_apart(monkeypatch):
     """Without volumes, decode_and_score computes the dev volumes at
     seed + 1 and the test volumes at seed + 2, as run does: a dev and a

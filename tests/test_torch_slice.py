@@ -136,7 +136,7 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 47
+    assert int(out.stdout.split()[-1]) >= 67
 
 
 def _tiny_graph():
@@ -150,7 +150,8 @@ def _tiny_graph():
 @pytest.mark.parametrize("entry", [
     "make_convnet", "FeatureExtractor", "TopKDecoder",
     "compute_fbank_volumes", "Conv2DComponent", "ng_init", "wsj.run",
-    "compute_features", "mfcc FeatureExtractor", "make_pnorm_dnn"])
+    "compute_features", "mfcc FeatureExtractor", "make_pnorm_dnn",
+    "OnlineBaseFeature", "OnlineRecognizer", "StreamingDecoder"])
 def test_entry_points_default_to_the_card(entry):
     """Left without ``device``, the port's entry points run on the card;
     where there is none they raise, at construction or at the first call,
@@ -163,6 +164,9 @@ def test_entry_points_default_to_the_card(entry):
     from kaldi_cnn_tpu_torch.models.components import Conv2DComponent
     from kaldi_cnn_tpu_torch.models.factory import make_pnorm_dnn
     from kaldi_cnn_tpu_torch.models.ng_sgd import OnlineNaturalGradient
+    from kaldi_cnn_tpu_torch.decode.topk_decoder import StreamingDecoder
+    from kaldi_cnn_tpu_torch.online2 import (OnlineBaseFeature,
+                                             OnlineRecognizer)
     from kaldi_cnn_tpu_torch.recipes.yesno import compute_features
     wave = np.zeros(800, np.float32)
     lex = synthetic.digits_lexicon()
@@ -183,6 +187,12 @@ def test_entry_points_default_to_the_card(entry):
         "mfcc FeatureExtractor": lambda: FeatureExtractor(
             TF.MfccOptions())(wave),
         "make_pnorm_dnn": lambda: make_pnorm_dnn(),
+        "OnlineBaseFeature": lambda: OnlineBaseFeature("fbank")
+        .accept_waveform(wave),
+        "OnlineRecognizer": lambda: OnlineRecognizer(
+            _tiny_graph(), lambda f: f).accept_waveform(wave),
+        "StreamingDecoder": lambda: StreamingDecoder(
+            TopKDecoder(_tiny_graph())),
     }
     with pytest.raises((RuntimeError, AssertionError),
                        match="CUDA|NVIDIA|cuda"):
