@@ -18,7 +18,9 @@ then runs these phases; any failure raises and the exit code is not 0.
    36 bins and at the MFCC's 23 bins; conv+maxpool at F = 64, 4096 rows
    and at the 512 rows that AmNnet.loglikes pads a streaming chunk to;
    maxpool at F = 64 and 256 rows, the recipe's minibatch, and with
-   pool_c = 2), with the error and both times from CUDA events.
+   pool_c = 2) and at the Switchboard recipe's (conv+maxpool at F = 48,
+   4096 and 512 rows; maxpool on its 8x30x48 output at 256 rows), with
+   the error and both times from CUDA events.
    Fbank runs both kernels at the power-of-two sizes: the FFT kernel the
    wrapper picks there, held against the plain version in float64 (and
    f32), and the table kernel (taken when round_to_power_of_two is off).
@@ -116,15 +118,29 @@ then runs these phases; any failure raises and the exit code is not 0.
    not held).  Prints the streaming RTF, the median and p95 ms of an
    accept_waveform call, the split between features, AM and search, each
    graph's capture seconds and the verb's WERs (not asserted).
+10. Switchboard recipe: ``recipes.swbd.run`` end to end on the card at
+   the recipe's own size and width (24 speakers x 7 utterances, F = 48,
+   a 12-dim iVector from a 16-Gaussian UBM, 2 x (Affine 800 -> Pnorm 160
+   -> Normalize), SWBD_EPOCHS epochs): the fbank kernel must run in the
+   "mfcc" stage, in the dev and test iVectors' MFCC and in the fbank
+   volumes, the maxpool forward and backward kernels in "nnet_train"
+   (inside SliceParallel(pool, Identity)), the wgmma conv+maxpool kernel
+   in both decodes (through the pair of slices), and no lattice buffer
+   may overflow.  Then the dev and test rows the decode got, with the
+   card's trained parameters, through the plain versions on the CPU:
+   loglikes within LOGLIKE_ATOL, each lattice's one-best words equal and
+   the same swept point.  Prints each stage's seconds, the tree's
+   leaves, the graph's states and K, and dev/test WER (not asserted).
 
 Output: the GPU's name and power limit (nvidia-smi), the build time, one
 line per check, the total seconds, a JSON line {"kernels": [...]} (for
 each kernel its launches in the recipe run of phase 8, the whole main
 path, with each phase's count in ``launches_by_phase``, phase 9's as
 its recognizer run "streaming" and its two verb runs "verb_card" and
-"verb_host"; error, ms,
+"verb_host", phase 10's as "swbd"; error, ms,
 plain_ms, bound_ms, bound_by, library_ms, graph_ms and library_graph_ms,
-at the main path's shapes) and, last, the JSON line {"ok": true,
+at the main path's shapes, and the same at the Switchboard shapes under
+"swbd_f48...") and, last, the JSON line {"ok": true,
 "device": {...}}.  Times
 are for the card named on the first line and hold only for its power
 limit.
@@ -179,7 +195,7 @@ from kaldi_cnn_tpu_torch.ops import maxpool as mp
 from kaldi_cnn_tpu_torch.ops.conv import (conv2d_maxpool, conv2d_maxpool_f32,
                                           conv2d_maxpool_reference)
 from kaldi_cnn_tpu_torch.ops.fbank import fbank_frames, fbank_reference_frames
-from kaldi_cnn_tpu_torch.recipes import synthetic, wsj
+from kaldi_cnn_tpu_torch.recipes import swbd, synthetic, wsj
 from kaldi_cnn_tpu_torch.train.checkpoint import load_checkpoint
 
 SEED = 37
@@ -217,6 +233,9 @@ MFCC_ENERGY_ATOL = 1e-3   # column 0, the raw log energy
 # tests/test_online2.py)
 STREAM_CHUNK_S = 0.2
 STREAM_COST_ABS = 1e-2
+# the Switchboard recipe (swbd.run, phase 10) at the recipe's own size and
+# width: 24 speakers x 7 utterances, F = 48, iVector 12, pnorm 800/160
+SWBD_EPOCHS = 25          # the recipe's own: not cut
 # published H100 SXM peaks (NVIDIA data sheet, dense) for bound_ms
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -621,23 +640,24 @@ def wsj_model(num_pdfs: int, device) -> AmNnet:
 
 
 @contextlib.contextmanager
-def lattice_probes():
+def lattice_probes(recipe=wsj):
     """Times the lattice path's stages (synchronising the card around
     each), and records the loglikes decode_utterances is given and each
     decode_batch_lattice call's (overflow, capacity).  Wraps the functions
-    where the path looks them up; restores them on exit."""
+    where the path looks them up (in ``recipe``'s module: wsj or swbd);
+    restores them on exit."""
     secs = dict.fromkeys(("decode_utterances", "frame loop", "fetch",
                           "assembly + prune", "determinize", "score_sweep"),
                          0.0)
     probe = {"s": secs, "loglikes": {}, "overflow": []}
     targets = [
-        (wsj, "decode_utterances", "decode_utterances",
+        (recipe, "decode_utterances", "decode_utterances",
          lambda a, out: probe["loglikes"].update(a[1])),
         (TopKDecoder, "_decode", "frame loop", None),
         (TopKDecoder, "_fetch_lattice_run", "fetch", None),
         (TopKDecoder, "_assemble_lattice", "assembly + prune", None),
         (topk_decoder, "determinize_lattice", "determinize", None),
-        (wsj, "score_sweep", "score_sweep", None),
+        (recipe, "score_sweep", "score_sweep", None),
         (TopKDecoder, "decode_batch_lattice", None,
          lambda a, out: probe["overflow"].append(
              (a[0].last_overflow, a[0].A_lat)))]
@@ -809,32 +829,45 @@ def read_launches() -> dict:
             "maxpool_bwd": mp.maxpool3d_backward.launches}
 
 
+@contextlib.contextmanager
+def launches_per_call(owner, name, calls):
+    """Wraps ``owner.name`` where the recipe looks it up: each call appends
+    (its arguments, the kernels' launches during it, its result) to
+    ``calls``.  Restores it on exit."""
+    fn = getattr(owner, name)
+
+    @functools.wraps(fn)
+    def run(*a, **k):
+        before = read_launches()
+        out = fn(*a, **k)
+        torch.cuda.synchronize()
+        after = read_launches()
+        calls.append((a, {n: after[n] - before[n] for n in after}, out))
+        return out
+
+    setattr(owner, name, run)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, fn)
+
+
 def recipe_phase(dev, tmp, corpus):
     """Phase 8: wsj.run on ``corpus`` on the card, eval_dnn on; returns
     (launches in the run, of which the "mfcc" stage's fbank launches, the
     result)."""
-    mfcc_launches = []
-    features = wsj.compute_features
-
-    def counted(*a, **k):
-        before = fbank_frames.launches
-        out = features(*a, **k)
-        mfcc_launches.append(fbank_frames.launches - before)
-        return out
-
+    feats = []
     reset_launches()
-    wsj.compute_features = counted
-    try:
-        with lattice_probes() as probe:
-            t = time.perf_counter()
-            res = wsj.run(corpus=corpus, nnet_epochs=RECIPE_EPOCHS,
-                          eval_dnn=True, seed=SEED, device=dev,
-                          exp_dir=os.path.join(tmp, "wsj"))
-            torch.cuda.synchronize()
-            total_s = time.perf_counter() - t
-    finally:
-        wsj.compute_features = features
+    with launches_per_call(wsj, "compute_features", feats), \
+            lattice_probes() as probe:
+        t = time.perf_counter()
+        res = wsj.run(corpus=corpus, nnet_epochs=RECIPE_EPOCHS,
+                      eval_dnn=True, seed=SEED, device=dev,
+                      exp_dir=os.path.join(tmp, "wsj"))
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t
     launches = read_launches()
+    mfcc_launches = [n["fbank_fft"] for _, n, _ in feats]
     sec = probe["s"]
     K = min(2000, res["graph_states"])
     log(f"recipe: wsj.run({RECIPE_UTTS} utterances, {RECIPE_EPOCHS} epochs, "
@@ -1201,6 +1234,102 @@ def bounded_stream(tri, am_gmm, hclg, test, dev):
                              "result differs from decode_batch")
 
 
+def swbd_phase(dev, tmp):
+    """Phase 10: swbd.run on the card at the recipe's size and width, then
+    its dev and test rows (spliced volumes and aux rows, as the decode got
+    them) through the plain versions on the CPU with the card's trained
+    parameters.  Returns the kernels' launches in the run."""
+    exp = os.path.join(tmp, "swbd")
+    calls = {k: [] for k in ("compute_features", "compute_fbank_volumes",
+                             "fit", "nnet_decode")}
+    reset_launches()
+    with contextlib.ExitStack() as stack:
+        for name, c in calls.items():
+            stack.enter_context(launches_per_call(swbd, name, c))
+        probe = stack.enter_context(lattice_probes(swbd))
+        t = time.perf_counter()
+        res = swbd.run(nnet_epochs=SWBD_EPOCHS, device=dev, exp_dir=exp)
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t
+    launches = read_launches()
+    per = {k: [n for _, n, _ in c] for k, c in calls.items()}
+
+    def col(stage, kernel):
+        return [n[kernel] for n in per[stage]]
+
+    sec = probe["s"]
+    K = min(2000, res["graph_states"])
+    log(f"swbd: swbd.run(24 speakers x 7 utterances, {SWBD_EPOCHS} epochs, "
+        f"F = 48, iVector 12 from a 16-Gaussian UBM, pnorm 800/160) "
+        f"{total_s:.3f} s; stage seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["seconds"].items())
+        + f"; launches: mfcc stage fbank_fft "
+        f"{per['compute_features'][0]['fbank_fft']}, iVector MFCC fbank_fft "
+        f"{col('compute_features', 'fbank_fft')[1:]}, fbank volumes "
+        f"fbank_fft {col('compute_fbank_volumes', 'fbank_fft')}, nnet_train "
+        f"maxpool_fwd_vec {per['fit'][0]['maxpool_fwd_vec']} maxpool_bwd "
+        f"{per['fit'][0]['maxpool_bwd']} maxpool_fwd_scalar "
+        f"{per['fit'][0]['maxpool_fwd_scalar']}, decode conv_maxpool "
+        f"{col('nnet_decode', 'conv_maxpool')} conv_maxpool_f32 "
+        f"{col('nnet_decode', 'conv_maxpool_f32')}; run {launches}; triphone tree {res['tree_leaves']} leaves, HCLG "
+        f"{res['graph_states']} states, K {K}; decode_batch_lattice calls "
+        f"{len(probe['overflow'])}, (overflow, A_lat) "
+        f"{sorted(set(probe['overflow']))}; lattice stages: frame loop "
+        f"{sec['frame loop']:.3f} s, fetch {sec['fetch']:.3f}, assembly + "
+        f"prune {sec['assembly + prune']:.3f}, determinize "
+        f"{sec['determinize']:.3f}, score_sweep {sec['score_sweep']:.3f}; dev "
+        f"WER {res['dev_wer']:.2f}% at {res['point']}, test WER "
+        f"{res['wer']:.2f}% ({res['errors']} errors / {res['words']} words; "
+        f"not asserted)")
+    if (len(per["compute_features"]) != 3 or len(per["fit"]) != 1
+            or len(per["nnet_decode"]) != 2):
+        raise AssertionError(f"the recipe's stages ran other than expected: "
+                             f"{ {k: len(v) for k, v in per.items()} }")
+    if (min(col("compute_features", "fbank_fft")
+            + col("compute_fbank_volumes", "fbank_fft")
+            + col("fit", "maxpool_fwd_vec") + col("fit", "maxpool_bwd")
+            + col("nnet_decode", "conv_maxpool")) <= 0):
+        raise AssertionError(f"a kernel did not run in its stage: {per}")
+    if not probe["overflow"] or any(ov != (0, 0)
+                                    for ov, _ in probe["overflow"]):
+        raise AssertionError(f"lattice overflow: {probe['overflow']}")
+    if not (res["words"] > 0 and res["missing_utts"] == 0):
+        raise AssertionError(f"the recipe's result is malformed: {res}")
+
+    # ---- CPU replay of the decode on the card's rows and parameters -----
+    (dev_args, _, dev_lats), (test_args, _, test_lats) = calls["nnet_decode"]
+    am, hclg = dev_args[0], dev_args[2]
+    am_cpu = AmNnet(copy.deepcopy(am.nnet).to("cpu"), am.num_pdfs)
+    am_cpu.priors = am.priors.copy()
+    _, dev_c, test_c = swbd.make_corpus()
+    word_table = load_stage(exp, "gmm_bootstrap")[2].word_table
+    t = time.perf_counter()
+    ll_err, bad = 0.0, []
+    cpu_lats = {}
+    for (args, _, lats) in calls["nnet_decode"]:
+        rows = args[1]
+        lls_c = am_cpu.loglikes_batch(rows)
+        ll_err = max(ll_err, max(float(np.abs(
+            lls_c[u] - probe["loglikes"][u]).max()) for u in rows))
+        cpu_lats.update(swbd.nnet_decode(am_cpu, rows, hclg))
+        card, cpu = one_best(lats), one_best(cpu_lats)
+        bad += [u for u in rows if card[u][0] != cpu[u][0]]
+    dev_wer_c, pt_c, _ = swbd.score_sweep(
+        {u: cpu_lats[u] for u in dev_lats}, dev_c.transcripts, word_table)
+    cpu_s = time.perf_counter() - t
+    log(f"swbd replay on cpu ({cpu_s:.1f} s; {len(dev_lats)} dev + "
+        f"{len(test_lats)} test utterances, the card's rows and trained "
+        f"parameters): loglikes max |diff| {ll_err:.3g} (limit "
+        f"{LOGLIKE_ATOL}); one-best words differ on {bad}; swept point "
+        f"{pt_c} vs {res['point']}, dev WER {dev_wer_c:.2f}% vs "
+        f"{res['dev_wer']:.2f}%")
+    if (ll_err > LOGLIKE_ATOL or bad or tuple(pt_c) != tuple(res["point"])
+            or sorted(test_lats) != sorted(test_c.waves)):
+        raise AssertionError("the card's Switchboard decode disagrees with "
+                             "the CPU replay")
+    return launches
+
+
 def stream_rows(stream, rows):
     """``rows`` fed to ``stream`` in the frame counts of STREAM_CHUNK_S
     chunks; its final (tids, words, cost)."""
@@ -1266,8 +1395,14 @@ def main() -> int:
     # the rows AmNnet.loglikes pads a streaming chunk to
     cv512 = conv_case("wsj-F64 512 rows", ConvnetConfig(num_filters=64), 512,
                       dev)
+    # the Switchboard recipe's F = 48 (the kernel pads it to 64 filters),
+    # at loglikes_batch's 4096 rows and AmNnet.loglikes' 512
+    cv48 = conv_case("swbd-F48", ConvnetConfig(num_filters=48), 4096, dev)
+    cv48_512 = conv_case("swbd-F48 512 rows", ConvnetConfig(num_filters=48),
+                         512, dev)
     for cname, c in (("bench-F128", cb), ("wsj-F64", cv),
-                     ("wsj-F64 512 rows", cv512)):
+                     ("wsj-F64 512 rows", cv512), ("swbd-F48", cv48),
+                     ("swbd-F48 512 rows", cv48_512)):
         log(f"conv {cname}: wgmma (bf16) {c['bf16']['ms']:.4f} ms = "
             f"{100 * c['bf16']['bound_ms'] / c['bf16']['ms']:.1f}% of its "
             f"{c['bf16']['bound_ms']:.4f} ms bound, cuDNN bf16 yardstick "
@@ -1276,6 +1411,7 @@ def main() -> int:
     pools = {}
     for pname, shape, rows in (("bench-F128", (8, 30, 128, 2, 3, 1), 4096),
                                ("wsj-F64", (8, 30, 64, 2, 3, 1), 256),
+                               ("swbd-F48", (8, 30, 48, 2, 3, 1), 256),
                                ("pool_c=2", (8, 30, 64, 2, 3, 2), 256)):
         for dtype in (torch.float32, torch.bfloat16):
             r = maxpool_case(pname, shape, rows, dtype, dev)
@@ -1454,12 +1590,21 @@ def main() -> int:
         log(f"streaming phase: {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+    # ---- 10. the Switchboard recipe ---------------------------------------
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_")
+    try:
+        t = time.perf_counter()
+        swbd_launches = swbd_phase(dev, tmp)
+        log(f"swbd phase: {time.perf_counter() - t:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     by_phase = {
         "slice": {**launches, "fbank_table": table_launches,
                   "conv_maxpool_f32": f32_launches},
         "train": {**train_launches, "maxpool_fwd_scalar": scalar_launches},
         "recipe": recipe_launches, "recipe_mfcc_stage": {"fbank_fft": mfcc_n},
-        **stream_launches}
+        **stream_launches, "swbd": swbd_launches}
 
     def entry(name, source, replaces, n, r, pre=""):
         return {"name": name, "route": "cuda",
@@ -1513,7 +1658,26 @@ def main() -> int:
         "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
         "library_graph_ms")}
     kernels[2]["max_abs_err"] = max(cv["bf16"]["max_abs_err"],
-                                    cv512["bf16"]["max_abs_err"])
+                                    cv512["bf16"]["max_abs_err"],
+                                    cv48["bf16"]["max_abs_err"],
+                                    cv48_512["bf16"]["max_abs_err"])
+    kernels[3]["max_abs_err"] = max(cv["f32"]["max_abs_err"],
+                                    cv48["f32"]["max_abs_err"])
+    # the Switchboard shapes: conv at F = 48 (4096 and 512 rows), maxpool
+    # on its 8x30x48 output at the minibatch's 256 rows (f32 and bf16)
+    conv_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                 "library_ms", "library_graph_ms")
+    kernels[2]["swbd_f48"] = {k: cv48["bf16"][k] for k in conv_keys}
+    kernels[2]["swbd_f48_512"] = {k: cv48_512["bf16"][k] for k in conv_keys}
+    kernels[3]["swbd_f48"] = {k: cv48["f32"][k] for k in conv_keys}
+    for i, pre in ((4, "arg_"), (5, "sc_arg_"), (6, "bwd_")):
+        for mode in ("f32", "bf16"):
+            r = pools[f"swbd-F48 {mode}"]
+            kernels[i][f"swbd_f48_{mode}"] = {
+                "max_abs_err": r["max_abs_err"],
+                **{k: r[f"{pre}{k}"] for k in (
+                    "ms", "graph_ms", "plain_ms", "bound_ms", "library_ms",
+                    "library_graph_ms")}}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

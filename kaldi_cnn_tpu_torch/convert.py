@@ -3,9 +3,11 @@
 ``params_from_jax`` loads the pytree of ``kaldi_cnn_tpu`` ``Nnet.init``
 (a tuple of per-component dicts, converted to numpy arrays) into the
 port's modules, so both packages compute the same function.  Both keep
-``w [out, in]`` and ``b [out]``, so the copy is one to one.
-``opt_from_jax``/``opt_to_numpy`` do the same for ``Nnet.init_opt``'s
-tuple of per-component ``{"ng_in", "ng_out"}`` NG states.
+``w [out, in]`` and ``b [out]``, so the copy is one to one; a
+``SliceParallelComponent``'s entry nests as ``{"parts": (one dict a
+part)}``.  ``opt_from_jax``/``opt_to_numpy`` do the same for
+``Nnet.init_opt``'s tuple of per-component ``{"ng_in", "ng_out"}`` NG
+states (``{}`` untrained, ``{"parts": (...)}`` for a slice).
 """
 
 from __future__ import annotations
@@ -15,8 +17,27 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from kaldi_cnn_tpu_torch.models.components import map_tree, param_tree
 from kaldi_cnn_tpu_torch.models.ng_sgd import NGState
 from kaldi_cnn_tpu_torch.models.nnet import AmNnet, Nnet
+
+
+def _load_component(c, p, where: str) -> None:
+    names = map_tree(p, lambda k, _: k)
+    want = param_tree(c, lambda k, _: k)
+    if names != want:
+        raise ValueError(f"{where} ({type(c).__name__}): params {names}, "
+                         f"want {want}")
+    own = dict(c.named_parameters())
+
+    def copy(name, value):
+        src = torch.from_numpy(np.array(value, np.float32))
+        if src.shape != own[name].shape:
+            raise ValueError(f"{where}.{name}: shape {tuple(src.shape)} "
+                             f"vs {tuple(own[name].shape)}")
+        own[name].copy_(src)
+
+    map_tree(p, copy)
 
 
 def params_from_jax(net: Union[Nnet, AmNnet],
@@ -29,26 +50,16 @@ def params_from_jax(net: Union[Nnet, AmNnet],
                          f"{len(nnet.components)} components")
     with torch.no_grad():
         for i, (c, p) in enumerate(zip(nnet.components, params)):
-            own = dict(c.named_parameters(recurse=False))
-            if set(own) != set(p):
-                raise ValueError(f"component {i} ({type(c).__name__}): "
-                                 f"params {sorted(p)} vs {sorted(own)}")
-            for name, t in own.items():
-                src = torch.from_numpy(np.array(p[name], np.float32))
-                if src.shape != t.shape:
-                    raise ValueError(f"component {i}.{name}: shape "
-                                     f"{tuple(src.shape)} vs {tuple(t.shape)}")
-                t.copy_(src)
+            _load_component(c, p, f"component {i}")
     if priors is not None:
         if not isinstance(net, AmNnet):
             raise TypeError("priors need an AmNnet")
         net.priors = np.asarray(priors, np.float64).copy()
 
 
-def params_to_numpy(net: Nnet) -> Tuple[Dict[str, np.ndarray], ...]:
+def params_to_numpy(net: Nnet) -> Tuple[Dict, ...]:
     """The inverse of ``params_from_jax``: the JAX pytree layout."""
-    return tuple({k: v.detach().cpu().numpy()
-                  for k, v in c.named_parameters(recurse=False)}
+    return tuple(param_tree(c, lambda _, t: t.detach().cpu().numpy())
                  for c in net.components)
 
 
@@ -63,13 +74,14 @@ def opt_from_jax(opt: Sequence[Dict],
                        d=torch.as_tensor(np.asarray(d), **f32),
                        rho=torch.as_tensor(np.asarray(rho), **f32),
                        t=int(np.asarray(t)))
-    return tuple({k: state(v) for k, v in o.items()} for o in opt)
+    return tuple(map_tree(o, lambda _, v: state(v)) for o in opt)
 
 
 def opt_to_numpy(opt: Sequence[Dict]) -> Tuple[Dict, ...]:
     """The inverse of ``opt_from_jax``: numpy leaves, t as int32."""
-    return tuple({k: NGState(u=s.u.detach().cpu().numpy(),
-                             d=s.d.detach().cpu().numpy(),
-                             rho=s.rho.detach().cpu().numpy(),
-                             t=np.asarray(s.t, np.int32))
-                  for k, s in o.items()} for o in opt)
+    def state(s):
+        return NGState(u=s.u.detach().cpu().numpy(),
+                       d=s.d.detach().cpu().numpy(),
+                       rho=s.rho.detach().cpu().numpy(),
+                       t=np.asarray(s.t, np.int32))
+    return tuple(map_tree(o, lambda _, v: state(v)) for o in opt)

@@ -1,14 +1,16 @@
 """nnet2-style components as ``nn.Module``s.
 
-Twin of ``kaldi_cnn_tpu/models/components.py`` for the CNN recipe's
-components: the forward pass (``forward``, and ``train_forward`` that
-also returns what the backward needs), ``backprop(in_value, out_value,
-out_deriv, aux) -> in_deriv``, and for the trainable Affine and Conv2D
-``init_opt``/``update`` with NG-SGD.  Field names and dims are the JAX
-package's; parameters are ``w [out, in]`` and ``b [out]``.  Minibatches
-are [N, dim] rows, float32 or (stored activations in training) bfloat16;
-Conv2D and Maxpool3D read a row as a flattened (time, freq, channel)
-volume.
+Twin of ``kaldi_cnn_tpu/models/components.py`` for the CNN recipes'
+components (the WSJ CNN's, and Identity and SliceParallel, which carry
+the Switchboard CNN's iVector around its conv front end): the forward
+pass (``forward``, and ``train_forward`` that also returns what the
+backward needs), ``backprop(in_value, out_value, out_deriv, aux) ->
+in_deriv``, and for the trainable Affine and Conv2D (and a
+SliceParallel holding one) ``init_opt``/``update`` with NG-SGD.  Field
+names and dims are the JAX package's; parameters are ``w [out, in]`` and
+``b [out]``.  Minibatches are [N, dim] rows, float32 or (stored
+activations in training) bfloat16; Conv2D and Maxpool3D read a row as a
+flattened (time, freq, channel) volume.
 
 ``update`` changes the parameters in place (the JAX package returns new
 ones): the caller takes the backprop through a component before it
@@ -393,3 +395,135 @@ class Maxpooling3DComponent(Component):
 
     def backprop(self, in_value, out_value, out_deriv, aux):
         return maxpool3d_backward(out_deriv, aux, self)
+
+
+class IdentityComponent(Component):
+    """Pass-through (used as a branch of SliceParallelComponent)."""
+
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+
+    @property
+    def input_dim(self) -> int:
+        return self.dim
+
+    @property
+    def output_dim(self) -> int:
+        return self.dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def backprop(self, in_value, out_value, out_deriv, aux):
+        return out_deriv
+
+
+class SliceParallelComponent(Component):
+    """Apply sub-components to contiguous column slices of the input and
+    concatenate their outputs: how the Switchboard CNN's iVector columns
+    bypass the conv front end.  The parts live in ``parts`` (parameter
+    names ``parts.{j}.w``); its NG state is ``{"parts": (...)}`` with
+    ``{}`` for a part that is not trained, as in the JAX package.
+
+    A column slice of a row-major minibatch is not contiguous, and the
+    kernel wrappers take contiguous tensors only: each part gets its
+    input and derivative slices as contiguous copies."""
+
+    def __init__(self, parts):
+        super().__init__()
+        self.parts = nn.ModuleList(parts)
+
+    @property
+    def input_dim(self) -> int:
+        return sum(p.input_dim for p in self.parts)
+
+    @property
+    def output_dim(self) -> int:
+        return sum(p.output_dim for p in self.parts)
+
+    @property
+    def trainable(self) -> bool:
+        return any(p.trainable for p in self.parts)
+
+    def _in_slices(self):
+        out, o = [], 0
+        for p in self.parts:
+            out.append((o, o + p.input_dim))
+            o += p.input_dim
+        return out
+
+    def _out_slices(self):
+        out, o = [], 0
+        for p in self.parts:
+            out.append((o, o + p.output_dim))
+            o += p.output_dim
+        return out
+
+    @torch.no_grad()
+    def init(self, generator: torch.Generator) -> None:
+        for p in self.parts:
+            p.init(generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.cat([p(x[:, i0:i1].contiguous()) for p, (i0, i1)
+                          in zip(self.parts, self._in_slices())], dim=1)
+
+    def train_forward(self, x: torch.Tensor):
+        """(output, the list of the parts' auxes)."""
+        ys, auxs = [], []
+        for p, (i0, i1) in zip(self.parts, self._in_slices()):
+            y, aux = p.train_forward(x[:, i0:i1].contiguous())
+            ys.append(y)
+            auxs.append(aux)
+        return torch.cat(ys, dim=1), auxs
+
+    def backprop(self, in_value, out_value, out_deriv, aux):
+        ds = []
+        for p, (i0, i1), (o0, o1), a in zip(
+                self.parts, self._in_slices(), self._out_slices(),
+                aux or [None] * len(self.parts)):
+            ds.append(p.backprop(in_value[:, i0:i1].contiguous(),
+                                 out_value[:, o0:o1].contiguous(),
+                                 out_deriv[:, o0:o1].contiguous(), a))
+        return torch.cat(ds, dim=1)
+
+    def init_opt(self, ng_in: OnlineNaturalGradient,
+                 ng_out: OnlineNaturalGradient):
+        return {"parts": tuple(p.init_opt(ng_in, ng_out) if p.trainable
+                               else {} for p in self.parts)}
+
+    @torch.no_grad()
+    def update(self, opt, in_value, out_deriv, lr, ng_in, ng_out):
+        """NG-SGD step of each trained part in place; returns the new opt
+        state."""
+        new = []
+        for p, oo, (i0, i1), (o0, o1) in zip(
+                self.parts, opt["parts"], self._in_slices(),
+                self._out_slices()):
+            new.append(p.update(oo, in_value[:, i0:i1].contiguous(),
+                                out_deriv[:, o0:o1].contiguous(), lr, ng_in,
+                                ng_out) if p.trainable else oo)
+        return {"parts": tuple(new)}
+
+
+def param_tree(c: nn.Module, leaf, prefix: str = ""):
+    """The JAX pytree layout of component ``c``'s parameters: a dict of its
+    own parameters by name, or ``{"parts": (one tree a part)}`` for a
+    SliceParallelComponent.  ``leaf(name, parameter)`` gives each value,
+    with ``name`` relative to ``c`` (``"parts.0.w"``)."""
+    if isinstance(c, SliceParallelComponent):
+        return {"parts": tuple(param_tree(p, leaf, f"{prefix}parts.{j}.")
+                               for j, p in enumerate(c.parts))}
+    return {k: leaf(prefix + k, t)
+            for k, t in c.named_parameters(recurse=False)}
+
+
+def map_tree(tree, fn, prefix: str = ""):
+    """``fn(name, leaf)`` over a component's tree in ``param_tree``'s
+    layout (its params, or its NG states by side), in that layout, with
+    ``name`` as ``param_tree`` gives it."""
+    if "parts" in tree:
+        return {"parts": tuple(map_tree(t, fn, f"{prefix}parts.{j}.")
+                               for j, t in enumerate(tree["parts"]))}
+    return {k: fn(prefix + k, v) for k, v in tree.items()}

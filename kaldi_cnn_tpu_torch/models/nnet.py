@@ -2,7 +2,8 @@
 Nnet + pdf priors.
 
 Twin of ``kaldi_cnn_tpu/models/nnet.py``: ``Nnet.forward`` (unfused
-eval), ``Nnet.predict`` with the fused conv+maxpool pair, the train step
+eval), ``Nnet.predict`` with the fused conv+maxpool pair (also inside the
+Switchboard CNN's pair of slices), the train step
 (``train_forward`` -> objective derivative -> ``_backward_update``, the
 reference's NnetUpdater::ComputeForMinibatch), ``objf``, and ``AmNnet``
 with ``loglikes``/``loglikes_batch``
@@ -24,7 +25,8 @@ import torch
 from torch import nn
 
 from kaldi_cnn_tpu_torch.models.components import (
-    Conv2DComponent, Maxpooling3DComponent)
+    Conv2DComponent, IdentityComponent, Maxpooling3DComponent,
+    SliceParallelComponent)
 from kaldi_cnn_tpu_torch.models.ng_sgd import OnlineNaturalGradient
 from kaldi_cnn_tpu_torch.ops.common import round_up
 from kaldi_cnn_tpu_torch.ops.conv import conv2d_maxpool
@@ -39,6 +41,20 @@ def _fusable(c, nxt) -> bool:
             and nxt.in_c == c.num_filters
             and c.out_t % nxt.pool_t == 0
             and c.out_f % nxt.pool_f == 0)
+
+
+def _fusable_slices(c, nxt) -> bool:
+    """SliceParallel(Conv2D, Identity(d)) -> SliceParallel(Maxpool3D,
+    Identity(d)) around a fusable conv/pool pair: the Switchboard CNN's
+    front end, whose iVector columns pass both slices unchanged."""
+    if not (isinstance(c, SliceParallelComponent)
+            and isinstance(nxt, SliceParallelComponent)
+            and len(c.parts) == 2 and len(nxt.parts) == 2):
+        return False
+    (conv, iv), (pool, iv2) = c.parts, nxt.parts
+    return (isinstance(iv, IdentityComponent)
+            and isinstance(iv2, IdentityComponent) and iv.dim == iv2.dim
+            and _fusable(conv, pool))
 
 
 def _storage_dtype(dt) -> torch.dtype:
@@ -120,7 +136,11 @@ class Nnet(nn.Module):
         """Inference forward.  Adjacent Conv2D(fused=True) +
         Maxpooling3D(pool_c=1) pairs run as ONE fused conv+maxpool kernel
         (ops.conv.conv2d_maxpool, bf16 operands with f32 accumulation as
-        in the Pallas default); everything else runs unfused."""
+        in the Pallas default), and so does such a pair inside adjacent
+        slices with equal Identity widths beside it (the volume columns
+        go to the kernel as a contiguous copy, the iVector columns pass
+        unchanged); everything else runs unfused.  The JAX package fuses
+        only the top-level pair."""
         comps = self.components
         i = 0
         while i < len(comps):
@@ -128,6 +148,14 @@ class Nnet(nn.Module):
             nxt = comps[i + 1] if i + 1 < len(comps) else None
             if _fusable(c, nxt):
                 x = conv2d_maxpool(x, c.w, c.b, c, nxt.pool_t, nxt.pool_f)
+                i += 2
+                continue
+            if _fusable_slices(c, nxt):
+                conv, pool = c.parts[0], nxt.parts[0]
+                d = conv.input_dim
+                y = conv2d_maxpool(x[:, :d].contiguous(), conv.w, conv.b,
+                                   conv, pool.pool_t, pool.pool_f)
+                x = torch.cat([y, x[:, d:].to(y.dtype)], dim=1)
                 i += 2
                 continue
             x = c(x)

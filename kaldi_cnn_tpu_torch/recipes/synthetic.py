@@ -1,6 +1,7 @@
 """Deterministic synthetic speech corpora (jax-free twin of
 ``kaldi_cnn_tpu/recipes/synthetic.py``: the noisy digits corpus of the
-WSJ-style recipe; same seeds, bit-identical waves).
+WSJ-style recipe and the speaker corpus of the Switchboard-style one;
+same seeds, bit-identical waves).
 
 Replaces the reference's downloaded corpora (egs/yesno/s5 waves etc.)
 in this offline environment: each phone gets a stable formant-like
@@ -167,6 +168,39 @@ def make_noisy_corpus(
                       ).astype(np.float32)
         trans[utt] = ws
     return SyntheticCorpus(lexicon, word_probs, waves, trans)
+
+
+def make_speaker_corpus(
+    lexicon: Lexicon,
+    word_probs: Dict[str, float],
+    num_speakers: int,
+    utts_per_speaker: int,
+    min_words: int = 1,
+    max_words: int = 4,
+    seed: int = 17,
+    vtl_spread: float = 0.12,
+) -> Tuple[SyntheticCorpus, Dict[str, str]]:
+    """Corpus with per-speaker formant scaling (a vocal-tract-length
+    analogue) — gives speaker adaptation (fMLLR, iVectors) something
+    real to model.  Returns (corpus, utt -> speaker map)."""
+    rng = np_rng(seed, "speaker_corpus")
+    base = formant_map(lexicon.phones)
+    words = sorted(word_probs)
+    probs = np.array([word_probs[w] for w in words])
+    probs = probs / probs.sum()
+    waves, trans, spk_of = {}, {}, {}
+    for s in range(num_speakers):
+        scale = 1.0 + vtl_spread * (2.0 * rng.random() - 1.0)
+        fmap = {p: [f * scale for f in fs] for p, fs in base.items()}
+        for j in range(utts_per_speaker):
+            n = int(rng.integers(min_words, max_words + 1))
+            ws = [words[int(k)]
+                  for k in rng.choice(len(words), size=n, p=probs)]
+            utt = f"spk{s:02d}_utt{j:03d}"
+            waves[utt] = render_utterance(ws, lexicon, rng, fmap=fmap)
+            trans[utt] = ws
+            spk_of[utt] = f"spk{s:02d}"
+    return (SyntheticCorpus(lexicon, word_probs, waves, trans), spk_of)
 
 
 def digits_lexicon() -> Lexicon:

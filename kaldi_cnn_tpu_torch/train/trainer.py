@@ -26,6 +26,7 @@ from torch.func import functional_call
 from kaldi_cnn_tpu_torch.core.config import configclass
 from kaldi_cnn_tpu_torch.core.logging import Timer, get_logger
 from kaldi_cnn_tpu_torch.core.rng import torch_generator
+from kaldi_cnn_tpu_torch.models.components import param_tree
 from kaldi_cnn_tpu_torch.models.nnet import Nnet, objf_from_output
 from kaldi_cnn_tpu_torch.train.checkpoint import save_checkpoint
 from kaldi_cnn_tpu_torch.train.egs import Egs, EgsBatcher
@@ -66,10 +67,11 @@ def _load(net: Nnet, params: Params) -> None:
 
 
 def _per_component(net: Nnet, params: Params) -> Tuple[Dict, ...]:
-    """Name-keyed params -> the JAX pytree layout (per-component dicts)."""
-    return tuple({k: params[f"components.{i}.{k}"]
-                  for k, _ in c.named_parameters(recurse=False)}
-                 for i, c in enumerate(net.components))
+    """Name-keyed params -> the JAX pytree layout (per-component dicts,
+    nested under "parts" in a SliceParallelComponent)."""
+    return tuple(
+        param_tree(c, lambda k, _: params[f"components.{i}.{k}"])
+        for i, c in enumerate(net.components))
 
 
 def _valid_objf(net: Nnet, egs: Egs, cfg: TrainConfig) -> float:
@@ -99,10 +101,12 @@ def combine_models_per_component(net: Nnet, param_list: List[Params],
                                  steps: int = 80, lr: float = 0.3,
                                  reg: float = 1e-3) -> Params:
     """Per-component regularized model combination: one softmax weight
-    vector over the candidate models PER component, optimized by
-    momentum gradient ascent on validation log-prob with an L2 pull
-    toward uniform weights (ref: nnet2/nnet-combine-fast.cc).  The
-    gradient is autograd through the net with the mixed parameters."""
+    vector over the candidate models PER top-level component (a
+    SliceParallelComponent's parts share its weights, as in the JAX
+    package), optimized by momentum gradient ascent on validation
+    log-prob with an L2 pull toward uniform weights (ref:
+    nnet2/nnet-combine-fast.cc).  The gradient is autograd through the
+    net with the mixed parameters."""
     if len(param_list) == 1:
         return param_list[0]
     m, c = len(param_list), len(net.components)

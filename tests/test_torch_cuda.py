@@ -32,15 +32,17 @@ CONV_TOL = 2e-4     # rtol = atol, f32 kernel vs plain with the same operands
 CONV_BF16_TOL = 1e-3
 CONV_BF16_REL = 0.02
 # (in_t, in_f, in_c, pool_t, pool_f, pool_c): the bench/recipe conv output
-# with the recipe's pool, pool_c > 1, a window of 128 (int32 argmax), and
-# a 1x1x1 window
+# with the recipe's pool (and the Switchboard recipe's F = 48), pool_c > 1,
+# a window of 128 (int32 argmax), and a 1x1x1 window
 POOL_SHAPES = [(8, 30, 128, 2, 3, 1), (8, 30, 64, 2, 3, 1),
-               (4, 6, 8, 2, 3, 2), (4, 8, 16, 4, 4, 8), (3, 5, 7, 1, 1, 1)]
+               (8, 30, 48, 2, 3, 1), (4, 6, 8, 2, 3, 2), (4, 8, 16, 4, 4, 8),
+               (3, 5, 7, 1, 1, 1)]
 # (in_t, in_f, in_c, filt_t, filt_f, F, pool_t, pool_f); the last has
-# K = 105 > 96: two groups of k16 steps chained into one accumulator
+# K = 105 > 96: two groups of k16 steps chained into one accumulator; the
+# Switchboard recipe's F = 48, padded to a 64-filter wgmma
 CONV_SHAPES = [(8, 12, 2, 3, 5, 16, 3, 4), (6, 10, 1, 2, 3, 8, 1, 2),
                (11, 36, 3, 4, 7, 64, 2, 3), (11, 36, 3, 4, 7, 40, 1, 1),
-               (12, 36, 3, 5, 7, 64, 2, 3)]
+               (12, 36, 3, 5, 7, 64, 2, 3), (11, 36, 3, 4, 7, 48, 2, 3)]
 
 
 @pytest.fixture
@@ -119,11 +121,12 @@ def test_conv_maxpool_kernel_matches_plain(cuda, shape, bf16):
                                    rtol=CONV_TOL, atol=CONV_TOL)
 
 
-@pytest.mark.parametrize("rows", [1, 63, 3050, 4096])
-@pytest.mark.parametrize("nf", [8, 64, 128, 264])
+@pytest.mark.parametrize("rows", [1, 63, 512, 3050, 4096])
+@pytest.mark.parametrize("nf", [8, 48, 64, 128, 264])
 def test_conv_maxpool_wgmma_rows_and_filters(cuda, rows, nf):
     """The recipe's 11x36x3 volumes and 4x7 filters, pool 2x3: ragged row
-    tiles, one wgmma of 16, 64 or 128 filters, and 264 = 3 chunks."""
+    tiles, one wgmma of 16, 64 or 128 filters, 48 padded to 64 (the
+    Switchboard recipe), and 264 = 3 chunks."""
     conv, x, w, b = _conv_case(cuda, (11, 36, 3, 4, 7, nf), rows)
     before = tc.conv2d_maxpool.launches
     got = tc.conv2d_maxpool(x, w, b, conv, 2, 3)
@@ -386,8 +389,8 @@ def _hard_rows(rows, pool, dtype, cuda, seed=11):
     return torch.as_tensor(x, device=cuda).to(dtype)
 
 
-@pytest.mark.parametrize("rows", [1, 67, 4096])
-@pytest.mark.parametrize("nf", [64, 128])
+@pytest.mark.parametrize("rows", [1, 67, 256, 4096])
+@pytest.mark.parametrize("nf", [48, 64, 128])
 @pytest.mark.parametrize("pool", [(2, 3), (1, 2)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_maxpool_vector_forward_bit_equal(cuda, rows, nf, pool, dtype):
@@ -626,3 +629,63 @@ def test_streaming_decoder_on_card_matches_cpu(cuda):
     assert set(card.capture_seconds) == {16, 4, 1}
     assert set(captured) == {4, 1}
     assert all(card.capture_seconds[k] == v for k, v in captured.items())
+
+
+def _swbd_nets(cuda, num_filters=48, ivec=12, num_pdfs=200):
+    """The Switchboard CNN + iVector net at the recipe's width on the card
+    (seeded weights, the output affine redrawn) and its CPU copy."""
+    import copy
+    from kaldi_cnn_tpu_torch.models.factory import make_convnet_ivector
+    from kaldi_cnn_tpu_torch.recipes import swbd
+    net = make_convnet_ivector(swbd.model_config(num_pdfs, num_filters),
+                               ivector_dim=ivec, device=cuda)
+    gen = torch_generator(5, "swbd")
+    net.init(gen)
+    with torch.no_grad():
+        out = net.components[-2]
+        out.w.copy_(torch.randn(out.w.shape, generator=gen) / 160 ** 0.5)
+    return net, copy.deepcopy(net).to("cpu")
+
+
+@pytest.mark.parametrize("rows", [1, 300, 512])
+def test_swbd_slice_pair_predict_on_card_matches_cpu(cuda, rows):
+    """Nnet.predict fuses the pair of slices into one wgmma conv+maxpool
+    launch on the card; the posteriors agree with the plain bf16 version
+    of the same path on the CPU, and with the unfused f32 forward."""
+    net, cpu = _swbd_nets(cuda)
+    x = torch.as_tensor(np_rng(6, "swbd").normal(
+        size=(rows, net.input_dim)).astype(np.float32))
+    before = (tc.conv2d_maxpool.launches, mp.maxpool3d.launches)
+    got = net.predict(x.to(cuda))
+    torch.cuda.synchronize()
+    assert (tc.conv2d_maxpool.launches, mp.maxpool3d.launches) == (
+        before[0] + 1, before[1])
+    want = cpu.predict(x)
+    np.testing.assert_allclose(got.cpu().numpy(), want.numpy(), rtol=0,
+                               atol=1e-4)
+    np.testing.assert_allclose(got.cpu().numpy(), cpu(x).detach().numpy(),
+                               rtol=2e-2, atol=2e-3)
+
+
+def test_swbd_train_step_on_card_runs_the_maxpool_kernels(cuda):
+    """A train step of the Switchboard net on the card launches the vector
+    maxpool forward and the backward inside SliceParallel(pool, Identity),
+    and agrees with the same step on the CPU."""
+    net, cpu = _swbd_nets(cuda)
+    r = np_rng(7, "swbd train")
+    x = torch.as_tensor(r.normal(size=(256, net.input_dim)).astype(
+        np.float32))
+    y = torch.as_tensor(r.integers(0, 200, 256))
+    before = (mp.maxpool3d.launches, mp.maxpool3d_backward.launches,
+              mp.maxpool3d_scalar.launches)
+    _, objf = net.train_step(net.init_opt(), x.to(cuda), y.to(cuda), 0.05)
+    torch.cuda.synchronize()
+    assert (mp.maxpool3d.launches, mp.maxpool3d_backward.launches,
+            mp.maxpool3d_scalar.launches) == (before[0] + 1, before[1] + 1,
+                                              before[2])
+    _, objf_c = cpu.train_step(cpu.init_opt(), x, y, 0.05)
+    assert float(objf) == pytest.approx(float(objf_c), abs=1e-4)
+    for (k, a), (_, b) in zip(net.named_parameters(),
+                              cpu.named_parameters()):
+        assert float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30)) \
+            < 1e-3, k

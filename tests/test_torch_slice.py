@@ -151,7 +151,8 @@ def _tiny_graph():
     "make_convnet", "FeatureExtractor", "TopKDecoder",
     "compute_fbank_volumes", "Conv2DComponent", "ng_init", "wsj.run",
     "compute_features", "mfcc FeatureExtractor", "make_pnorm_dnn",
-    "OnlineBaseFeature", "OnlineRecognizer", "StreamingDecoder"])
+    "OnlineBaseFeature", "OnlineRecognizer", "StreamingDecoder",
+    "swbd.run", "make_convnet_ivector"])
 def test_entry_points_default_to_the_card(entry):
     """Left without ``device``, the port's entry points run on the card;
     where there is none they raise, at construction or at the first call,
@@ -162,7 +163,9 @@ def test_entry_points_default_to_the_card(entry):
     from kaldi_cnn_tpu_torch.features.extractor import FeatureExtractor
     from kaldi_cnn_tpu_torch.decode.topk_decoder import TopKDecoder
     from kaldi_cnn_tpu_torch.models.components import Conv2DComponent
-    from kaldi_cnn_tpu_torch.models.factory import make_pnorm_dnn
+    from kaldi_cnn_tpu_torch.models.factory import (make_convnet_ivector,
+                                                    make_pnorm_dnn)
+    from kaldi_cnn_tpu_torch.recipes import swbd
     from kaldi_cnn_tpu_torch.models.ng_sgd import OnlineNaturalGradient
     from kaldi_cnn_tpu_torch.decode.topk_decoder import StreamingDecoder
     from kaldi_cnn_tpu_torch.online2 import (OnlineBaseFeature,
@@ -193,6 +196,10 @@ def test_entry_points_default_to_the_card(entry):
             _tiny_graph(), lambda f: f).accept_waveform(wave),
         "StreamingDecoder": lambda: StreamingDecoder(
             TopKDecoder(_tiny_graph())),
+        "swbd.run": lambda: swbd.run(num_speakers=2, utts_per_speaker=2,
+                                     nnet_epochs=1),
+        "make_convnet_ivector": lambda: make_convnet_ivector(
+            ConvnetConfig(**CFG), ivector_dim=4),
     }
     with pytest.raises((RuntimeError, AssertionError),
                        match="CUDA|NVIDIA|cuda"):
