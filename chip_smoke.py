@@ -131,13 +131,27 @@ then runs these phases; any failure raises and the exit code is not 0.
    loglikes within LOGLIKE_ATOL, each lattice's one-best words equal and
    the same swept point.  Prints each stage's seconds, the tree's
    leaves, the graph's states and K, and dev/test WER (not asserted).
+11. RM recipe: ``recipes.rm.run`` end to end on the card at the recipe's
+   defaults (RM_UTTS utterances, seed 29, RM_EPOCHS epochs): MFCC + deltas
+   through the fbank kernel, the host GMM chain (mono -> tri1 -> tri2b
+   LDA+MLLT -> tri3b SAT with per-utterance fMLLR), the two-pass fMLLR
+   GMM decode on the host, the p-norm DNN (180-dim fMLLR rows, 2 x
+   (Affine 800 -> Pnorm 160 -> Normalize)) trained on the card and
+   decoded through ``decode_utterances``.  The fbank kernel must run in
+   each of the three ``compute_features`` calls, no lattice buffer may
+   overflow, the result must carry the JAX recipe's keys and more than
+   10 test words.  Then the test set's DNN rows, with the card's trained
+   parameters, through the plain versions on the CPU: loglikes within
+   LOGLIKE_ATOL, and ``decode_utterances`` on the CPU of the card's
+   loglikes gives the card's one-best words.  Prints each stage's
+   seconds and the GMM and DNN dev/test WERs (not asserted).
 
 Output: the GPU's name and power limit (nvidia-smi), the build time, one
 line per check, the total seconds, a JSON line {"kernels": [...]} (for
 each kernel its launches in the recipe run of phase 8, the whole main
 path, with each phase's count in ``launches_by_phase``, phase 9's as
 its recognizer run "streaming" and its two verb runs "verb_card" and
-"verb_host", phase 10's as "swbd"; error, ms,
+"verb_host", phase 10's as "swbd", phase 11's as "rm"; error, ms,
 plain_ms, bound_ms, bound_by, library_ms, graph_ms and library_graph_ms,
 at the main path's shapes, and the same at the Switchboard shapes under
 "swbd_f48...") and, last, the JSON line {"ok": true,
@@ -195,7 +209,7 @@ from kaldi_cnn_tpu_torch.ops import maxpool as mp
 from kaldi_cnn_tpu_torch.ops.conv import (conv2d_maxpool, conv2d_maxpool_f32,
                                           conv2d_maxpool_reference)
 from kaldi_cnn_tpu_torch.ops.fbank import fbank_frames, fbank_reference_frames
-from kaldi_cnn_tpu_torch.recipes import swbd, synthetic, wsj
+from kaldi_cnn_tpu_torch.recipes import rm, swbd, synthetic, wsj, yesno
 from kaldi_cnn_tpu_torch.train.checkpoint import load_checkpoint
 
 SEED = 37
@@ -236,6 +250,13 @@ STREAM_COST_ABS = 1e-2
 # the Switchboard recipe (swbd.run, phase 10) at the recipe's own size and
 # width: 24 speakers x 7 utterances, F = 48, iVector 12, pnorm 800/160
 SWBD_EPOCHS = 25          # the recipe's own: not cut
+# the RM recipe (rm.run, phase 11) at its own defaults: 140 utterances,
+# seed 29, 25 epochs, pnorm 800/160 on 180-dim fMLLR rows
+RM_UTTS = 140
+RM_EPOCHS = 25
+# JAX rm.run's result: wer_details + the three WERs
+RM_KEYS = {"wer", "errors", "words", "sub", "ins", "del", "missing_utts",
+           "per_utt", "gmm_dev_wer", "dnn_dev_wer", "gmm_test_wer"}
 # published H100 SXM peaks (NVIDIA data sheet, dense) for bound_ms
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -1330,6 +1351,89 @@ def swbd_phase(dev, tmp):
     return launches
 
 
+def rm_phase(dev, tmp):
+    """Phase 11: rm.run on the card at the recipe's defaults, then the test
+    set's DNN rows (the fMLLR features of the GMM's first pass, spliced
+    +-4) through the plain versions on the CPU with the card's trained
+    parameters, and the card's loglikes through ``decode_utterances`` on
+    the CPU.  Returns the kernels' launches in the run."""
+    calls = {"compute_features": [], "nnet_decode": []}
+    reset_launches()
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(launches_per_call(
+            yesno, "compute_features", calls["compute_features"]))
+        stack.enter_context(launches_per_call(rm, "nnet_decode",
+                                              calls["nnet_decode"]))
+        probe = stack.enter_context(lattice_probes(rm))
+        t = time.perf_counter()
+        res = rm.run(num_utts=RM_UTTS, nnet_epochs=RM_EPOCHS, device=dev,
+                     exp_dir=os.path.join(tmp, "rm"))
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t
+    launches = read_launches()
+    mfcc = [n["fbank_fft"] for _, n, _ in calls["compute_features"]]
+    sec = probe["s"]
+    log(f"rm: rm.run({RM_UTTS} utterances, seed 29, {RM_EPOCHS} epochs, "
+        f"LDA 7 x 13 -> 20, tri2b 250 leaves / 800 Gaussians, SAT 900 "
+        f"Gaussians, pnorm 800/160 on 180-dim fMLLR rows) {total_s:.3f} s; "
+        f"stage seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["seconds"].items())
+        + f"; MFCC fbank_fft launches {mfcc}; run {launches}; tree "
+        f"{res['tree_leaves']} leaves, HCLG {res['graph_states']} states; "
+        f"decode_batch_lattice calls {len(probe['overflow'])}, (overflow, "
+        f"A_lat) {sorted(set(probe['overflow']))}; DNN lattice stages: "
+        f"frame loop {sec['frame loop']:.3f} s, fetch {sec['fetch']:.3f}, "
+        f"assembly + prune {sec['assembly + prune']:.3f}, determinize "
+        f"{sec['determinize']:.3f}, score_sweep {sec['score_sweep']:.3f}; "
+        f"GMM-SAT dev WER {res['gmm_dev_wer']:.2f}% at {res['gmm_point']} "
+        f"test {res['gmm_test_wer']:.2f}%; DNN dev WER "
+        f"{res['dnn_dev_wer']:.2f}% at {res['dnn_point']} test "
+        f"{res['wer']:.2f}% ({res['errors']} errors / {res['words']} "
+        f"words; not asserted)")
+    if len(mfcc) != 3 or min(mfcc) <= 0 or launches["fbank_fft"] <= 0:
+        raise AssertionError(f"the fbank kernel did not run in each MFCC "
+                             f"call: {mfcc}, run {launches}")
+    if not probe["overflow"] or any(ov != (0, 0)
+                                    for ov, _ in probe["overflow"]):
+        raise AssertionError(f"lattice overflow: {probe['overflow']}")
+    if not (RM_KEYS <= set(res) and res["words"] > 10
+            and res["missing_utts"] == 0
+            and len(calls["nnet_decode"]) == 2):
+        raise AssertionError(f"the recipe's result is malformed: "
+                             f"{ {k: v for k, v in res.items() if k != 'per_utt'} }")
+
+    # ---- CPU replay of the test decode on the card's rows and params ----
+    (am, feats, hclg), _, lats = calls["nnet_decode"][1]
+    am_cpu = AmNnet(copy.deepcopy(am.nnet).to("cpu"), am.num_pdfs)
+    am_cpu.priors = am.priors.copy()
+    t = time.perf_counter()
+    rows = {u: F.splice_frames(g, rm.CONTEXT, rm.CONTEXT)
+            for u, g in feats.items()}
+    lls_c = am_cpu.loglikes_batch(rows)
+    ll_err = max(float(np.abs(lls_c[u] - probe["loglikes"][u]).max())
+                 for u in rows)
+    cpu_lats = rm.decode_utterances(
+        hclg, {u: probe["loglikes"][u] for u in rows},
+        acoustic_scale=rm.ACOUSTIC_SCALE, beam=60.0, lattice_beam=8.0,
+        max_active=2000, lattice_arcs_per_frame=None, device="cpu")
+    card, cpu = one_best(lats), one_best(cpu_lats)
+    bad = [u for u in rows if card[u][0] != cpu[u][0]]
+    cost = max(abs(card[u][1] - cpu[u][1]) / max(1.0, abs(card[u][1]))
+               for u in rows)
+    log(f"rm replay on cpu ({time.perf_counter() - t:.1f} s; {len(rows)} "
+        f"test utterances, {sum(len(r) for r in rows.values())} rows of "
+        f"{next(iter(rows.values())).shape[1]} columns, the card's trained "
+        f"parameters): loglikes max |diff| {ll_err:.3g} (limit "
+        f"{LOGLIKE_ATOL}); decode_utterances on the card's loglikes: "
+        f"one-best words differ on {bad}, largest relative cost diff "
+        f"{cost:.3g}")
+    if (ll_err > LOGLIKE_ATOL or bad or sorted(lats) != sorted(rows)
+            or any(not np.isfinite(v).all() for v in lls_c.values())):
+        raise AssertionError("the card's RM decode disagrees with the CPU "
+                             "replay")
+    return launches
+
+
 def stream_rows(stream, rows):
     """``rows`` fed to ``stream`` in the frame counts of STREAM_CHUNK_S
     chunks; its final (tids, words, cost)."""
@@ -1597,6 +1701,11 @@ def main() -> int:
         t = time.perf_counter()
         swbd_launches = swbd_phase(dev, tmp)
         log(f"swbd phase: {time.perf_counter() - t:.1f} s")
+
+        # ---- 11. the RM recipe ----------------------------------------
+        t = time.perf_counter()
+        rm_launches = rm_phase(dev, tmp)
+        log(f"rm phase: {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     by_phase = {
@@ -1604,7 +1713,7 @@ def main() -> int:
                   "conv_maxpool_f32": f32_launches},
         "train": {**train_launches, "maxpool_fwd_scalar": scalar_launches},
         "recipe": recipe_launches, "recipe_mfcc_stage": {"fbank_fft": mfcc_n},
-        **stream_launches, "swbd": swbd_launches}
+        **stream_launches, "swbd": swbd_launches, "rm": rm_launches}
 
     def entry(name, source, replaces, n, r, pre=""):
         return {"name": name, "route": "cuda",

@@ -8,6 +8,7 @@ Ported verbs:
   online2-wav-latgen          online2bin/online2-wav-nnet2-latgen-faster.cc
   compute-kaldi-pitch-feats   featbin/compute-kaldi-pitch-feats.cc
   process-kaldi-pitch-feats   featbin/process-kaldi-pitch-feats.cc
+  run-recipe                  egs/<corpus>/run.sh equivalents
 
 Every verb self-documents with --help (ref: ParseOptions usage
 strings).  The JAX package's other verbs are not ported yet.
@@ -83,9 +84,32 @@ def cmd_process_pitch(argv: List[str]) -> int:
     return 0
 
 
+def cmd_run_recipe(argv: List[str]) -> int:
+    """(ref: egs/<corpus>/run.sh) One recipe's ``run`` on --device (the
+    card unless told otherwise); prints its result.  The JAX verb's
+    --pallas is dropped: the port takes its kernels wherever the tensors
+    lie on the card.  librispeech is not ported yet."""
+    p = argparse.ArgumentParser(prog="run-recipe")
+    p.add_argument("recipe", choices=["yesno", "rm", "wsj", "swbd",
+                                      "librispeech"])
+    p.add_argument("--device", default="cuda")
+    args = p.parse_args(argv)
+    if args.recipe == "librispeech":
+        print("run-recipe: the librispeech recipe is not ported yet",
+              file=sys.stderr)
+        return 2
+    import importlib
+    mod = importlib.import_module(
+        f"kaldi_cnn_tpu_torch.recipes.{args.recipe}")
+    res = mod.run(device=args.device)
+    print(res)
+    return 0
+
+
 VERBS = dict(TRAIN_VERBS)
 VERBS.update({"compute-kaldi-pitch-feats": cmd_compute_pitch,
-              "process-kaldi-pitch-feats": cmd_process_pitch})
+              "process-kaldi-pitch-feats": cmd_process_pitch,
+              "run-recipe": cmd_run_recipe})
 
 
 def main(argv: List[str] = None) -> int:

@@ -355,3 +355,15 @@ def compute_deltas(feats: torch.Tensor, order: int = 2,
         cur = torch.einsum("twd,w->td", cur[idx], scales)
         outs.append(cur)
     return torch.cat(outs, dim=1)
+
+
+def splice_frames(feats: np.ndarray, left_context: int,
+                  right_context: int) -> np.ndarray:
+    """[T, D] -> [T, (l+r+1)*D] with edge replication
+    (ref: feature-functions.cc SpliceFrames; nnet2 SpliceComponent).
+    Host numpy in and out: LDA, MLLT, fMLLR and the egs splice on the
+    host."""
+    T = feats.shape[0]
+    offsets = np.arange(-left_context, right_context + 1)
+    idx = np.clip(np.arange(T)[:, None] + offsets[None, :], 0, T - 1)
+    return feats[idx].reshape(T, -1)

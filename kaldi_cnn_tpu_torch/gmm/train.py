@@ -1,14 +1,14 @@
-"""Monophone and triphone GMM training (twin of
+"""Monophone, triphone, LDA+MLLT and SAT GMM training (twin of
 ``kaldi_cnn_tpu/gmm/train.py``, verbatim but for the imports; ref:
-steps/train_mono.sh and steps/train_deltas.sh orchestration of
+steps/train_{mono,deltas,lda_mllt,sat}.sh orchestration of
 gmm-init-mono, compile-train-graphs, align-equal-compiled,
-gmm-align-compiled, gmm-acc-stats-ali, gmm-est, build-tree and
-convert-ali).
+gmm-align-compiled, gmm-acc-stats-ali, gmm-est, build-tree,
+convert-ali, est-lda, est-mllt and gmm-est-fmllr).
 
 The reference runs these as N parallel jobs reducing through ark files
 per iteration; here the whole EM loop is one process, with scoring
 batched per utterance (the map step) and numpy accumulators (the
-reduce step).  The LDA+MLLT and SAT trainers wait for ``transform/``.
+reduce step).
 """
 
 from __future__ import annotations
@@ -230,6 +230,247 @@ def _train_em(
             logger.info("iter %d: avg loglike/frame %.3f, %d gauss",
                         it, tot_like / max(tot_frames, 1), am.total_gauss())
     return am, alignments
+
+
+@configclass
+class LdaMlltTrainOptions:
+    num_iters: int = 25
+    totgauss: int = 1200
+    max_iter_inc: int = 15
+    max_leaves: int = 600
+    lda_dim: int = 40
+    splice_left: int = 3
+    splice_right: int = 3
+    mllt_iters: Tuple[int, ...] = (2, 4, 6, 12)
+    beam: float = 20.0
+    acoustic_scale: float = 1.0
+    self_loop_scale: float = 0.1
+    transition_scale: float = 1.0
+    seed: int = 0
+
+
+def train_lda_mllt(
+    raw_feats: Dict[str, np.ndarray],
+    transcripts: Dict[str, Sequence[str]],
+    lang: Lang,
+    prev_alignments: Dict[str, np.ndarray],
+    prev_tm,
+    opts: LdaMlltTrainOptions = None,
+):
+    """LDA + MLLT system (ref: steps/train_lda_mllt.sh): splice raw
+    features, estimate LDA on prev-system pdf classes, build a tree on
+    LDA feats, then EM with periodic MLLT (semi-tied covariance)
+    updates composed into the global transform.
+
+    Returns (am, alignments, tri_lang, transform [lda_dim, spliced+1]).
+    """
+    from kaldi_cnn_tpu_torch.features.functional import splice_frames
+    from kaldi_cnn_tpu_torch.transform import (
+        LdaEstimate, MlltAccs, apply_affine, compose_affine)
+    opts = opts or LdaMlltTrainOptions()
+    rng = np.random.default_rng(opts.seed)
+    prev_tid2pdf = prev_tm.trans_id_to_pdf_array()
+
+    spliced = {
+        utt: np.asarray(splice_frames(f, opts.splice_left,
+                                      opts.splice_right))
+        for utt, f in raw_feats.items()
+    }
+    lda = LdaEstimate(prev_tm.num_pdfs,
+                      next(iter(spliced.values())).shape[1])
+    for utt, ali in prev_alignments.items():
+        lda.accumulate(spliced[utt], prev_tid2pdf[ali])
+    transform, _ = lda.estimate(opts.lda_dim)
+
+    feats = {u: apply_affine(f, transform).astype(np.float32)
+             for u, f in spliced.items()}
+    tri_lang = build_tree_lang(feats, prev_alignments, lang,
+                               max_leaves=opts.max_leaves,
+                               ali_tm=prev_tm)
+    alignments = {
+        utt: convert_alignment(prev_tm, tri_lang, ali)
+        for utt, ali in prev_alignments.items()
+    }
+    tm = tri_lang.trans_model
+    tid2pdf = tm.trans_id_to_pdf_array()
+    all_f = np.concatenate(list(feats.values()))
+    am = AmDiagGmm.flat_start(tm.num_pdfs, all_f.mean(axis=0),
+                              all_f.var(axis=0))
+    logger.info("compiling %d training graphs", len(feats))
+    graphs = {
+        utt: CompiledGraph(
+            compile_training_graph(
+                tri_lang, transcripts[utt],
+                transition_scale=opts.transition_scale,
+                self_loop_scale=opts.self_loop_scale),
+            tid2pdf)
+        for utt in feats
+    }
+    gauss_inc = max(1, (opts.totgauss - am.total_gauss())
+                    // max(opts.max_iter_inc, 1))
+    realign_iters = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 14, 16, 18, 20}
+    for it in range(opts.num_iters):
+        if it > 0 and it in realign_iters:
+            for utt, f in feats.items():
+                ll = am.loglikes(f)
+                ali = viterbi_align(graphs[utt], ll,
+                                    acoustic_scale=opts.acoustic_scale,
+                                    beam=opts.beam)
+                if ali is not None:
+                    alignments[utt] = ali
+        if it in opts.mllt_iters:
+            # MLLT update: accumulate over aligned pdfs' posteriors
+            macc = MlltAccs(opts.lda_dim)
+            for utt, f in feats.items():
+                if utt not in alignments:
+                    continue
+                pdf_ali = tid2pdf[alignments[utt]]
+                for pdf in np.unique(pdf_ali):
+                    gmm = am.gmms[int(pdf)]
+                    sel = pdf_ali == pdf
+                    macc.accumulate(f[sel], gmm.means,
+                                    1.0 / gmm.vars,
+                                    gmm.posteriors(f[sel]))
+            M = macc.update()
+            # compose into the global transform; rotate model means
+            ext = np.concatenate([M, np.zeros((opts.lda_dim, 1))], axis=1)
+            transform = compose_affine(ext, transform)
+            for gmm in am.gmms:
+                gmm.means = gmm.means @ M.T
+            feats = {u: apply_affine(f, transform).astype(np.float32)
+                     for u, f in spliced.items()}
+        accs = AmDiagGmmAccs(am)
+        tstats = np.zeros(tm.num_transition_ids + 1)
+        tot_like, tot_frames = 0.0, 0
+        for utt, f in feats.items():
+            if utt not in alignments:
+                continue
+            tids = alignments[utt]
+            pdf_ali = tid2pdf[tids]
+            accs.accumulate(am, f, pdf_ali)
+            np.add.at(tstats, tids, 1.0)
+            ll = am.loglikes(f)
+            tot_like += float(ll[np.arange(len(pdf_ali)), pdf_ali].sum())
+            tot_frames += f.shape[0]
+        am = accs.update(am)
+        tm.mle_update(tstats)
+        if it < opts.max_iter_inc:
+            am.split_to_total(min(opts.totgauss,
+                                  am.total_gauss() + gauss_inc),
+                              accs.pdf_occs(), rng)
+        if it % 5 == 0 or it == opts.num_iters - 1:
+            logger.info("iter %d: avg loglike/frame %.3f, %d gauss",
+                        it, tot_like / max(tot_frames, 1),
+                        am.total_gauss())
+    return am, alignments, tri_lang, transform
+
+
+@configclass
+class SatTrainOptions:
+    num_iters: int = 20
+    totgauss: int = 1500
+    max_iter_inc: int = 12
+    fmllr_iters: Tuple[int, ...] = (2, 4, 6, 12)
+    fmllr_min_count: float = 100.0
+    beam: float = 20.0
+    acoustic_scale: float = 1.0
+    self_loop_scale: float = 0.1
+    transition_scale: float = 1.0
+    seed: int = 0
+
+
+def train_sat(
+    feats: Dict[str, np.ndarray],
+    transcripts: Dict[str, Sequence[str]],
+    lang: Lang,
+    init_alignments: Dict[str, np.ndarray],
+    spk_of_utt: Optional[Dict[str, str]] = None,
+    opts: SatTrainOptions = None,
+):
+    """Speaker-adapted training with per-speaker fMLLR
+    (ref: steps/train_sat.sh).  Returns (am, alignments, transforms:
+    spk -> W [D, D+1])."""
+    from kaldi_cnn_tpu_torch.transform.fmllr import FmllrAccs
+    opts = opts or SatTrainOptions()
+    rng = np.random.default_rng(opts.seed)
+    if spk_of_utt is None:
+        spk_of_utt = {u: u for u in feats}   # per-utterance adaptation
+    tm = lang.trans_model
+    tid2pdf = tm.trans_id_to_pdf_array()
+    alignments = dict(init_alignments)
+    transforms: Dict[str, np.ndarray] = {}
+
+    def xf(utt, f):
+        W = transforms.get(spk_of_utt[utt])
+        if W is None:
+            return f
+        return (f @ W[:, :-1].T + W[:, -1]).astype(np.float32)
+
+    all_f = np.concatenate(list(feats.values()))
+    am = AmDiagGmm.flat_start(tm.num_pdfs, all_f.mean(axis=0),
+                              all_f.var(axis=0))
+    logger.info("compiling %d training graphs", len(feats))
+    graphs = {
+        utt: CompiledGraph(
+            compile_training_graph(
+                lang, transcripts[utt],
+                transition_scale=opts.transition_scale,
+                self_loop_scale=opts.self_loop_scale),
+            tid2pdf)
+        for utt in feats
+    }
+    gauss_inc = max(1, (opts.totgauss - am.total_gauss())
+                    // max(opts.max_iter_inc, 1))
+    realign_iters = {1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 12, 14, 16, 18}
+    for it in range(opts.num_iters):
+        if it > 0 and it in realign_iters:
+            for utt, f in feats.items():
+                ll = am.loglikes(xf(utt, f))
+                ali = viterbi_align(graphs[utt], ll,
+                                    acoustic_scale=opts.acoustic_scale,
+                                    beam=opts.beam)
+                if ali is not None:
+                    alignments[utt] = ali
+        if it in opts.fmllr_iters:
+            by_spk: Dict[str, FmllrAccs] = {}
+            for utt, f in feats.items():
+                if utt not in alignments:
+                    continue
+                spk = spk_of_utt[utt]
+                acc = by_spk.setdefault(spk, FmllrAccs(f.shape[1]))
+                # stats on RAW features: W replaces, not composes
+                acc.accumulate_am(am, f, tid2pdf[alignments[utt]])
+            for spk, acc in by_spk.items():
+                W = acc.update(min_count=opts.fmllr_min_count)
+                if W is not None:
+                    transforms[spk] = W.astype(np.float32)
+            logger.info("iter %d: estimated %d fMLLR transforms",
+                        it, len(transforms))
+        accs = AmDiagGmmAccs(am)
+        tstats = np.zeros(tm.num_transition_ids + 1)
+        tot_like, tot_frames = 0.0, 0
+        for utt, f in feats.items():
+            if utt not in alignments:
+                continue
+            g = xf(utt, f)
+            tids = alignments[utt]
+            pdf_ali = tid2pdf[tids]
+            accs.accumulate(am, g, pdf_ali)
+            np.add.at(tstats, tids, 1.0)
+            ll = am.loglikes(g)
+            tot_like += float(ll[np.arange(len(pdf_ali)), pdf_ali].sum())
+            tot_frames += g.shape[0]
+        am = accs.update(am)
+        tm.mle_update(tstats)
+        if it < opts.max_iter_inc:
+            am.split_to_total(min(opts.totgauss,
+                                  am.total_gauss() + gauss_inc),
+                              accs.pdf_occs(), rng)
+        if it % 5 == 0 or it == opts.num_iters - 1:
+            logger.info("iter %d: avg loglike/frame %.3f, %d gauss",
+                        it, tot_like / max(tot_frames, 1),
+                        am.total_gauss())
+    return am, alignments, transforms
 
 
 def train_mono(

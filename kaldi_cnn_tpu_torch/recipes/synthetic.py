@@ -1,7 +1,8 @@
 """Deterministic synthetic speech corpora (jax-free twin of
 ``kaldi_cnn_tpu/recipes/synthetic.py``: the noisy digits corpus of the
-WSJ-style recipe and the speaker corpus of the Switchboard-style one;
-same seeds, bit-identical waves).
+WSJ-style recipe, the speaker corpus of the Switchboard-style one, the
+clean corpus and the yes/no lexicon of the RM and yesno recipes; same
+seeds, bit-identical waves).
 
 Replaces the reference's downloaded corpora (egs/yesno/s5 waves etc.)
 in this offline environment: each phone gets a stable formant-like
@@ -132,6 +133,28 @@ class SyntheticCorpus:
             self.sample_rate)
 
 
+def make_corpus(
+    lexicon: Lexicon,
+    word_probs: Dict[str, float],
+    num_utts: int,
+    min_words: int = 1,
+    max_words: int = 4,
+    seed: int = 17,
+) -> SyntheticCorpus:
+    rng = np_rng(seed, "synthetic_corpus")
+    words = sorted(word_probs)
+    probs = np.array([word_probs[w] for w in words])
+    probs = probs / probs.sum()
+    waves, trans = {}, {}
+    for i in range(num_utts):
+        n = int(rng.integers(min_words, max_words + 1))
+        ws = [words[int(k)] for k in rng.choice(len(words), size=n, p=probs)]
+        utt = f"utt{i:04d}"
+        waves[utt] = render_utterance(ws, lexicon, rng)
+        trans[utt] = ws
+    return SyntheticCorpus(lexicon, word_probs, waves, trans)
+
+
 def make_noisy_corpus(
     lexicon: Lexicon,
     word_probs: Dict[str, float],
@@ -201,6 +224,13 @@ def make_speaker_corpus(
             trans[utt] = ws
             spk_of[utt] = f"spk{s:02d}"
     return (SyntheticCorpus(lexicon, word_probs, waves, trans), spk_of)
+
+
+def yesno_lexicon() -> Lexicon:
+    return Lexicon(entries={
+        "yes": [(["Y", "EH", "S"], 1.0)],
+        "no": [(["N", "OW"], 1.0)],
+    }, silence_phone="SIL", optional_silence_prob=0.5)
 
 
 def digits_lexicon() -> Lexicon:

@@ -146,6 +146,28 @@ def test_unknown_verb_and_help(capsys):
     assert "online2-wav-latgen" in capsys.readouterr().out
 
 
+@pytest.mark.parametrize("recipe", ["yesno", "rm", "wsj", "swbd"])
+def test_run_recipe_dispatches_with_the_device(recipe, monkeypatch, capsys):
+    """run-recipe calls the recipe's ``run`` with --device, the card by
+    default (each ``run`` here a stand-in that records its arguments)."""
+    import importlib
+    mod = importlib.import_module(f"kaldi_cnn_tpu_torch.recipes.{recipe}")
+    calls = []
+    monkeypatch.setattr(mod, "run",
+                        lambda **kw: calls.append(kw) or {"wer": 0.0})
+    assert cli.main(["run-recipe", recipe, "--device", "cpu"]) == 0
+    assert cli.main(["run-recipe", recipe]) == 0
+    assert calls == [{"device": "cpu"}, {"device": "cuda"}]
+    assert "'wer': 0.0" in capsys.readouterr().out
+
+
+def test_run_recipe_librispeech_is_not_ported(capsys):
+    assert cli.main(["run-recipe", "librispeech"]) != 0
+    assert "not ported" in capsys.readouterr().err
+    with pytest.raises(SystemExit):
+        cli.main(["run-recipe", "timit"])
+
+
 @pytest.fixture(scope="module")
 def cnn_mdl(workdir):
     """A 23-bin CNN .mdl on the mono GMM's transition model, seeded

@@ -689,3 +689,38 @@ def test_swbd_train_step_on_card_runs_the_maxpool_kernels(cuda):
                               cpu.named_parameters()):
         assert float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30)) \
             < 1e-3, k
+
+
+@pytest.mark.parametrize("rows", [1, 300, 4097])
+def test_rm_dnn_loglikes_on_card_match_cpu(cuda, rows):
+    """The RM recipe's p-norm DNN (180-dim rows: 20-dim fMLLR features
+    spliced +-4; 2 x (Affine -> Pnorm 800/160 -> Normalize) -> Affine ->
+    Softmax; seeded weights, the output affine redrawn): its loglikes on
+    the card against the CPU copy's within 5e-2, the smoke's limit for
+    card against CPU replay."""
+    import copy
+    from kaldi_cnn_tpu_torch.models.factory import (PnormDnnConfig,
+                                                    make_pnorm_dnn)
+    from kaldi_cnn_tpu_torch.models.nnet import AmNnet
+    from kaldi_cnn_tpu_torch.recipes import rm
+    num_pdfs = 250
+    net = make_pnorm_dnn(PnormDnnConfig(
+        input_dim=180, num_hidden_layers=2, pnorm_input_dim=800,
+        pnorm_output_dim=160, num_pdfs=num_pdfs), device=cuda)
+    gen = torch_generator(8, "rm")
+    net.init(gen)
+    with torch.no_grad():
+        out = net.components[-2]
+        out.w.copy_(torch.randn(out.w.shape, generator=gen) / 160 ** 0.5)
+    am, am_cpu = AmNnet(net, num_pdfs), AmNnet(
+        copy.deepcopy(net).to("cpu"), num_pdfs)
+    counts = np_rng(9, "rm priors").integers(1, 50, num_pdfs)
+    am.set_priors_from_counts(counts)
+    am_cpu.set_priors_from_counts(counts)
+    g = np_rng(10, "rm fmllr").normal(size=(rows, 20)).astype(np.float32)
+    x = F.splice_frames(g, rm.CONTEXT, rm.CONTEXT)
+    assert x.shape == (rows, 180)
+    got = am.loglikes_batch({"u": x})["u"]
+    want = am_cpu.loglikes_batch({"u": x})["u"]
+    assert got.shape == (rows, num_pdfs) and np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, rtol=0, atol=5e-2)
