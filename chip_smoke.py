@@ -132,7 +132,7 @@ then runs these phases; any failure raises and the exit code is not 0.
    the same swept point.  Prints each stage's seconds, the tree's
    leaves, the graph's states and K, and dev/test WER (not asserted).
 11. RM recipe: ``recipes.rm.run`` end to end on the card at the recipe's
-   defaults (RM_UTTS utterances, seed 29, RM_EPOCHS epochs): MFCC + deltas
+   widths (RM_UTTS utterances, seed 29, RM_EPOCHS epochs): MFCC + deltas
    through the fbank kernel, the host GMM chain (mono -> tri1 -> tri2b
    LDA+MLLT -> tri3b SAT with per-utterance fMLLR), the two-pass fMLLR
    GMM decode on the host, the p-norm DNN (180-dim fMLLR rows, 2 x
@@ -145,13 +145,37 @@ then runs these phases; any failure raises and the exit code is not 0.
    LOGLIKE_ATOL, and ``decode_utterances`` on the CPU of the card's
    loglikes gives the card's one-best words.  Prints each stage's
    seconds and the GMM and DNN dev/test WERs (not asserted).
+12. Librispeech recipe: ``recipes.librispeech.run`` end to end on the card
+   at the recipe's defaults, uncut (LIBRI_UTTS utterances, seed 53, F =
+   48, pnorm 800/160, minibatch 256, 8 on-disk egs shards, LIBRI_EPOCHS
+   epochs) as a process group of one over NCCL: the MFCC GMM bootstrap
+   (fbank kernel), the fbank volumes (fbank kernel), ``train_multihost``
+   (maxpool forward and backward kernels, every sum over rows through
+   an all-reduce) and the dev and test lattice decodes (wgmma
+   conv+maxpool kernel) must each launch their kernels, at least one
+   all-reduce must reach the NCCL group, no lattice buffer may
+   overflow, and the result must carry the JAX recipe's keys and more
+   than 10 test words.  Then the test set's rows, with the card's
+   trained parameters, through the plain versions on the CPU: loglikes
+   within LOGLIKE_ATOL, and ``decode_utterances`` on the CPU of the
+   card's loglikes gives the card's one-best words.  Last, two ranks on
+   the one card over gloo with CUDA tensors (NCCL refuses two ranks on
+   one GPU), at the recipe's net width and the run's pdfs: DP_STEPS
+   mode-A steps, each rank holding half of a DP_ROWS minibatch, against
+   the single-process steps on the whole of it, and two replicas of
+   DP_STEPS steps and one average against the mean of the two
+   single-process streams: objf within OBJF_STEP_ATOL, parameters within
+   PARAM_REL, the two ranks bit-equal, the maxpool kernels launched in
+   both.  Prints each stage's seconds, training audio-s/s, the
+   all-reduce count and dev/test WER (not asserted).
 
 Output: the GPU's name and power limit (nvidia-smi), the build time, one
 line per check, the total seconds, a JSON line {"kernels": [...]} (for
 each kernel its launches in the recipe run of phase 8, the whole main
 path, with each phase's count in ``launches_by_phase``, phase 9's as
 its recognizer run "streaming" and its two verb runs "verb_card" and
-"verb_host", phase 10's as "swbd", phase 11's as "rm"; error, ms,
+"verb_host", phase 10's as "swbd", phase 11's as "rm", phase 12's as
+"librispeech"; error, ms,
 plain_ms, bound_ms, bound_by, library_ms, graph_ms and library_graph_ms,
 at the main path's shapes, and the same at the Switchboard shapes under
 "swbd_f48...") and, last, the JSON line {"ok": true,
@@ -182,6 +206,7 @@ import torch.nn.functional as nnf
 from kaldi_cnn_tpu_torch import cli
 from kaldi_cnn_tpu_torch.cli_train import AdvanceRecorder
 from kaldi_cnn_tpu_torch.convert import params_from_jax, params_to_numpy
+from kaldi_cnn_tpu_torch.core import mesh as mesh_ops
 from kaldi_cnn_tpu_torch.core.rng import np_rng, torch_generator
 from kaldi_cnn_tpu_torch.decode import topk_decoder
 from kaldi_cnn_tpu_torch.decode.decoder import lattice_decode
@@ -209,7 +234,9 @@ from kaldi_cnn_tpu_torch.ops import maxpool as mp
 from kaldi_cnn_tpu_torch.ops.conv import (conv2d_maxpool, conv2d_maxpool_f32,
                                           conv2d_maxpool_reference)
 from kaldi_cnn_tpu_torch.ops.fbank import fbank_frames, fbank_reference_frames
-from kaldi_cnn_tpu_torch.recipes import rm, swbd, synthetic, wsj, yesno
+from kaldi_cnn_tpu_torch.parallel import rank_check
+from kaldi_cnn_tpu_torch.recipes import (librispeech, rm, swbd, synthetic,
+                                         wsj, yesno)
 from kaldi_cnn_tpu_torch.train.checkpoint import load_checkpoint
 
 SEED = 37
@@ -248,15 +275,30 @@ MFCC_ENERGY_ATOL = 1e-3   # column 0, the raw log energy
 STREAM_CHUNK_S = 0.2
 STREAM_COST_ABS = 1e-2
 # the Switchboard recipe (swbd.run, phase 10) at the recipe's own size and
-# width: 24 speakers x 7 utterances, F = 48, iVector 12, pnorm 800/160
-SWBD_EPOCHS = 25          # the recipe's own: not cut
-# the RM recipe (rm.run, phase 11) at its own defaults: 140 utterances,
-# seed 29, 25 epochs, pnorm 800/160 on 180-dim fMLLR rows
-RM_UTTS = 140
+# width: 24 speakers x 7 utterances, F = 48, iVector 12, pnorm 800/160;
+# its depth cut from 25 epochs so that the script with phase 12 stays
+# near half its time limit
+SWBD_EPOCHS = 12
+# the RM recipe (rm.run, phase 11) at its own widths (seed 29, pnorm
+# 800/160 on 180-dim fMLLR rows, 25 epochs), its depth cut from 140
+# utterances for the same reason (its host GMM chain grows with them)
+RM_UTTS = 70
 RM_EPOCHS = 25
 # JAX rm.run's result: wer_details + the three WERs
 RM_KEYS = {"wer", "errors", "words", "sub", "ins", "del", "missing_utts",
            "per_utt", "gmm_dev_wer", "dnn_dev_wer", "gmm_test_wer"}
+# the Librispeech recipe (librispeech.run, phase 12) at its own defaults,
+# uncut: 200 utterances, seed 53, F = 48, pnorm 800/160, minibatch 256,
+# 8 egs shards, 25 epochs
+LIBRI_UTTS = 200
+LIBRI_EPOCHS = 25
+# JAX librispeech.run's result keys
+LIBRI_KEYS = {"wer", "errors", "words", "sub", "ins", "del", "missing_utts",
+              "per_utt", "dev_wer", "train_audio_ss", "num_devices"}
+# the two-rank check on the one card (gloo with CUDA tensors: NCCL refuses
+# two ranks on one GPU): mode-A steps, and replica steps with one average
+DP_STEPS = 4
+DP_ROWS = 256
 # published H100 SXM peaks (NVIDIA data sheet, dense) for bound_ms
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -1352,7 +1394,7 @@ def swbd_phase(dev, tmp):
 
 
 def rm_phase(dev, tmp):
-    """Phase 11: rm.run on the card at the recipe's defaults, then the test
+    """Phase 11: rm.run on the card at RM_UTTS utterances, then the test
     set's DNN rows (the fMLLR features of the GMM's first pass, spliced
     +-4) through the plain versions on the CPU with the card's trained
     parameters, and the card's loglikes through ``decode_utterances`` on
@@ -1432,6 +1474,148 @@ def rm_phase(dev, tmp):
         raise AssertionError("the card's RM decode disagrees with the CPU "
                              "replay")
     return launches
+
+
+def librispeech_phase(dev, tmp):
+    """Phase 12: librispeech.run on the card at the recipe's defaults, as a
+    process group of one over NCCL, then the test set's rows through the
+    plain versions on the CPU with the card's trained parameters, and the
+    card's loglikes through ``decode_utterances`` on the CPU.  Returns
+    (the kernels' launches in the run, the result)."""
+    calls = {k: [] for k in ("compute_features", "compute_fbank_volumes",
+                             "train_multihost", "nnet_decode")}
+    reset_launches()
+    reduces = mesh_ops.all_reduce.launches
+    with contextlib.ExitStack() as stack:
+        for name, c in calls.items():
+            stack.enter_context(launches_per_call(librispeech, name, c))
+        probe = stack.enter_context(lattice_probes(librispeech))
+        t = time.perf_counter()
+        res = librispeech.run(num_utts=LIBRI_UTTS, nnet_epochs=LIBRI_EPOCHS,
+                              device=dev,
+                              exp_dir=os.path.join(tmp, "librispeech"))
+        torch.cuda.synchronize()
+        total_s = time.perf_counter() - t
+    launches = read_launches()
+    reduces = mesh_ops.all_reduce.launches - reduces
+    per = {k: [n for _, n, _ in c] for k, c in calls.items()}
+
+    def col(stage, kernel):
+        return [n[kernel] for n in per[stage]]
+
+    sec = probe["s"]
+    log(f"librispeech: librispeech.run({LIBRI_UTTS} utterances, seed 53, "
+        f"{LIBRI_EPOCHS} epochs, F = 48, pnorm 800/160, minibatch 256, "
+        f"8 egs shards; {res['num_devices']} rank over {res['backend']}) "
+        f"{total_s:.3f} s; stage seconds "
+        + ", ".join(f"{k} {v:.3f}" for k, v in res["seconds"].items())
+        + f"; training {res['train_audio_ss']:.1f} audio-s/s; all-reduces "
+        f"{reduces}; launches: bootstrap MFCC fbank_fft "
+        f"{col('compute_features', 'fbank_fft')}, fbank volumes fbank_fft "
+        f"{col('compute_fbank_volumes', 'fbank_fft')}, nnet_train "
+        f"maxpool_fwd_vec {col('train_multihost', 'maxpool_fwd_vec')} "
+        f"maxpool_bwd {col('train_multihost', 'maxpool_bwd')} "
+        f"maxpool_fwd_scalar {col('train_multihost', 'maxpool_fwd_scalar')}"
+        f", decode conv_maxpool {col('nnet_decode', 'conv_maxpool')} "
+        f"conv_maxpool_f32 {col('nnet_decode', 'conv_maxpool_f32')}; run "
+        f"{launches}; tree {res['tree_leaves']} leaves, HCLG "
+        f"{res['graph_states']} states; decode_batch_lattice calls "
+        f"{len(probe['overflow'])}, (overflow, A_lat) "
+        f"{sorted(set(probe['overflow']))}; lattice stages: frame loop "
+        f"{sec['frame loop']:.3f} s, fetch {sec['fetch']:.3f}, assembly + "
+        f"prune {sec['assembly + prune']:.3f}, determinize "
+        f"{sec['determinize']:.3f}, score_sweep {sec['score_sweep']:.3f}; dev "
+        f"WER {res['dev_wer']:.2f}% at {res['point']}, test WER "
+        f"{res['wer']:.2f}% ({res['errors']} errors / {res['words']} words; "
+        f"not asserted)")
+    if (len(per["compute_features"]) != 1 or len(per["train_multihost"]) != 1
+            or len(per["compute_fbank_volumes"]) != 3
+            or len(per["nnet_decode"]) != 2):
+        raise AssertionError(f"the recipe's stages ran other than expected: "
+                             f"{ {k: len(v) for k, v in per.items()} }")
+    if (min(col("compute_features", "fbank_fft")
+            + col("compute_fbank_volumes", "fbank_fft")
+            + col("train_multihost", "maxpool_fwd_vec")
+            + col("train_multihost", "maxpool_bwd")
+            + col("nnet_decode", "conv_maxpool")) <= 0):
+        raise AssertionError(f"a kernel did not run in its stage: {per}")
+    if res["backend"] != "nccl" or res["num_devices"] != 1 or reduces <= 0:
+        raise AssertionError(f"the run did not go through an NCCL group: "
+                             f"{res['backend']}, {res['num_devices']} "
+                             f"ranks, {reduces} all-reduces")
+    if not probe["overflow"] or any(ov != (0, 0)
+                                    for ov, _ in probe["overflow"]):
+        raise AssertionError(f"lattice overflow: {probe['overflow']}")
+    if not (LIBRI_KEYS <= set(res) and res["words"] > 10
+            and res["missing_utts"] == 0):
+        raise AssertionError(f"the recipe's result is malformed: "
+                             f"{ {k: v for k, v in res.items() if k != 'per_utt'} }")
+
+    # ---- CPU replay of the test decode on the card's rows and params ----
+    (am, vols, hclg, _), _, lats = calls["nnet_decode"][1]
+    am_cpu = AmNnet(copy.deepcopy(am.nnet).to("cpu"), am.num_pdfs)
+    am_cpu.priors = am.priors.copy()
+    t = time.perf_counter()
+    rows = {u: wsj.splice_volume(v, librispeech.LEFT, librispeech.RIGHT)
+            for u, v in vols.items()}
+    lls_c = am_cpu.loglikes_batch(rows)
+    ll_err = max(float(np.abs(lls_c[u] - probe["loglikes"][u]).max())
+                 for u in rows)
+    # one batch padded to the longest utterance: each utterance's search
+    # is its own row's, and the CPU's frame loop runs the fewest frames
+    longest = max(v.shape[0] for v in vols.values())
+    cpu_lats = librispeech.decode_utterances(
+        hclg, {u: probe["loglikes"][u] for u in rows}, acoustic_scale=0.1,
+        beam=60.0, lattice_beam=8.0, max_active=2000,
+        lattice_arcs_per_frame=None, batch_size=len(rows),
+        bucket_frames=-(-longest // 32) * 32, device="cpu")
+    card, cpu = one_best(lats), one_best(cpu_lats)
+    bad = [u for u in rows if card[u][0] != cpu[u][0]]
+    cost = max(abs(card[u][1] - cpu[u][1]) / max(1.0, abs(card[u][1]))
+               for u in rows)
+    log(f"librispeech replay on cpu ({time.perf_counter() - t:.1f} s; "
+        f"{len(rows)} test utterances, {sum(len(r) for r in rows.values())} "
+        f"rows, the card's trained parameters): loglikes max |diff| "
+        f"{ll_err:.3g} (limit {LOGLIKE_ATOL}); decode_utterances on the "
+        f"card's loglikes: one-best words differ on {bad}, largest relative "
+        f"cost diff {cost:.3g}")
+    if (ll_err > LOGLIKE_ATOL or bad or sorted(lats) != sorted(rows)
+            or any(not np.isfinite(v).all() for v in lls_c.values())):
+        raise AssertionError("the card's Librispeech decode disagrees with "
+                             "the CPU replay")
+    return launches, res
+
+
+def two_rank_phase(num_pdfs):
+    """Two gloo ranks with CUDA tensors on the one card, at the Librispeech
+    recipe's net width and the phase-12 tree's pdfs
+    (``parallel/rank_check.py``): DP_STEPS mode-A steps (each rank half of
+    a DP_ROWS minibatch) against the single-process steps on the whole of
+    it, and two replicas (DP_STEPS steps on each half, one average)
+    against the mean of the two single-process streams.  Objf within
+    OBJF_STEP_ATOL, parameters within PARAM_REL (relative Frobenius); the
+    two ranks bit-equal."""
+    cfg = ConvnetConfig(in_t=11, in_f=36, in_c=3, filt_t=4, filt_f=7,
+                        num_filters=48, pool_t=2, pool_f=3, pool_c=1,
+                        num_hidden_layers=2, pnorm_input_dim=800,
+                        pnorm_output_dim=160, num_pdfs=num_pdfs)
+    case = rank_check.seeded_case(cfg, SEED, DP_ROWS)
+    for replicas in (1, 2):
+        res = rank_check.two_ranks_vs_one(cfg, case, DP_STEPS, 0.08,
+                                          replicas)
+        l0, l1 = res["launches"]
+        log(f"two ranks on the card ({'mode A' if replicas == 1 else 'two replicas, one average'}"
+            f", gloo, {DP_STEPS} steps of {DP_ROWS} rows at the recipe's "
+            f"width, {num_pdfs} pdfs; {res['seconds']:.1f} s with the "
+            f"spawn): ranks bit-equal {res['ranks_equal']}; against world "
+            f"size 1: objf max |diff| {res['objf_err']:.3g} (limit "
+            f"{OBJF_STEP_ATOL}), params max relative Frobenius diff "
+            f"{res['param_rel']:.3g} (limit {PARAM_REL}); maxpool fwd/bwd "
+            f"launches {l0} {l1}")
+        if (not res["ranks_equal"] or res["objf_err"] > OBJF_STEP_ATOL
+                or res["param_rel"] > PARAM_REL or min(l0 + l1) <= 0):
+            raise AssertionError("the two ranks on the card disagree with "
+                                 "world size 1")
 
 
 def stream_rows(stream, rows):
@@ -1706,6 +1890,12 @@ def main() -> int:
         t = time.perf_counter()
         rm_launches = rm_phase(dev, tmp)
         log(f"rm phase: {time.perf_counter() - t:.1f} s")
+
+        # ---- 12. the Librispeech recipe, then two ranks on the card ----
+        t = time.perf_counter()
+        libri_launches, libri = librispeech_phase(dev, tmp)
+        two_rank_phase(libri["tree_leaves"])
+        log(f"librispeech phase: {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     by_phase = {
@@ -1713,7 +1903,8 @@ def main() -> int:
                   "conv_maxpool_f32": f32_launches},
         "train": {**train_launches, "maxpool_fwd_scalar": scalar_launches},
         "recipe": recipe_launches, "recipe_mfcc_stage": {"fbank_fft": mfcc_n},
-        **stream_launches, "swbd": swbd_launches, "rm": rm_launches}
+        **stream_launches, "swbd": swbd_launches, "rm": rm_launches,
+        "librispeech": libri_launches}
 
     def entry(name, source, replaces, n, r, pre=""):
         return {"name": name, "route": "cuda",

@@ -88,16 +88,13 @@ def cmd_run_recipe(argv: List[str]) -> int:
     """(ref: egs/<corpus>/run.sh) One recipe's ``run`` on --device (the
     card unless told otherwise); prints its result.  The JAX verb's
     --pallas is dropped: the port takes its kernels wherever the tensors
-    lie on the card.  librispeech is not ported yet."""
+    lie on the card.  librispeech runs as a process group of one (see
+    ``recipes/librispeech.py`` for several)."""
     p = argparse.ArgumentParser(prog="run-recipe")
     p.add_argument("recipe", choices=["yesno", "rm", "wsj", "swbd",
                                       "librispeech"])
     p.add_argument("--device", default="cuda")
     args = p.parse_args(argv)
-    if args.recipe == "librispeech":
-        print("run-recipe: the librispeech recipe is not ported yet",
-              file=sys.stderr)
-        return 2
     import importlib
     mod = importlib.import_module(
         f"kaldi_cnn_tpu_torch.recipes.{args.recipe}")

@@ -29,7 +29,9 @@ ProcessNonemitting / PruneActiveTokens / GetRawLattice):
 ``vmap`` over utterances is an explicit leading batch dimension, and
 ``lax.scan`` over frames is a Python loop of tensor ops on the device;
 ``StreamingDecoder`` runs each block of frames as one CUDA graph
-replay.  The on-device best-path backtrace and the mesh are not ported
+replay.  ``decode_utterances`` splits a keyed utterance set over the
+ranks of a process group, where the JAX package shards the batch over
+its mesh's data axis.  The on-device best-path backtrace is not ported
 yet.  ``TopKGraph`` is a copy of the JAX package's numpy packing (the
 port imports nothing of that package).
 """
@@ -1544,7 +1546,7 @@ def decode_utterances(graph: CompiledGraph,
                       bucket_frames: int = 128,
                       determinize: bool = True,
                       decoder: Optional[TopKDecoder] = None,
-                      device="cuda") -> Dict[str, Lattice]:
+                      device="cuda", group=None) -> Dict[str, Lattice]:
     """Batched lattice decode of a keyed utterance set, the recipes'
     decode path (ref: nnet2bin/nnet-latgen-faster.cc's role; the
     determinization mirrors GetRawLattice -> DeterminizeLatticePruned).
@@ -1554,7 +1556,25 @@ def decode_utterances(graph: CompiledGraph,
     last batch is padded by repeating its last utterance and the
     duplicates are dropped.  ``lattice_arcs_per_frame=None`` derives the
     record capacity from ``max_active``
-    (``TopKDecoder._derive_lattice_arcs``)."""
+    (``TopKDecoder._derive_lattice_arcs``).
+
+    With a process ``group``, rank k of the group decodes the utterances
+    at sorted positions k, k + size, ... and the lattices are gathered,
+    so every rank returns the whole keyed set (ordered by rank, then as
+    without a group).  Each utterance's search is its own row's (top-K,
+    beam and record caps are per row), so its lattice is the one the
+    call without a group gives."""
+    if group is not None:
+        import torch.distributed as dist
+        k, size = dist.get_rank(group), dist.get_world_size(group)
+        mine = decode_utterances(
+            graph, {u: loglikes[u] for u in sorted(loglikes)[k::size]},
+            acoustic_scale, beam, lattice_beam, max_active,
+            lattice_arcs_per_frame, batch_size, bucket_frames, determinize,
+            decoder, device)
+        parts: List[Optional[Dict[str, Lattice]]] = [None] * size
+        dist.all_gather_object(parts, mine, group=group)
+        return {u: lat for part in parts for u, lat in part.items()}
     dec = decoder or TopKDecoder(
         graph, beam=beam, max_active=max_active,
         acoustic_scale=acoustic_scale, lattice_beam=lattice_beam,

@@ -14,7 +14,11 @@ flattened (time, freq, channel) volume.
 
 ``update`` changes the parameters in place (the JAX package returns new
 ones): the caller takes the backprop through a component before it
-updates it, so the backprop still sees the old parameters.
+updates it, so the backprop still sees the old parameters.  Its
+``group`` (a ``torch.distributed`` process group, or None) makes it the
+data-parallel update: the rows are this rank's slice of the global
+minibatch and every row sum and row sample spans the group
+(``models/ng_sgd.py``).
 
 Each component's ``init(generator)`` draws its parameters from the same
 distributions as the JAX ``init`` (the numbers differ: torch's streams
@@ -33,6 +37,7 @@ import torch.nn.functional as Fn
 from torch import nn
 from torch.nn import grad as conv_grad
 
+from kaldi_cnn_tpu_torch.core.mesh import reduce_sum, row_span, strided_rows
 from kaldi_cnn_tpu_torch.models.ng_sgd import (
     OnlineNaturalGradient, ng_affine_apply, ng_delta_from_stats)
 from kaldi_cnn_tpu_torch.ops.conv import conv2d_reference, patch_indices
@@ -100,11 +105,12 @@ class AffineComponent(Component):
                 "ng_out": ng_out.init(self.output_dim, dev)}
 
     @torch.no_grad()
-    def update(self, opt, in_value, out_deriv, lr, ng_in, ng_out):
+    def update(self, opt, in_value, out_deriv, lr, ng_in, ng_out,
+               group=None):
         """NG-SGD step of w and b in place; returns the new opt state."""
         w, b, opt_in, opt_out = ng_affine_apply(
             ng_in, ng_out, opt["ng_in"], opt["ng_out"], in_value, out_deriv,
-            self.w, self.b, lr, self.max_change)
+            self.w, self.b, lr, self.max_change, group)
         self.w.copy_(w)
         self.b.copy_(b)
         return {"ng_in": opt_in, "ng_out": opt_out}
@@ -288,7 +294,8 @@ class Conv2DComponent(Component):
                 "ng_out": ng_out.init(self.num_filters, dev)}
 
     @torch.no_grad()
-    def update(self, opt, in_value, out_deriv, lr, ng_in, ng_out):
+    def update(self, opt, in_value, out_deriv, lr, ng_in, ng_out,
+               group=None):
         """NG-SGD step over patch rows without forming the im2col
         matrix: G by a filter-gradient convolution, the input-side
         projections by a convolution with the basis rows as filters,
@@ -296,43 +303,55 @@ class Conv2DComponent(Component):
         statistics from the [F, F] Gram.  Updates w and b in place and
         returns the new opt state."""
         n = in_value.shape[0]
-        n_rows = n * self.num_patches
+        offset, n_all = row_span(n, group)
+        n_rows = n_all * self.num_patches
         x = self._nchw(in_value)
         d = self._deriv_nchw(out_deriv)
-        d2 = out_deriv.to(torch.float32).reshape(n_rows, self.num_filters)
+        d2 = out_deriv.to(torch.float32).reshape(-1, self.num_filters)
         state_in, state_out = opt["ng_in"], opt["ng_out"]
 
         gw = conv_grad.conv2d_weight(
             x, (self.num_filters, self.in_c, self.filt_t, self.filt_f), d,
             stride=self._stride())
         gw = gw.permute(0, 2, 3, 1).reshape(self.num_filters, self.patch_dim)
-        g = torch.cat([gw, d2.sum(dim=0)[:, None]], dim=1)
 
         u_i = state_in.u                                  # [Ri, patch+1]
         proj_in = (Fn.conv2d(x, self._filters(u_i[:, :-1]),
                              stride=self._stride())
                    + u_i[:, -1][None, :, None, None])     # [n, Ri, ot, of]
-        proj_sq_in = (proj_in * proj_in).sum(dim=(0, 2, 3))
         x32 = in_value.to(torch.float32)
         mult = torch.as_tensor(self._patch_multiplicity, device=x32.device)
-        x_sq = ((x32 * x32) @ mult).sum() + n_rows
-
-        m = d2.T @ d2                                     # [F, F]
-        d_sq = torch.trace(m)
         u_o = state_out.u
-        proj_sq_out = ((u_o @ m) * u_o).sum(dim=1)
 
-        # deterministic-stride row samples on the flat patch-row space
+        # deterministic-stride row samples on the flat patch-row space of
+        # the global batch; a rank samples the frames it holds
         s_i = min(n_rows, u_i.shape[0])
         rows_i = np.arange(s_i) * max(n_rows // s_i, 1)
         n_idx, pos_idx = np.divmod(rows_i, self.num_patches)
-        pidx = torch.as_tensor(self._patch_indices()[pos_idx],
+        mine = (n_idx >= offset) & (n_idx < offset + n)
+        pidx = torch.as_tensor(self._patch_indices()[pos_idx[mine]],
                                device=x32.device)
-        xs = torch.gather(x32[torch.as_tensor(n_idx, device=x32.device)],
-                          1, pidx)
+        patches = torch.gather(
+            x32[torch.as_tensor(n_idx[mine] - offset, device=x32.device)],
+            1, pidx)
+        if mine.all():
+            xs = patches
+        else:
+            xs = x32.new_zeros((s_i, self.patch_dim))
+            xs[torch.as_tensor(np.flatnonzero(mine),
+                               device=x32.device)] = patches
+
+        g, proj_sq_in, x_sq, m, xs, ds = reduce_sum([
+            torch.cat([gw, d2.sum(dim=0)[:, None]], dim=1),
+            (proj_in * proj_in).sum(dim=(0, 2, 3)),
+            ((x32 * x32) @ mult).sum() + n * self.num_patches,
+            d2.T @ d2,                                    # [F, F]
+            xs,
+            strided_rows(d2, n_rows, u_o.shape[0], offset * self.num_patches,
+                         group)], group)
+        d_sq = torch.trace(m)
+        proj_sq_out = ((u_o @ m) * u_o).sum(dim=1)
         xs = torch.cat([xs, xs.new_ones((s_i, 1))], dim=1)
-        s_o = min(n_rows, u_o.shape[0])
-        ds = d2[::max(n_rows // s_o, 1)][:s_o]
 
         delta, opt_in, opt_out = ng_delta_from_stats(
             ng_in, ng_out, state_in, state_out, g, x_sq, proj_sq_in, d_sq,
@@ -494,7 +513,8 @@ class SliceParallelComponent(Component):
                                else {} for p in self.parts)}
 
     @torch.no_grad()
-    def update(self, opt, in_value, out_deriv, lr, ng_in, ng_out):
+    def update(self, opt, in_value, out_deriv, lr, ng_in, ng_out,
+               group=None):
         """NG-SGD step of each trained part in place; returns the new opt
         state."""
         new = []
@@ -503,7 +523,7 @@ class SliceParallelComponent(Component):
                 self._out_slices()):
             new.append(p.update(oo, in_value[:, i0:i1].contiguous(),
                                 out_deriv[:, o0:o1].contiguous(), lr, ng_in,
-                                ng_out) if p.trainable else oo)
+                                ng_out, group) if p.trainable else oo)
         return {"parts": tuple(new)}
 
 

@@ -20,6 +20,14 @@ step for step.  Two things differ by design:
   LAPACK may pick other signs than JAX; every use of ``u`` here is
   invariant to them, so states are compared through the projector
   ``u^T diag(d) u`` and ``rho``.
+
+Data parallelism (mode A): with a process ``group``, each rank holds an
+equal row slice of the global minibatch, in rank order.  Every sum over
+rows (the gradient, the norms, the projections' column sums) is summed
+over the group, and the strided row sample is taken over the GLOBAL
+rows and assembled from the ranks that own them, so that every rank
+computes the single-process update of the global batch, and all ranks
+the same bits.  ``group=None`` is the single-process path.
 """
 
 from __future__ import annotations
@@ -27,6 +35,8 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import torch
+
+from kaldi_cnn_tpu_torch.core.mesh import reduce_sum, row_span, strided_rows
 
 
 class NGState(NamedTuple):
@@ -125,25 +135,31 @@ class OnlineNaturalGradient:
 
     def sample_rows(self, x: torch.Tensor) -> torch.Tensor:
         """Deterministic-stride sample of <= R rows."""
-        n = x.shape[0]
-        s = min(n, self.rank)
-        return x[::max(n // s, 1)][:s]
+        return strided_rows(x, x.shape[0], self.rank, 0)
 
-    def _precondition_given(self, state: NGState, x: torch.Tensor
-                            ) -> torch.Tensor:
+    def _precondition_given(self, state: NGState, x: torch.Tensor,
+                            x_sq=None, group=None) -> torch.Tensor:
+        """x_sq: ||x||^2 over the group's rows, when already summed."""
         a, c, u = self.factors(state)
         x_hat = x * a + ((x @ u.T) * c) @ u
-        num = torch.sqrt((x * x).sum() + 1e-20)
-        den = torch.sqrt((x_hat * x_hat).sum() + 1e-20)
+        if x_sq is None:
+            (x_sq,) = reduce_sum([(x * x).sum()], group)
+        (h_sq,) = reduce_sum([(x_hat * x_hat).sum()], group)
+        num = torch.sqrt(x_sq + 1e-20)
+        den = torch.sqrt(h_sq + 1e-20)
         return x_hat * (num / den)
 
-    def precondition(self, state: NGState, x: torch.Tensor
+    def precondition(self, state: NGState, x: torch.Tensor, group=None
                      ) -> Tuple[torch.Tensor, NGState]:
-        """Returns (preconditioned rows, updated state)."""
+        """Returns (preconditioned rows, updated state); with a group,
+        ``x`` is this rank's row slice and the statistics are the
+        group's."""
         x = x.to(torch.float32)
-        new_state = self.maybe_update_from_sample(
-            state, self.sample_rows(x), (x * x).sum() / x.shape[0])
-        return self._precondition_given(state, x), new_state
+        offset, n = row_span(x.shape[0], group)
+        x_sq, xs = reduce_sum([(x * x).sum(), strided_rows(
+            x, n, self.rank, offset, group)], group)
+        new_state = self.maybe_update_from_sample(state, xs, x_sq / n)
+        return self._precondition_given(state, x, x_sq, group), new_state
 
 
 def ng_delta_from_stats(ng_in: OnlineNaturalGradient,
@@ -179,27 +195,32 @@ def ng_affine_apply(ng_in: OnlineNaturalGradient,
                     state_in: NGState, state_out: NGState,
                     x: torch.Tensor, d: torch.Tensor,
                     w: torch.Tensor, b: torch.Tensor, lr: float,
-                    max_change: float
+                    max_change: float, group=None
                     ) -> Tuple[torch.Tensor, torch.Tensor, NGState, NGState]:
     """Factored NG-SGD update of an affine layer: the same as
     ``fused_ng_delta([x|1], d)`` + max-change clip + apply, with the bias
     column handled analytically and the [out, in] delta never formed.
     Returns (w', b', state_in', state_out'); statistics accumulate in
-    f32 whatever the stored dtype of x and d."""
-    n = x.shape[0]
+    f32 whatever the stored dtype of x and d.  With a group, x and d are
+    this rank's rows and the row sums and samples the group's, in one
+    all-reduce."""
+    offset, n = row_span(x.shape[0], group)
     x32, d32 = x.to(torch.float32), d.to(torch.float32)
-    g_w = d32.T @ x32
-    g_b = d32.sum(dim=0)
     u_i, u_o = state_in.u, state_out.u
     u_iw, u_ib = u_i[:, :-1], u_i[:, -1]
     a_i, c_i, _ = ng_in.factors(state_in)
     a_o, c_o, _ = ng_out.factors(state_out)
     p_in = x32 @ u_iw.T + u_ib[None, :]                 # [N, Ri]
     p_out = d32 @ u_o.T                                 # [N, Ro]
-    x_sq = (x32 * x32).sum() + n                        # + ones column
-    d_sq = (d32 * d32).sum()
-    gamma_in = ng_in.gamma(a_i, c_i, x_sq, (p_in * p_in).sum(dim=0))
-    gamma_out = ng_out.gamma(a_o, c_o, d_sq, (p_out * p_out).sum(dim=0))
+    g_w, g_b, x_sq, d_sq, pp_in, pp_out, xs, ds = reduce_sum([
+        d32.T @ x32, d32.sum(dim=0),
+        (x32 * x32).sum() + x.shape[0],                 # + ones column
+        (d32 * d32).sum(), (p_in * p_in).sum(dim=0),
+        (p_out * p_out).sum(dim=0),
+        strided_rows(x32, n, ng_in.rank, offset, group),
+        strided_rows(d, n, ng_out.rank, offset, group)], group)
+    gamma_in = ng_in.gamma(a_i, c_i, x_sq, pp_in)
+    gamma_out = ng_out.gamma(a_o, c_o, d_sq, pp_out)
     gu_i = g_w @ u_iw.T + g_b[:, None] * u_ib[None, :]  # [out, Ri]
     uo_gw = u_o @ g_w                                   # [Ro, in]
     uo_gb = u_o @ g_b                                   # [Ro]
@@ -229,9 +250,7 @@ def ng_affine_apply(ng_in: OnlineNaturalGradient,
     step = lr * scale * gamma
     w_new = w + step * (A * g_w + P @ u_iw + u_o.T @ q_w)
     b_new = b + step * (A * g_b + P @ u_ib + u_o.T @ q_b)
-    xs = ng_in.sample_rows(x32)
     xs = torch.cat([xs, xs.new_ones((xs.shape[0], 1))], dim=1)
-    ds = ng_out.sample_rows(d)
     new_in = ng_in.maybe_update_from_sample(state_in, xs, x_sq / n)
     new_out = ng_out.maybe_update_from_sample(state_out, ds, d_sq / n)
     return w_new, b_new, new_in, new_out
@@ -240,17 +259,20 @@ def ng_affine_apply(ng_in: OnlineNaturalGradient,
 def fused_ng_delta(ng_in: OnlineNaturalGradient,
                    ng_out: OnlineNaturalGradient,
                    state_in: NGState, state_out: NGState,
-                   x: torch.Tensor, d: torch.Tensor
+                   x: torch.Tensor, d: torch.Tensor, group=None
                    ) -> Tuple[torch.Tensor, NGState, NGState]:
     """delta = precondition(d)^T @ precondition(x) without forming either
     preconditioned [N, dim] matrix.  Returns (delta [out, in],
-    state_in', state_out')."""
+    state_in', state_out').  With a group, x and d are this rank's rows
+    and the statistics the group's."""
+    offset, n = row_span(x.shape[0], group)
     x32, d32 = x.to(torch.float32), d.to(torch.float32)
-    g = d32.T @ x32
     p_in = x32 @ state_in.u.T
     p_out = d32 @ state_out.u.T
-    return ng_delta_from_stats(
-        ng_in, ng_out, state_in, state_out, g,
-        (x32 * x32).sum(), (p_in * p_in).sum(dim=0),
+    stats = reduce_sum([
+        d32.T @ x32, (x32 * x32).sum(), (p_in * p_in).sum(dim=0),
         (d32 * d32).sum(), (p_out * p_out).sum(dim=0),
-        ng_in.sample_rows(x), ng_out.sample_rows(d), x.shape[0])
+        strided_rows(x, n, ng_in.rank, offset, group),
+        strided_rows(d, n, ng_out.rank, offset, group)], group)
+    return ng_delta_from_stats(ng_in, ng_out, state_in, state_out, *stats,
+                               n)

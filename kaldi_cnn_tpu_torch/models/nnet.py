@@ -13,7 +13,11 @@ decodable-am-nnet.cc).
 The backprop is the components' own, by hand, under ``torch.no_grad``;
 the parameters live in the modules and each step updates them in place.
 The train step's objf comes back as a device scalar, so a training loop
-need not wait for the card at every step.
+need not wait for the card at every step.  Given a process ``group``, it
+is the data-parallel (mode A) step: ``x`` is this rank's row slice of
+the global minibatch, the objective's sums and every update's row sums
+span the group, and each rank computes the single-process step of the
+global minibatch.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from kaldi_cnn_tpu_torch.core.mesh import reduce_sum
 from kaldi_cnn_tpu_torch.models.components import (
     Conv2DComponent, IdentityComponent, Maxpooling3DComponent,
     SliceParallelComponent)
@@ -183,7 +188,7 @@ class Nnet(nn.Module):
 
     @torch.no_grad()
     def _backward_update(self, opt, acts, auxs, out_deriv, lr,
-                         store_dtype=torch.float32) -> Tuple:
+                         store_dtype=torch.float32, group=None) -> Tuple:
         """Backward walk from the derivative at the network output with
         the NG-SGD update of every trainable component (the reference's
         NnetUpdater::Backprop).  A component's backprop runs before its
@@ -196,30 +201,34 @@ class Nnet(nn.Module):
                         if i > 0 else None)
             if c.trainable:
                 new_opt[i] = c.update(opt[i], acts[i], deriv, lr,
-                                      self.ng_in, self.ng_out)
+                                      self.ng_in, self.ng_out, group)
             if in_deriv is not None:
                 deriv = in_deriv.to(store_dtype)
         return tuple(new_opt)
 
     @torch.no_grad()
     def train_step(self, opt, x: torch.Tensor, labels: torch.Tensor,
-                   lr: float, weights: Optional[torch.Tensor] = None):
+                   lr: float, weights: Optional[torch.Tensor] = None,
+                   group=None):
         """One minibatch update of the parameters in place.  x [N, D],
-        labels [N] int, optional weights [N].  Returns (opt', objf per
-        frame as a device scalar)."""
+        labels [N] int, optional weights [N]; with a process ``group``,
+        this rank's rows of the group's minibatch.  Returns (opt', objf
+        per frame as a device scalar)."""
         sd = _storage_dtype(self.train_storage_dtype)
         out, acts, auxs = self.train_forward(x, sd)
         if weights is None:
             weights = torch.ones(x.shape[0], device=x.device)
         post = torch.clamp_min(out.to(torch.float32), 1e-20)
         picked = post.gather(1, labels.long()[:, None])[:, 0]
-        wsum = torch.clamp_min(weights.sum(), 1e-8)
-        objf = (torch.log(picked) * weights).sum() / wsum
+        num, wsum = reduce_sum([(torch.log(picked) * weights).sum(),
+                                weights.sum()], group)
+        wsum = torch.clamp_min(wsum, 1e-8)
+        objf = num / wsum
         # derivative of sum_n w_n log out[n, label_n] / wsum wrt out
         out_deriv = torch.zeros_like(post).scatter_(
             1, labels.long()[:, None], (weights / wsum / picked)[:, None])
         return self._backward_update(opt, acts, auxs, out_deriv, lr,
-                                     sd), objf
+                                     sd, group), objf
 
     @torch.no_grad()
     def objf(self, x: torch.Tensor, labels: torch.Tensor,

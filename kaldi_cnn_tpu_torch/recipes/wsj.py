@@ -123,6 +123,33 @@ def make_cnn_egs(volumes: Dict[str, np.ndarray],
     return Egs(x[perm], y[perm], np.ones(len(y), np.float32))
 
 
+def write_cnn_egs_sharded(out_dir: str, volumes: Dict[str, np.ndarray],
+                          alignments: Dict[str, np.ndarray],
+                          tid_to_pdf: np.ndarray,
+                          left_context: int = 5, right_context: int = 5,
+                          num_shards: int = 8, seed: int = 0):
+    """Streaming variant of make_cnn_egs: per-utterance spliced blocks
+    go straight to an on-disk sharded store — peak memory is one
+    utterance + one shard, never the corpus (ref: steps/nnet2/get_egs.sh
+    sharding + nnet-shuffle-egs; the scalable path for the 960h-style
+    config)."""
+    from kaldi_cnn_tpu_torch.train.sharded_egs import ShardedEgsWriter
+    w = ShardedEgsWriter(out_dir, num_shards, seed)
+    for utt in sorted(volumes):
+        if utt not in alignments:
+            continue
+        v = volumes[utt]
+        ali = np.asarray(alignments[utt])
+        if len(ali) != v.shape[0]:
+            continue
+        T = v.shape[0]
+        idx = np.clip(np.arange(T)[:, None]
+                      + np.arange(-left_context,
+                                  right_context + 1)[None], 0, T - 1)
+        w.add(v[idx].reshape(T, -1), tid_to_pdf[ali])
+    return w.finalize()
+
+
 def split_valid(egs: Egs):
     """(train, valid): the first max(N // 20, 256) shuffled egs
     validate, as the recipe splits them."""

@@ -165,15 +165,18 @@ def combine_models(net: Nnet, param_list: List[Params], egs_valid: Egs,
         return mix(logits)
 
 
-def train_nnet(net: Nnet, egs_train: Egs, egs_valid: Egs,
-               cfg: Optional[TrainConfig] = None) -> Tuple:
+def train_nnet(net: Nnet, egs_train: Optional[Egs], egs_valid: Egs,
+               cfg: Optional[TrainConfig] = None, batcher=None) -> Tuple:
     """Initializes ``net`` from ``cfg.seed``, trains it on its device and
-    leaves the final parameters in it.  Returns (final params in the JAX
-    pytree layout, opt state)."""
+    leaves the final parameters in it.  ``batcher`` overrides the
+    in-memory ``EgsBatcher``, e.g. a ``train.sharded_egs``
+    ``StreamingEgsBatcher`` over shards on disk (then ``egs_train`` may
+    be None).  Returns (final params in the JAX pytree layout, opt
+    state)."""
     cfg = cfg or TrainConfig()
     net.init(torch_generator(cfg.seed, "init"))
     opt = net.init_opt()
-    batcher = EgsBatcher(egs_train, cfg.minibatch_size, cfg.seed)
+    batcher = batcher or EgsBatcher(egs_train, cfg.minibatch_size, cfg.seed)
     total_iters = cfg.num_epochs * batcher.num_batches()
     dev = net.device
     it = 0

@@ -724,3 +724,37 @@ def test_rm_dnn_loglikes_on_card_match_cpu(cuda, rows):
     want = am_cpu.loglikes_batch({"u": x})["u"]
     assert got.shape == (rows, num_pdfs) and np.isfinite(got).all()
     np.testing.assert_allclose(got, want, rtol=0, atol=5e-2)
+
+
+# ---- data parallelism on the card (two gloo ranks on the one card) -------
+
+# the Librispeech recipe's net: 11x36x3 volumes, conv 4x7 with F = 48,
+# pool 2x3, 2 x (Affine 800 -> Pnorm 160 -> Normalize), 300 pdfs
+LIBRI_CFG = dict(in_t=11, in_f=36, in_c=3, filt_t=4, filt_f=7,
+                 num_filters=48, pool_t=2, pool_f=3, pool_c=1,
+                 num_hidden_layers=2, pnorm_input_dim=800,
+                 pnorm_output_dim=160, num_pdfs=300)
+LIBRI_LR = 0.08
+DP_PARAM_REL = 1e-3   # the smoke's card-vs-replay training limits
+DP_OBJF_ATOL = 1e-3
+
+
+@pytest.mark.parametrize("replicas", [1, 2])
+def test_two_ranks_on_the_card_match_world_size_one(cuda, replicas):
+    """Two gloo ranks with CUDA tensors on the one card (NCCL refuses two
+    ranks on one GPU), at the Librispeech recipe's net width, 3 steps: in
+    mode A each holds half of a 256-row minibatch and they give the
+    single-process steps on the whole of it; as two replicas each steps
+    on its half and the average gives the mean of the two single-process
+    streams.  Objf 1e-3, parameters 1e-3 relative; the ranks bit-equal;
+    the maxpool kernels ran in both."""
+    from kaldi_cnn_tpu_torch.models.factory import ConvnetConfig
+    from kaldi_cnn_tpu_torch.parallel import rank_check
+    cfg = ConvnetConfig(**LIBRI_CFG)
+    res = rank_check.two_ranks_vs_one(
+        cfg, rank_check.seeded_case(cfg, 5, 256), 3, LIBRI_LR, replicas,
+        cuda)
+    assert res["ranks_equal"]
+    assert min(sum(res["launches"], ())) >= 3
+    assert res["objf_err"] <= DP_OBJF_ATOL
+    assert res["param_rel"] <= DP_PARAM_REL

@@ -1,0 +1,134 @@
+"""The port's data parallelism against the JAX package's on the same
+numpy inputs: ``shard_utterances`` and ``local_slice``, the model
+averages, the mode-A step of two gloo ranks against ``make_dp_step`` on
+the 8-device virtual mesh, and ``train_multihost`` over two ranks (mode
+A, and two replicas averaged every 2 steps) against JAX's
+``train_multihost`` on that mesh, at PERF.md's limits: objf 1e-3,
+parameters 1e-3 relative (Frobenius, a tensor)."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.sharding import Mesh as JMesh
+
+from kaldi_cnn_tpu.core.mesh import local_slice as j_local_slice
+from kaldi_cnn_tpu.core.mesh import make_mesh as j_make_mesh
+from kaldi_cnn_tpu.core.rng import stage_key
+from kaldi_cnn_tpu.models.factory import (ConvnetConfig as JCfg,
+                                          make_convnet as j_make_convnet)
+from kaldi_cnn_tpu.parallel import dp as jdp
+from kaldi_cnn_tpu.parallel import multihost as jmh
+from kaldi_cnn_tpu.train.egs import Egs as JEgs
+from kaldi_cnn_tpu.train.trainer import TrainConfig as JTrainConfig
+from kaldi_cnn_tpu_torch.core.mesh import local_slice
+from kaldi_cnn_tpu_torch.parallel import dp
+from kaldi_cnn_tpu_torch.parallel.multihost import (MultihostConfig,
+                                                    run_ranks,
+                                                    shard_utterances)
+from test_torch_ranks import (CFG, DIM, LR, RANK_TIMEOUT_S, STEPS,
+                              init_params, minibatch, mode_a_rank,
+                              multihost_rank)
+
+OBJF_ATOL = 1e-3
+PARAM_REL = 1e-3
+
+
+def assert_params_rel(got, want, rel=PARAM_REL):
+    for g, w in zip(got, jax.device_get(want), strict=True):
+        assert sorted(g) == sorted(w)
+        for k in g:
+            w_k = np.asarray(w[k], np.float64)
+            err = np.linalg.norm(np.asarray(g[k], np.float64) - w_k)
+            assert err <= rel * max(np.linalg.norm(w_k), 1e-30), (k, err)
+
+
+@pytest.mark.parametrize("n,procs", [(10, 3), (7, 2), (16, 4), (5, 1),
+                                     (0, 2)])
+def test_shard_utterances_and_local_slice_match_jax(n, procs):
+    utts = [f"u{(i * 7) % (n or 1):03d}-{i}" for i in range(n)]
+    for pid in range(procs):
+        cfg = dict(num_processes=procs, process_id=pid)
+        assert shard_utterances(utts, MultihostConfig(**cfg)) == \
+            jmh.shard_utterances(utts, jmh.MultihostConfig(**cfg))
+        assert local_slice(n, procs, pid) == j_local_slice(n, procs, pid)
+
+
+def test_averages_match_jax():
+    """average_params over a list, and stack_replicas / average_replicas
+    over a list of replicas where JAX stacks a leading axis."""
+    r = np.random.default_rng(2)
+    trees = [({"w": r.normal(size=(3, 4)).astype(np.float32),
+               "b": r.normal(size=3).astype(np.float32)}, {},
+              {"parts": ({"w": r.normal(size=(2, 2)).astype(np.float32)},
+                         {})}) for _ in range(3)]
+    got = dp.average_params([jax.tree_util.tree_map(torch.as_tensor, t)
+                             for t in trees])
+    want = jdp.average_params(trees)
+    for g, w in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(want), strict=True):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    stacked = dp.stack_replicas(trees[0], 3)
+    jstacked = jdp.stack_replicas(trees[0], 3)
+    for i, t in enumerate(stacked):
+        for g, w in zip(jax.tree_util.tree_leaves(t),
+                        jax.tree_util.tree_leaves(jstacked), strict=True):
+            np.testing.assert_array_equal(g, np.asarray(w)[i])
+    got = dp.average_replicas(trees)
+    want = jdp.average_replicas(jax.tree_util.tree_map(
+        lambda *xs: jnp.stack(xs), *trees))
+    for g, w in zip(jax.tree_util.tree_leaves(got),
+                    jax.tree_util.tree_leaves(want), strict=True):
+        np.testing.assert_allclose(g, np.asarray(w), rtol=1e-6, atol=1e-7)
+
+
+def test_mode_a_two_ranks_match_jax_dp_step():
+    """Three mode-A steps: two gloo ranks each holding half of the
+    minibatch against JAX's make_dp_step sharding it over 8 virtual
+    devices, from the same initial weights."""
+    init = init_params()
+    x, y, w = minibatch()
+    ranks = run_ranks(mode_a_rank, 2, init, x, y, w, STEPS,
+                      timeout_s=RANK_TIMEOUT_S)
+    jnet = j_make_convnet(JCfg(**CFG))
+    step = jdp.make_dp_step(jnet, j_make_mesh())
+    params, opt, objfs = init, jnet.init_opt(), []
+    for _ in range(STEPS):
+        params, opt, objf = step(params, opt, x, y, LR, weights=w)
+        objfs.append(float(objf))
+    for p, _, o in ranks:
+        np.testing.assert_allclose(o, objfs, rtol=0, atol=OBJF_ATOL)
+        assert_params_rel(p, params)
+
+
+@pytest.mark.parametrize("replicas,average_every", [(1, 0), (2, 2)])
+def test_train_multihost_two_ranks_match_jax(replicas, average_every):
+    """train_multihost for 2 epochs of 4 minibatches of 64 rows: two
+    ranks in mode A (one replica), or two replicas of one rank averaged
+    every 2 steps, against JAX's train_multihost on the 8-device mesh
+    laid out as (replicas, 8 / replicas), the port's init replaced by
+    the JAX init."""
+    r = np.random.default_rng(11)
+    centers = r.normal(size=(CFG["num_pdfs"], DIM)).astype(np.float32)
+    y = r.integers(0, CFG["num_pdfs"], 200).astype(np.int32)
+    x = (centers[y] + r.normal(size=(200, DIM))).astype(np.float32)
+    w = np.ones(200, np.float32)
+    tcfg = dict(num_epochs=2, minibatch_size=64, initial_learning_rate=0.05,
+                final_learning_rate=0.01, seed=4)
+    mh = dict(num_replicas=replicas, average_every=average_every)
+    jnet = j_make_convnet(JCfg(**CFG))
+    mesh = JMesh(np.array(jax.devices()[:8]).reshape(replicas, -1),
+                 ("replica", "data"))
+    jparams, _ = jmh.train_multihost(
+        jnet, JEgs(x, y, w), JEgs(x, y, w), JTrainConfig(**tcfg),
+        jmh.MultihostConfig(**mh), mesh=mesh)
+    jinit = jax.device_get(jnet.init(jax.random.PRNGKey(
+        int(stage_key(4, "init")[1]))))
+    (p0, o0), (p1, o1) = run_ranks(multihost_rank, 2, jinit, x, y, w, tcfg,
+                                   mh, timeout_s=RANK_TIMEOUT_S)
+    for p in (p0, p1):
+        assert_params_rel(p, jparams)
+    for a, b in zip(jax.tree_util.tree_leaves((p0, o0)),
+                    jax.tree_util.tree_leaves((p1, o1)), strict=True):
+        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))

@@ -132,11 +132,16 @@ def test_port_imports_without_jax():
         "name + '.')) and sys.modules[m] is not None]\n"
         "assert not loaded('jax'), loaded('jax')\n"
         "assert not loaded('kaldi_cnn_tpu'), loaded('kaldi_cnn_tpu')\n"
-        "print(len(mods))\n")
+        "print(' '.join(mods))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[-1]) >= 67
+    mods = set(out.stdout.split())
+    assert len(mods) >= 81
+    assert {f"kaldi_cnn_tpu_torch.{m}" for m in (
+        "core.mesh", "parallel", "parallel.dp", "parallel.multihost",
+        "parallel.rank_check", "recipes.librispeech",
+        "train.sharded_egs")} <= mods
 
 
 def _tiny_graph():
@@ -152,7 +157,7 @@ def _tiny_graph():
     "compute_fbank_volumes", "Conv2DComponent", "ng_init", "wsj.run",
     "compute_features", "mfcc FeatureExtractor", "make_pnorm_dnn",
     "OnlineBaseFeature", "OnlineRecognizer", "StreamingDecoder",
-    "swbd.run", "make_convnet_ivector"])
+    "swbd.run", "make_convnet_ivector", "librispeech.run"])
 def test_entry_points_default_to_the_card(entry):
     """Left without ``device``, the port's entry points run on the card;
     where there is none they raise, at construction or at the first call,
@@ -165,7 +170,7 @@ def test_entry_points_default_to_the_card(entry):
     from kaldi_cnn_tpu_torch.models.components import Conv2DComponent
     from kaldi_cnn_tpu_torch.models.factory import (make_convnet_ivector,
                                                     make_pnorm_dnn)
-    from kaldi_cnn_tpu_torch.recipes import swbd
+    from kaldi_cnn_tpu_torch.recipes import librispeech, swbd
     from kaldi_cnn_tpu_torch.models.ng_sgd import OnlineNaturalGradient
     from kaldi_cnn_tpu_torch.decode.topk_decoder import StreamingDecoder
     from kaldi_cnn_tpu_torch.online2 import (OnlineBaseFeature,
@@ -198,6 +203,8 @@ def test_entry_points_default_to_the_card(entry):
             TopKDecoder(_tiny_graph())),
         "swbd.run": lambda: swbd.run(num_speakers=2, utts_per_speaker=2,
                                      nnet_epochs=1),
+        "librispeech.run": lambda: librispeech.run(num_utts=4,
+                                                   nnet_epochs=1),
         "make_convnet_ivector": lambda: make_convnet_ivector(
             ConvnetConfig(**CFG), ivector_dim=4),
     }
