@@ -168,6 +168,28 @@ then runs these phases; any failure raises and the exit code is not 0.
    PARAM_REL, the two ranks bit-equal, the maxpool kernels launched in
    both.  Prints each stage's seconds, training audio-s/s, the
    all-reduce count and dev/test WER (not asserted).
+13. MMI (run right after phase 9, on phase 8's artifacts before they
+   are removed): ``train.discriminative.mmi_train_nnet`` on the card
+   over phase 8's trained WSJ CNN (F = 64, its priors, the triphone
+   HCLG) and the spliced fbank volumes and alignments of its first
+   MMI_UTTS training utterances, MMI_ITERS iterations: each utterance
+   scored by ``Nnet.predict`` (the wgmma conv+maxpool kernel), its
+   denominator lattice from the host ``lattice_decode`` (beam 60, lattice
+   beam 8, max_active 2000), then ``Nnet.discriminative_step`` (the
+   maxpool forward with argmax and the backward).  All three kernels
+   must launch in the phase, each frame's denominator occupancies must
+   sum to 1 within MMI_DEN_ATOL, every objf must be finite and the net's
+   NG update period must come back.  The first step is replayed on the
+   CPU from the card's parameters, NG states and posteriors before it:
+   objf within OBJF_STEP_ATOL, each parameter tensor within PARAM_REL.
+   Then an nnet2 chain at the MFCC width (Splice +-4 -> FixedAffine from
+   ``estimate_feature_transform`` -> Affine -> RectifiedLinear -> Affine
+   -> Tanh -> Affine -> Sigmoid -> Dropout -> Affine -> Softmax) is
+   written to a .mdl and read on the card and on the CPU: one
+   utterance's loglikes within LOGLIKE_ATOL, and one train step on the
+   card with a Dropout generator gives a finite objf.  Prints the
+   per-iteration objf (not asserted), the step's median ms, and the
+   phase's seconds.
 
 Output: the GPU's name and power limit (nvidia-smi), the build time, one
 line per check, the total seconds, a JSON line {"kernels": [...]} (for
@@ -175,7 +197,7 @@ each kernel its launches in the recipe run of phase 8, the whole main
 path, with each phase's count in ``launches_by_phase``, phase 9's as
 its recognizer run "streaming" and its two verb runs "verb_card" and
 "verb_host", phase 10's as "swbd", phase 11's as "rm", phase 12's as
-"librispeech"; error, ms,
+"librispeech", phase 13's as "mmi"; error, ms,
 plain_ms, bound_ms, bound_by, library_ms, graph_ms and library_graph_ms,
 at the main path's shapes, and the same at the Switchboard shapes under
 "swbd_f48...") and, last, the JSON line {"ok": true,
@@ -205,7 +227,8 @@ import torch.nn.functional as nnf
 
 from kaldi_cnn_tpu_torch import cli
 from kaldi_cnn_tpu_torch.cli_train import AdvanceRecorder
-from kaldi_cnn_tpu_torch.convert import params_from_jax, params_to_numpy
+from kaldi_cnn_tpu_torch.convert import (opt_from_jax, opt_to_numpy,
+                                         params_from_jax, params_to_numpy)
 from kaldi_cnn_tpu_torch.core import mesh as mesh_ops
 from kaldi_cnn_tpu_torch.core.rng import np_rng, torch_generator
 from kaldi_cnn_tpu_torch.decode import topk_decoder
@@ -217,15 +240,19 @@ from kaldi_cnn_tpu_torch.decode.topk_decoder import (StreamingDecoder,
                                                      TopKDecoder)
 from kaldi_cnn_tpu_torch.features import functional as F
 from kaldi_cnn_tpu_torch.gmm.train import align_equal
-from kaldi_cnn_tpu_torch.io.kaldi_model import write_gmm_model
+from kaldi_cnn_tpu_torch.io.kaldi_model import (read_am_nnet,
+                                                write_am_nnet,
+                                                write_gmm_model)
 from kaldi_cnn_tpu_torch.io.wave import write_wave
 from kaldi_cnn_tpu_torch.lang.arpa import make_unigram_arpa
 from kaldi_cnn_tpu_torch.lang.hclg import (Lang, compile_training_graph,
                                            make_hclg_from_arpa)
+from kaldi_cnn_tpu_torch.models import components as C
 from kaldi_cnn_tpu_torch.models.components import (
     AffineComponent, Conv2DComponent)
 from kaldi_cnn_tpu_torch.models.factory import ConvnetConfig, make_convnet
 from kaldi_cnn_tpu_torch.models.nnet import AmNnet, Nnet
+from kaldi_cnn_tpu_torch.models.utils import estimate_feature_transform
 from kaldi_cnn_tpu_torch.online2 import (OnlineCmvn, OnlineFeaturePipeline,
                                          OnlineRecognizer, StreamingSplicer)
 from kaldi_cnn_tpu_torch.ops import common
@@ -238,6 +265,7 @@ from kaldi_cnn_tpu_torch.parallel import rank_check
 from kaldi_cnn_tpu_torch.recipes import (librispeech, rm, swbd, synthetic,
                                          wsj, yesno)
 from kaldi_cnn_tpu_torch.train.checkpoint import load_checkpoint
+from kaldi_cnn_tpu_torch.train.discriminative import mmi_train_nnet
 
 SEED = 37
 FBANK_ATOL = 1e-3         # log-mel and log energy, kernel vs plain (f32)
@@ -276,9 +304,10 @@ STREAM_CHUNK_S = 0.2
 STREAM_COST_ABS = 1e-2
 # the Switchboard recipe (swbd.run, phase 10) at the recipe's own size and
 # width: 24 speakers x 7 utterances, F = 48, iVector 12, pnorm 800/160;
-# its depth cut from 25 epochs so that the script with phase 12 stays
-# near half its time limit
-SWBD_EPOCHS = 12
+# its depth cut from 25 epochs so that the script with phases 12 and 13
+# stays near half its time limit (an epoch ~1.2 s of nnet_train on the
+# card; 8 epochs give back what phase 13 takes)
+SWBD_EPOCHS = 8
 # the RM recipe (rm.run, phase 11) at its own widths (seed 29, pnorm
 # 800/160 on 180-dim fMLLR rows, 25 epochs), its depth cut from 140
 # utterances for the same reason (its host GMM chain grows with them)
@@ -299,6 +328,14 @@ LIBRI_KEYS = {"wer", "errors", "words", "sub", "ins", "del", "missing_utts",
 # two ranks on one GPU): mode-A steps, and replica steps with one average
 DP_STEPS = 4
 DP_ROWS = 256
+# MMI (phase 13) on phase 8's trained CNN: mmi_train_nnet over the first
+# MMI_UTTS training utterances for MMI_ITERS iterations at the JAX
+# function's learning rate, and an nnet2 chain (.mdl) at the MFCC width
+MMI_UTTS = 6
+MMI_ITERS = 2
+MMI_LR = 0.002
+MMI_DEN_ATOL = 1e-3       # each frame's denominator occupancies sum to 1
+CHAIN_HIDDEN = 512
 # published H100 SXM peaks (NVIDIA data sheet, dense) for bound_ms
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -1618,6 +1655,164 @@ def two_rank_phase(num_pdfs):
                                  "world size 1")
 
 
+def nnet2_chain(mfcc, ali, t2p, num_pdfs, dev):
+    """The nnet2 chain at the WSJ MFCC width on ``dev``: Splice +-4 ->
+    FixedAffine (estimate_feature_transform on the spliced frames of
+    ``mfcc`` labeled by the pdfs of ``ali``) -> Affine -> RectifiedLinear
+    -> Affine -> Tanh -> Affine -> Sigmoid -> Dropout -> Affine ->
+    Softmax, CHAIN_HIDDEN wide, seeded weights."""
+    keys = [u for u in sorted(mfcc) if u in ali
+            and len(ali[u]) == len(mfcc[u])]
+    x = np.concatenate([F.splice_frames(mfcc[u], 4, 4) for u in keys])
+    y = np.concatenate([t2p[ali[u]] for u in keys])
+    d_in, h = mfcc[keys[0]].shape[1], CHAIN_HIDDEN
+    ft = estimate_feature_transform(x, y, device=dev)
+    net = Nnet([C.SpliceComponent(d_in, 4, 4), ft,
+                C.AffineComponent(9 * d_in, h, device=dev),
+                C.RectifiedLinearComponent(h),
+                C.AffineComponent(h, h, device=dev), C.TanhComponent(h),
+                C.AffineComponent(h, h, device=dev), C.SigmoidComponent(h),
+                C.DropoutComponent(h, 0.2),
+                C.AffineComponent(h, num_pdfs, param_stddev=1.0 / h ** 0.5,
+                                  device=dev),
+                C.SoftmaxComponent(num_pdfs)])
+    return net.init(torch_generator(SEED, "nnet2_chain")), keys
+
+
+def mmi_phase(dev, exp_dir, tmp, word_probs):
+    """Phase 13: sequence-discriminative training of phase 8's CNN on the
+    card (``mmi_train_nnet``: Nnet.predict with the fused conv+maxpool
+    kernel, the host lattice_decode, discriminative_step with the maxpool
+    kernels), one of its steps replayed on the CPU, and an nnet2 chain
+    written to a .mdl, read on the card and on the CPU and trained one
+    step on the card.  Returns the kernels' launches in mmi_train_nnet."""
+    t_phase = time.perf_counter()
+    _, ali, tri = load_stage(exp_dir, "gmm_bootstrap")
+    vol_tr = load_stage(exp_dir, "fbank")[0]
+    egs_train, _ = wsj.split_valid(load_stage(exp_dir, "egs"))
+    t2p = tri.trans_model.trans_id_to_pdf_array()
+    num_pdfs = tri.trans_model.num_pdfs
+    hclg = CompiledGraph(make_hclg_from_arpa(tri, make_unigram_arpa(
+        word_probs)), t2p)
+    net = make_convnet(wsj.model_config(36, num_pdfs), fused=True,
+                       device=dev)
+    params_from_jax(net, load_stage(exp_dir, "nnet_train"))
+    am = wsj.acoustic_model(net, egs_train, num_pdfs)
+    keys = [u for u in sorted(vol_tr) if u in ali
+            and len(ali[u]) == len(vol_tr[u])][:MMI_UTTS]
+    utts = [(wsj.splice_volume(vol_tr[u], wsj.CONTEXT, wsj.CONTEXT),
+             t2p[ali[u]]) for u in keys]
+    frames = sum(len(a) for _, a in utts)
+
+    # each step: its denominator's row sums and its seconds; the first
+    # step's parameters and NG states before and after, for the replay
+    steps, first = [], {}
+    step = net.discriminative_step
+
+    def recorded(opt, x, num, den, lr, **kw):
+        if not first:
+            first.update(params=copy.deepcopy(params_to_numpy(net)),
+                         opt=opt_to_numpy(opt), x=x.cpu(), num=num.cpu(),
+                         den=den.cpu(), lr=lr,
+                         period=net.ng_in.update_period)
+        sums = den.sum(dim=1).cpu().numpy()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(opt, x, num, den, lr, **kw)
+        torch.cuda.synchronize()
+        steps.append((len(x), time.perf_counter() - t, sums))
+        if "objf" not in first:
+            first.update(objf=float(out[1]),
+                         after=copy.deepcopy(params_to_numpy(net)))
+        return out
+
+    net.discriminative_step = recorded
+    reset_launches()
+    t = time.perf_counter()
+    _, history = mmi_train_nnet(net, net.init_opt(), utts, hclg, t2p,
+                                am.priors, num_iters=MMI_ITERS,
+                                learning_rate=MMI_LR, device=dev)
+    torch.cuda.synchronize()
+    mmi_s = time.perf_counter() - t
+    launches = read_launches()
+    del net.discriminative_step
+    den_err = max(float(np.abs(s - 1.0).max()) for _, _, s in steps)
+    step_ms = [1e3 * sec / n for n, sec, _ in steps]
+    log(f"mmi: mmi_train_nnet on phase 8's CNN (F = 64, {num_pdfs} pdfs), "
+        f"{len(utts)} training utterances ({frames} frames), {MMI_ITERS} "
+        f"iterations, lr {MMI_LR}: {mmi_s:.3f} s; objf history "
+        f"{[round(h, 5) for h in history]} (not asserted); "
+        f"discriminative_step {np.median([1e3 * sec for _, sec, _ in steps]):.3f} "
+        f"ms median a step ({np.median(step_ms):.4f} ms a frame, "
+        f"{len(steps)} steps of {min(n for n, _, _ in steps)}-"
+        f"{max(n for n, _, _ in steps)} frames); denominator row sums max "
+        f"|1 - sum| {den_err:.3g} (limit {MMI_DEN_ATOL}); launches "
+        f"{launches}")
+    need = ("conv_maxpool", "maxpool_fwd_vec", "maxpool_bwd")
+    if min(launches[k] for k in need) <= 0:
+        raise AssertionError(f"a kernel did not run in the MMI phase: "
+                             f"{launches}")
+    if (len(steps) != MMI_ITERS * len(utts) or den_err > MMI_DEN_ATOL
+            or len(history) != MMI_ITERS or not np.isfinite(history).all()):
+        raise AssertionError(f"the MMI phase's result is malformed: "
+                             f"{len(steps)} steps, history {history}, "
+                             f"den error {den_err}")
+    if net.ng_in.update_period != 16:
+        raise AssertionError("mmi_train_nnet kept its update period")
+
+    # ---- the first step replayed on the CPU ------------------------------
+    cpu = make_convnet(wsj.model_config(36, num_pdfs), device="cpu")
+    params_from_jax(cpu, first["params"])
+    cpu.ng_in.update_period = cpu.ng_out.update_period = first["period"]
+    _, objf_c = cpu.discriminative_step(
+        opt_from_jax(first["opt"], "cpu"), first["x"], first["num"],
+        first["den"], first["lr"])
+    objf_err = abs(float(objf_c) - first["objf"])
+    rel = max(float(np.linalg.norm(a[k] - b[k]) / max(
+        np.linalg.norm(b[k]), 1e-30)) for a, b in zip(
+        first["after"], params_to_numpy(cpu)) for k in a)
+    log(f"mmi replay on cpu (step 1, {len(first['x'])} frames, update "
+        f"period {first['period']}): objf {first['objf']:.6f} vs "
+        f"{float(objf_c):.6f}, |diff| {objf_err:.3g} (limit "
+        f"{OBJF_STEP_ATOL}); params max relative Frobenius diff {rel:.3g} "
+        f"(limit {PARAM_REL})")
+    if objf_err > OBJF_STEP_ATOL or rel > PARAM_REL:
+        raise AssertionError("the card's MMI step disagrees with the CPU "
+                             "replay")
+
+    # ---- an nnet2 chain through a .mdl -------------------------------------
+    mfcc = load_stage(exp_dir, "mfcc")
+    chain, ckeys = nnet2_chain(mfcc, ali, t2p, num_pdfs, dev)
+    path = os.path.join(tmp, "nnet2_chain.mdl")
+    write_am_nnet(path, tri.trans_model, chain, None, am.priors)
+    _, net_card, _, priors = read_am_nnet(path, device=dev)
+    _, net_cpu, _, _ = read_am_nnet(path, device="cpu")
+    am_card, am_cpu = AmNnet(net_card, num_pdfs), AmNnet(net_cpu, num_pdfs)
+    am_card.priors = am_cpu.priors = np.asarray(priors, np.float64)
+    u = ckeys[0]
+    ll, ll_c = am_card.loglikes(mfcc[u]), am_cpu.loglikes(mfcc[u])
+    ll_err = float(np.abs(ll - ll_c).max())
+    opt = net_card.init_opt()
+    _, objf = net_card.train_step(
+        opt, torch.as_tensor(mfcc[u], device=dev),
+        torch.as_tensor(t2p[ali[u]], device=dev), 0.01,
+        generator=torch_generator(SEED, "train_step", 0, dev))
+    objf = float(objf)
+    log(f"mmi nnet2 chain: "
+        + " -> ".join(type(c).__name__.replace("Component", "")
+                      for c in net_card.components)
+        + f" ({mfcc[u].shape[1]}-dim MFCC, hidden {CHAIN_HIDDEN}) through "
+        f"{os.path.basename(path)}: loglikes card vs cpu on {u} "
+        f"({len(ll)} frames) max |diff| {ll_err:.3g} (limit {LOGLIKE_ATOL}); "
+        f"one train step on the card with a generator: objf {objf:.4f}")
+    if (ll.shape != (len(mfcc[u]), num_pdfs) or not np.isfinite(ll).all()
+            or ll_err > LOGLIKE_ATOL or not np.isfinite(objf)):
+        raise AssertionError("the nnet2 chain's .mdl disagrees between the "
+                             "card and the CPU, or its step failed")
+    log(f"mmi phase: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def stream_rows(stream, rows):
     """``rows`` fed to ``stream`` in the frame counts of STREAM_CHUNK_S
     chunks; its final (tids, words, cost)."""
@@ -1876,6 +2071,10 @@ def main() -> int:
         stream_launches = streaming_phase(dev, os.path.join(tmp, "wsj"), tmp,
                                           wsj.split_corpus(recipe_corpus)[2])
         log(f"streaming phase: {time.perf_counter() - t:.1f} s")
+
+        # ---- 13. MMI on phase 8's artifacts (before they go) -------------
+        mmi_launches = mmi_phase(dev, os.path.join(tmp, "wsj"), tmp,
+                                 recipe_corpus.word_probs)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -1904,7 +2103,7 @@ def main() -> int:
         "train": {**train_launches, "maxpool_fwd_scalar": scalar_launches},
         "recipe": recipe_launches, "recipe_mfcc_stage": {"fbank_fft": mfcc_n},
         **stream_launches, "swbd": swbd_launches, "rm": rm_launches,
-        "librispeech": libri_launches}
+        "librispeech": libri_launches, "mmi": mmi_launches}
 
     def entry(name, source, replaces, n, r, pre=""):
         return {"name": name, "route": "cuda",

@@ -5,9 +5,12 @@
 port's modules, so both packages compute the same function.  Both keep
 ``w [out, in]`` and ``b [out]``, so the copy is one to one; a
 ``SliceParallelComponent``'s entry nests as ``{"parts": (one dict a
-part)}``.  ``opt_from_jax``/``opt_to_numpy`` do the same for
-``Nnet.init_opt``'s tuple of per-component ``{"ng_in", "ng_out"}`` NG
-states (``{}`` untrained, ``{"parts": (...)}`` for a slice).
+part)}``; a ``FixedAffineComponent``'s ``w``/``b`` (buffers in the
+port, leaves of the pytree in the JAX package) are carried too, and the
+components without parameters take ``{}``.
+``opt_from_jax``/``opt_to_numpy`` do the same for ``Nnet.init_opt``'s
+tuple of per-component ``{"ng_in", "ng_out"}`` NG states (``{}``
+untrained, ``{"parts": (...)}`` for a slice).
 """
 
 from __future__ import annotations
@@ -17,18 +20,27 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from kaldi_cnn_tpu_torch.models.components import map_tree, param_tree
+from kaldi_cnn_tpu_torch.models.components import (
+    FixedAffineComponent, map_tree, param_tree)
 from kaldi_cnn_tpu_torch.models.ng_sgd import NGState
 from kaldi_cnn_tpu_torch.models.nnet import AmNnet, Nnet
 
 
+def _tree(c, leaf):
+    """``param_tree``, with a FixedAffineComponent's buffers as its
+    parameters (the JAX package keeps them in the pytree)."""
+    if isinstance(c, FixedAffineComponent):
+        return {k: leaf(k, t) for k, t in c.named_buffers()}
+    return param_tree(c, leaf)
+
+
 def _load_component(c, p, where: str) -> None:
     names = map_tree(p, lambda k, _: k)
-    want = param_tree(c, lambda k, _: k)
+    want = _tree(c, lambda k, _: k)
     if names != want:
         raise ValueError(f"{where} ({type(c).__name__}): params {names}, "
                          f"want {want}")
-    own = dict(c.named_parameters())
+    own = {**dict(c.named_parameters()), **dict(c.named_buffers())}
 
     def copy(name, value):
         src = torch.from_numpy(np.array(value, np.float32))
@@ -59,7 +71,7 @@ def params_from_jax(net: Union[Nnet, AmNnet],
 
 def params_to_numpy(net: Nnet) -> Tuple[Dict, ...]:
     """The inverse of ``params_from_jax``: the JAX pytree layout."""
-    return tuple(param_tree(c, lambda _, t: t.detach().cpu().numpy())
+    return tuple(_tree(c, lambda _, t: t.detach().cpu().numpy())
                  for c in net.components)
 
 

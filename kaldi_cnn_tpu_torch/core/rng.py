@@ -26,10 +26,11 @@ def np_rng(base_seed: int, stage: str, index: int = 0
     return np.random.default_rng(stage_seed(base_seed, stage, index))
 
 
-def torch_generator(base_seed: int, stage: str, index: int = 0
-                    ) -> torch.Generator:
-    """A CPU generator for the stage: noise drawn from it is the same
-    whichever device it is moved to."""
-    g = torch.Generator()
+def torch_generator(base_seed: int, stage: str, index: int = 0,
+                    device="cpu") -> torch.Generator:
+    """A generator for the stage.  On the CPU (the default), noise drawn
+    from it is the same whichever device it is moved to; on a CUDA
+    device it draws there (another stream than the CPU's)."""
+    g = torch.Generator(device=device)
     g.manual_seed(stage_seed(base_seed, stage, index))
     return g

@@ -15,11 +15,9 @@ the CPU) and load their parameters through ``convert.params_from_jax``;
 a ``<Conv2DComponent>`` is built with ``fused=True``, so
 ``Nnet.predict`` runs it with the next maxpool as the fused
 conv+maxpool kernel.  The writers take the parameters from the modules
-(``convert.params_to_numpy``) unless they are given.  Components the
-port does not have yet (FixedAffine, Splice, Tanh, Sigmoid,
-RectifiedLinear, Dropout) raise ``NotImplementedError`` with their name
-when read: not ``ValueError``, which ``online2-wav-latgen`` takes to
-mean "not an nnet model".
+(``convert.params_to_numpy``) unless they are given.  Every component
+the JAX package serializes reads and writes here, with its tokens;
+neither package writes a ``SumGroupComponent``.
 """
 
 from __future__ import annotations
@@ -208,12 +206,6 @@ def read_transition_model(f) -> TransitionModel:
 # fork's Conv2DComponent/MaxpoolingComponent get fork-shaped tokens)
 # --------------------------------------------------------------------------
 
-# the JAX package's components that the port does not have yet
-UNPORTED_COMPONENTS = ("FixedAffineComponent", "SpliceComponent",
-                       "TanhComponent", "SigmoidComponent",
-                       "RectifiedLinearComponent", "DropoutComponent")
-
-
 def _write_component(f, comp, params: Dict[str, Any]) -> None:
     from kaldi_cnn_tpu_torch.models import components as C
     if isinstance(comp, C.AffineComponent):
@@ -225,6 +217,22 @@ def _write_component(f, comp, params: Dict[str, Any]) -> None:
         write_token(f, "<BiasParams>")
         write_fv(f, np.asarray(params["b"], np.float32))
         write_token(f, "</AffineComponent>")
+    elif isinstance(comp, C.FixedAffineComponent):
+        write_token(f, "<FixedAffineComponent>")
+        write_token(f, "<LinearParams>")
+        write_fm(f, np.asarray(params["w"], np.float32))
+        write_token(f, "<BiasParams>")
+        write_fv(f, np.asarray(params["b"], np.float32))
+        write_token(f, "</FixedAffineComponent>")
+    elif isinstance(comp, C.SpliceComponent):
+        write_token(f, "<SpliceComponent>")
+        write_token(f, "<InputDim>")
+        _write_int32(f, comp.input_dim)
+        write_token(f, "<LeftContext>")
+        _write_int32(f, comp.left_context)
+        write_token(f, "<RightContext>")
+        _write_int32(f, comp.right_context)
+        write_token(f, "</SpliceComponent>")
     elif isinstance(comp, C.PnormComponent):
         write_token(f, "<PnormComponent>")
         write_token(f, "<InputDim>")
@@ -244,6 +252,28 @@ def _write_component(f, comp, params: Dict[str, Any]) -> None:
         write_token(f, "<Dim>")
         _write_int32(f, comp.dim)
         write_token(f, "</SoftmaxComponent>")
+    elif isinstance(comp, C.TanhComponent):
+        write_token(f, "<TanhComponent>")
+        write_token(f, "<Dim>")
+        _write_int32(f, comp.dim)
+        write_token(f, "</TanhComponent>")
+    elif isinstance(comp, C.SigmoidComponent):
+        write_token(f, "<SigmoidComponent>")
+        write_token(f, "<Dim>")
+        _write_int32(f, comp.dim)
+        write_token(f, "</SigmoidComponent>")
+    elif isinstance(comp, C.RectifiedLinearComponent):
+        write_token(f, "<RectifiedLinearComponent>")
+        write_token(f, "<Dim>")
+        _write_int32(f, comp.dim)
+        write_token(f, "</RectifiedLinearComponent>")
+    elif isinstance(comp, C.DropoutComponent):
+        write_token(f, "<DropoutComponent>")
+        write_token(f, "<Dim>")
+        _write_int32(f, comp.dim)
+        write_token(f, "<DropoutProportion>")
+        write_float(f, comp.proportion)
+        write_token(f, "</DropoutComponent>")
     elif isinstance(comp, C.Conv2DComponent):
         write_token(f, "<Conv2DComponent>")
         for tok, v in (("<InT>", comp.in_t), ("<InF>", comp.in_f),
@@ -280,9 +310,6 @@ def _read_component(f, device):
     """-> (component on ``device``, params dict of numpy arrays)."""
     from kaldi_cnn_tpu_torch.models import components as C
     tok = _read_token(f)
-    if tok.strip("<>") in UNPORTED_COMPONENTS:
-        raise NotImplementedError(
-            f"{tok.strip('<>')} is not ported to kaldi_cnn_tpu_torch yet")
     if tok == "<AffineComponent>":
         expect_token(f, "<MaxChange>")
         max_change = read_float(f)
@@ -295,6 +322,22 @@ def _read_component(f, device):
                                  output_dim=w.shape[0],
                                  max_change=max_change, device=device)
         return comp, {"w": w, "b": b}
+    if tok == "<FixedAffineComponent>":
+        expect_token(f, "<LinearParams>")
+        w = read_fm(f)
+        expect_token(f, "<BiasParams>")
+        b = read_fv(f)
+        expect_token(f, "</FixedAffineComponent>")
+        comp = C.FixedAffineComponent(input_dim=w.shape[1],
+                                      output_dim=w.shape[0], device=device)
+        return comp, {"w": w, "b": b}
+    if tok == "<SpliceComponent>":
+        dim = _read_dim(f, "<InputDim>")
+        left = _read_dim(f, "<LeftContext>")
+        right = _read_dim(f, "<RightContext>")
+        expect_token(f, "</SpliceComponent>")
+        return C.SpliceComponent(input_dim=dim, left_context=left,
+                                 right_context=right), {}
     if tok == "<PnormComponent>":
         idim = _read_dim(f, "<InputDim>")
         odim = _read_dim(f, "<OutputDim>")
@@ -303,11 +346,20 @@ def _read_component(f, device):
         expect_token(f, "</PnormComponent>")
         return C.PnormComponent(input_dim=idim, output_dim=odim, p=p), {}
     simple = {"<NormalizeComponent>": C.NormalizeComponent,
-              "<SoftmaxComponent>": C.SoftmaxComponent}
+              "<SoftmaxComponent>": C.SoftmaxComponent,
+              "<TanhComponent>": C.TanhComponent,
+              "<SigmoidComponent>": C.SigmoidComponent,
+              "<RectifiedLinearComponent>": C.RectifiedLinearComponent}
     if tok in simple:
         dim = _read_dim(f, "<Dim>")
         expect_token(f, tok.replace("<", "</", 1))
         return simple[tok](dim=dim), {}
+    if tok == "<DropoutComponent>":
+        dim = _read_dim(f, "<Dim>")
+        expect_token(f, "<DropoutProportion>")
+        prop = read_float(f)
+        expect_token(f, "</DropoutComponent>")
+        return C.DropoutComponent(dim=dim, proportion=prop), {}
     if tok == "<Conv2DComponent>":
         vals = [_read_dim(f, t) for t in
                 ("<InT>", "<InF>", "<InC>", "<FiltT>", "<FiltF>",

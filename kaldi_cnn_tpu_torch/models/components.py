@@ -1,16 +1,25 @@
 """nnet2-style components as ``nn.Module``s.
 
-Twin of ``kaldi_cnn_tpu/models/components.py`` for the CNN recipes'
-components (the WSJ CNN's, and Identity and SliceParallel, which carry
-the Switchboard CNN's iVector around its conv front end): the forward
-pass (``forward``, and ``train_forward`` that also returns what the
-backward needs), ``backprop(in_value, out_value, out_deriv, aux) ->
-in_deriv``, and for the trainable Affine and Conv2D (and a
-SliceParallel holding one) ``init_opt``/``update`` with NG-SGD.  Field
-names and dims are the JAX package's; parameters are ``w [out, in]`` and
-``b [out]``.  Minibatches are [N, dim] rows, float32 or (stored
-activations in training) bfloat16; Conv2D and Maxpool3D read a row as a
-flattened (time, freq, channel) volume.
+Twin of ``kaldi_cnn_tpu/models/components.py``: every component of the
+JAX package (the CNN recipes' Conv2D, Maxpool3D, Affine, Pnorm,
+Normalize and Softmax; Identity and SliceParallel, which carry the
+Switchboard CNN's iVector around its conv front end; and the nnet2
+chain's Splice, FixedAffine, Tanh, Sigmoid, RectifiedLinear and
+Dropout): the forward pass (``forward``, and ``train_forward`` that also
+returns what the backward needs), ``backprop(in_value, out_value,
+out_deriv, aux) -> in_deriv``, and for the trainable Affine and Conv2D
+(and a SliceParallel holding one) ``init_opt``/``update`` with NG-SGD.
+Field names and dims are the JAX package's; parameters are ``w [out,
+in]`` and ``b [out]`` (FixedAffine keeps them as buffers: it is not
+trained).  Minibatches are [N, dim] rows, float32 or (stored activations
+in training) bfloat16; Conv2D and Maxpool3D read a row as a flattened
+(time, freq, channel) volume.
+
+``train_forward(x, generator=None, group=None)``: Dropout draws its mask
+from ``generator`` (it passes its input through without one, as the JAX
+component does without a key); under a process ``group`` it draws the
+mask of the group's whole minibatch and keeps this rank's rows, so that
+the data-parallel step equals the single-process step.
 
 ``update`` changes the parameters in place (the JAX package returns new
 ones): the caller takes the backprop through a component before it
@@ -66,7 +75,9 @@ class Component(nn.Module):
     def init(self, generator: torch.Generator) -> None:
         pass
 
-    def train_forward(self, x: torch.Tensor):
+    def train_forward(self, x: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      group=None):
         """(output, aux) for the backward."""
         return self(x), None
 
@@ -114,6 +125,142 @@ class AffineComponent(Component):
         self.w.copy_(w)
         self.b.copy_(b)
         return {"ng_in": opt_in, "ng_out": opt_out}
+
+
+class FixedAffineComponent(Component):
+    """Non-trainable affine, e.g. the LDA-like preprocessing transform
+    (ref: FixedAffineComponent from get-feature-transform).  ``w`` and
+    ``b`` are buffers: the trainer and the model average leave them
+    alone."""
+
+    def __init__(self, input_dim: int, output_dim: int, device="cuda"):
+        super().__init__()
+        self.input_dim, self.output_dim = input_dim, output_dim
+        self.register_buffer("w", torch.zeros(output_dim, input_dim,
+                                              device=device))
+        self.register_buffer("b", torch.zeros(output_dim, device=device))
+
+    @staticmethod
+    def from_matrix(mat: np.ndarray, bias: Optional[np.ndarray] = None,
+                    device="cuda") -> "FixedAffineComponent":
+        out_dim, in_dim = mat.shape
+        c = FixedAffineComponent(in_dim, out_dim, device=device)
+        c.w.copy_(torch.as_tensor(np.asarray(mat, np.float32)))
+        if bias is not None:
+            c.b.copy_(torch.as_tensor(np.asarray(bias, np.float32)))
+        return c
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x.to(self.w.dtype) @ self.w.T + self.b
+
+    def backprop(self, in_value, out_value, out_deriv, aux):
+        return out_deriv.to(self.w.dtype) @ self.w
+
+
+class TanhComponent(Component):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.tanh(x)
+
+    def backprop(self, in_value, out_value, out_deriv, aux):
+        return out_deriv * (1.0 - out_value * out_value)
+
+
+class SigmoidComponent(Component):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.sigmoid(x)
+
+    def backprop(self, in_value, out_value, out_deriv, aux):
+        return out_deriv * out_value * (1.0 - out_value)
+
+
+class RectifiedLinearComponent(Component):
+    def __init__(self, dim: int):
+        super().__init__()
+        self.dim = dim
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return torch.clamp_min(x, 0.0)
+
+    def backprop(self, in_value, out_value, out_deriv, aux):
+        return out_deriv * (out_value > 0.0).to(out_deriv.dtype)
+
+
+class DropoutComponent(Component):
+    """Zeroes a ``proportion`` of the units in training and scales the
+    rest by 1 / keep; the eval forward passes its input through."""
+
+    def __init__(self, dim: int, proportion: float = 0.5):
+        super().__init__()
+        self.dim, self.proportion = dim, proportion
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return x
+
+    def train_forward(self, x: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      group=None):
+        """(x * mask, mask), the mask in x's dtype (the storage dtype in
+        training, as in the JAX package); (x, None) without a generator
+        or at proportion 0.  Under ``group`` the uniforms are drawn for
+        the group's whole minibatch and this rank keeps its rows."""
+        if generator is None or self.proportion <= 0.0:
+            return x, None
+        keep = 1.0 - self.proportion
+        offset, n_all = row_span(x.shape[0], group)
+        u = torch.rand((n_all, x.shape[1]), generator=generator,
+                       device=generator.device)
+        u = u[offset:offset + x.shape[0]].to(x.device)
+        mask = (u < keep).to(x.dtype) / torch.tensor(keep, dtype=x.dtype)
+        return x * mask, mask
+
+    def backprop(self, in_value, out_value, out_deriv, aux):
+        return out_deriv if aux is None else out_deriv * aux
+
+
+class SpliceComponent(Component):
+    """Frame splicing over time for whole-utterance inference (ref:
+    SpliceComponent; in training the egs are pre-spliced like
+    nnet-get-egs).  The frames past either edge repeat the edge frame."""
+
+    def __init__(self, input_dim: int, left_context: int,
+                 right_context: int):
+        super().__init__()
+        self.input_dim = input_dim
+        self.left_context, self.right_context = left_context, right_context
+
+    @property
+    def output_dim(self) -> int:
+        return self.input_dim * (self.left_context + self.right_context + 1)
+
+    def _index(self, t: int, device) -> torch.Tensor:
+        """[t * window] source frame of each spliced slot."""
+        offs = torch.arange(-self.left_context, self.right_context + 1,
+                            device=device)
+        return torch.clamp(torch.arange(t, device=device)[:, None]
+                           + offs[None, :], 0, t - 1).reshape(-1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        t = x.shape[0]
+        return x[self._index(t, x.device)].reshape(t, -1)
+
+    def backprop(self, in_value, out_value, out_deriv, aux):
+        """Index-scatter transpose of the forward gather: each input
+        frame sums the derivative of every spliced slot it filled, the
+        edge-clip duplicates included (ref: nnet-component.cc
+        SpliceComponent::Backprop)."""
+        t = in_value.shape[0]
+        od = out_deriv.reshape(-1, self.input_dim)
+        return torch.zeros((t, self.input_dim), dtype=od.dtype,
+                           device=od.device).index_add_(
+            0, self._index(t, od.device), od)
 
 
 class PnormComponent(Component):
@@ -409,7 +556,9 @@ class Maxpooling3DComponent(Component):
             return MaxPool3D.apply(x, self)
         return maxpool3d(x, self)
 
-    def train_forward(self, x: torch.Tensor):
+    def train_forward(self, x: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      group=None):
         return maxpool3d(x, self, with_argmax=True)
 
     def backprop(self, in_value, out_value, out_deriv, aux):
@@ -488,11 +637,14 @@ class SliceParallelComponent(Component):
         return torch.cat([p(x[:, i0:i1].contiguous()) for p, (i0, i1)
                           in zip(self.parts, self._in_slices())], dim=1)
 
-    def train_forward(self, x: torch.Tensor):
+    def train_forward(self, x: torch.Tensor,
+                      generator: Optional[torch.Generator] = None,
+                      group=None):
         """(output, the list of the parts' auxes)."""
         ys, auxs = [], []
         for p, (i0, i1) in zip(self.parts, self._in_slices()):
-            y, aux = p.train_forward(x[:, i0:i1].contiguous())
+            y, aux = p.train_forward(x[:, i0:i1].contiguous(), generator,
+                                     group)
             ys.append(y)
             auxs.append(aux)
         return torch.cat(ys, dim=1), auxs

@@ -5,10 +5,12 @@ Twin of ``kaldi_cnn_tpu/models/nnet.py``: ``Nnet.forward`` (unfused
 eval), ``Nnet.predict`` with the fused conv+maxpool pair (also inside the
 Switchboard CNN's pair of slices), the train step
 (``train_forward`` -> objective derivative -> ``_backward_update``, the
-reference's NnetUpdater::ComputeForMinibatch), ``objf``, and ``AmNnet``
-with ``loglikes``/``loglikes_batch``
-(ref: src/nnet2/nnet-nnet.cc, nnet-update.cc, am-nnet.cc,
-decodable-am-nnet.cc).
+reference's NnetUpdater::ComputeForMinibatch), the MMI step
+(``discriminative_step``: the same walk from the numerator minus
+denominator occupancies), ``objf``, and ``AmNnet`` with
+``loglikes``/``loglikes_batch``
+(ref: src/nnet2/nnet-nnet.cc, nnet-update.cc,
+nnet-compute-discriminative.cc, am-nnet.cc, decodable-am-nnet.cc).
 
 The backprop is the components' own, by hand, under ``torch.no_grad``;
 the parameters live in the modules and each step updates them in place.
@@ -17,11 +19,14 @@ need not wait for the card at every step.  Given a process ``group``, it
 is the data-parallel (mode A) step: ``x`` is this rank's row slice of
 the global minibatch, the objective's sums and every update's row sums
 span the group, and each rank computes the single-process step of the
-global minibatch.
+global minibatch.  A ``generator`` (``torch.Generator`` on the rows'
+device) feeds the Dropout components; without one they pass their
+input through.
 """
 
 from __future__ import annotations
 
+import itertools
 from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -120,7 +125,8 @@ class Nnet(nn.Module):
 
     @property
     def device(self) -> torch.device:
-        return next(self.parameters()).device
+        return next(itertools.chain(self.parameters(),
+                                    self.buffers())).device
 
     @torch.no_grad()
     def init(self, generator: torch.Generator) -> "Nnet":
@@ -174,14 +180,18 @@ class Nnet(nn.Module):
                      else {} for c in self.components)
 
     @torch.no_grad()
-    def train_forward(self, x: torch.Tensor, store_dtype=torch.float32):
+    def train_forward(self, x: torch.Tensor, store_dtype=torch.float32,
+                      generator: Optional[torch.Generator] = None,
+                      group=None):
         """(output, activations, auxs); activations[i] is the input of
         component i, each stored in ``store_dtype`` and consumed as
-        stored, so backprop's in/out pairs stay self-consistent."""
+        stored, so backprop's in/out pairs stay self-consistent.
+        ``generator`` and ``group`` go to each component (Dropout draws
+        from the one generator, component by component in order)."""
         acts = [x.to(store_dtype)]
         auxs = []
         for c in self.components:
-            y, aux = c.train_forward(acts[-1])
+            y, aux = c.train_forward(acts[-1], generator, group)
             acts.append(y.to(store_dtype))
             auxs.append(aux)
         return acts[-1], acts, auxs
@@ -209,13 +219,13 @@ class Nnet(nn.Module):
     @torch.no_grad()
     def train_step(self, opt, x: torch.Tensor, labels: torch.Tensor,
                    lr: float, weights: Optional[torch.Tensor] = None,
-                   group=None):
+                   group=None, generator: Optional[torch.Generator] = None):
         """One minibatch update of the parameters in place.  x [N, D],
         labels [N] int, optional weights [N]; with a process ``group``,
         this rank's rows of the group's minibatch.  Returns (opt', objf
         per frame as a device scalar)."""
         sd = _storage_dtype(self.train_storage_dtype)
-        out, acts, auxs = self.train_forward(x, sd)
+        out, acts, auxs = self.train_forward(x, sd, generator, group)
         if weights is None:
             weights = torch.ones(x.shape[0], device=x.device)
         post = torch.clamp_min(out.to(torch.float32), 1e-20)
@@ -227,6 +237,33 @@ class Nnet(nn.Module):
         # derivative of sum_n w_n log out[n, label_n] / wsum wrt out
         out_deriv = torch.zeros_like(post).scatter_(
             1, labels.long()[:, None], (weights / wsum / picked)[:, None])
+        return self._backward_update(opt, acts, auxs, out_deriv, lr,
+                                     sd, group), objf
+
+    @torch.no_grad()
+    def discriminative_step(self, opt, x: torch.Tensor,
+                            num_post: torch.Tensor, den_post: torch.Tensor,
+                            lr: float,
+                            generator: Optional[torch.Generator] = None,
+                            group=None):
+        """Lattice-based sequence-discriminative (MMI) update of the
+        parameters in place (ref: nnet2/nnet-compute-discriminative.cc,
+        MMI case).  num_post/den_post [N, P]: numerator and denominator
+        occupancies of x's rows; with a process ``group``, this rank's
+        rows of the group's minibatch.  The objective's derivative at the
+        softmax output is (num - den) / y over the numerator's frame
+        count.  Returns (opt', MMI objf per frame as a device scalar)."""
+        sd = _storage_dtype(self.train_storage_dtype)
+        out, acts, auxs = self.train_forward(x, sd, generator, group)
+        y = torch.clamp_min(out.to(torch.float32), 1e-20)
+        num = num_post.to(torch.float32)
+        den = den_post.to(torch.float32)
+        log_y = torch.log(y)
+        n_frames, num_ll, den_ll = reduce_sum(
+            [num.sum(), (num * log_y).sum(), (den * log_y).sum()], group)
+        n_frames = torch.clamp_min(n_frames, 1e-8)
+        objf = (num_ll - den_ll) / n_frames
+        out_deriv = (num - den) / y / n_frames
         return self._backward_update(opt, acts, auxs, out_deriv, lr,
                                      sd, group), objf
 

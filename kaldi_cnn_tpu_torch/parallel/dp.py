@@ -38,21 +38,23 @@ from kaldi_cnn_tpu_torch.models.nnet import Nnet
 
 
 def make_dp_step(net: Nnet, mesh: Mesh) -> Callable:
-    """Returns step(opt, x, labels, lr, weights=None) -> (opt', objf):
-    x/labels/weights are THIS rank's rows of the global minibatch (host
-    arrays or tensors; ``core.mesh.shard_batch`` cuts them), the
-    parameters in ``net`` change in place, and objf is the global
-    minibatch's, a device scalar.  The mesh's data group is one replica,
-    so the same step serves each replica's stream in replica mode."""
+    """Returns step(opt, x, labels, lr, weights=None, generator=None) ->
+    (opt', objf): x/labels/weights are THIS rank's rows of the global
+    minibatch (host arrays or tensors; ``core.mesh.shard_batch`` cuts
+    them), the parameters in ``net`` change in place, and objf is the
+    global minibatch's, a device scalar.  Every rank of the replica
+    passes the same ``generator`` (Dropout draws the global minibatch's
+    mask from it).  The mesh's data group is one replica, so the same
+    step serves each replica's stream in replica mode."""
     dev = mesh.device
 
-    def step(opt, x, labels, lr: float, weights=None):
+    def step(opt, x, labels, lr: float, weights=None, generator=None):
         return net.train_step(
             opt, torch.as_tensor(x, device=dev),
             torch.as_tensor(labels, device=dev), lr,
             None if weights is None else torch.as_tensor(weights,
                                                          device=dev),
-            group=mesh.data_group)
+            group=mesh.data_group, generator=generator)
 
     return step
 

@@ -19,9 +19,11 @@ sharded per process (``shard_utterances``), and the ranks laid out as a
 With one replica this is mode A over the data axis.  Several replicas
 need ``average_every > 0``: unaveraged, each replica would train a model
 of its own on its own rows.  The JAX package's ``make_replica_dp_step`` is
-``make_dp_step`` here (the mesh's data group is one replica's), and its
-``_replica_keys`` have no counterpart: the port's train step draws no
-random numbers.
+``make_dp_step`` here (the mesh's data group is one replica's).  The
+step's generator (Dropout's draws) comes from (seed, "mh_step",
+step x replicas + replica index), the counterpart of ``_replica_keys``:
+the ranks of one replica draw alike, and with one replica it is the
+JAX mode-A step's ``stage_key(seed, "mh_step", step)``.
 
 ``run_ranks`` starts N ranks on one host, the local stand-in for the
 reference's job scheduler, which the tests and the multi-rank check on
@@ -218,7 +220,9 @@ def train_multihost(
                                          mesh.replica_index)
                     x, y, w = x[i0:i1], y[i0:i1], w[i0:i1]
                 x, y, w = shard_batch(mesh, (x, y, w))
-            opt, objf = step(opt, x, y, lr, w)
+            gen = torch_generator(cfg.seed, "mh_step",
+                                  it * r + mesh.replica_index, mesh.device)
+            opt, objf = step(opt, x, y, lr, w, gen)
             objfs.append(objf)
             frames.append(float(w.sum()))
             it += 1

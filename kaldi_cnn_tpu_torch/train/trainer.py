@@ -8,7 +8,9 @@ semantics in one process:
   - final per-component model combination over the last iterates
     (ref: nnet-combine-fast), kept only when it helps
 
-One ``Nnet.train_step`` per minibatch on the net's device; the JAX
+One ``Nnet.train_step`` per minibatch on the net's device, with a
+generator on that device from (seed, "train_step", step) for the
+Dropout components (the JAX package's ``stage_key`` there); the JAX
 package's scanned multi-step dispatch (``scan_steps``) and its TPU
 matmul-precision scope have no counterpart here.  The objf values stay
 on the device until the epoch ends.
@@ -189,9 +191,11 @@ def train_nnet(net: Nnet, egs_train: Optional[Egs], egs_valid: Egs,
         frame_counts: List[float] = []
         for x, y, w in batcher.epoch(epoch):
             lr = lr_at(cfg, it / max(total_iters - 1, 1))
-            opt, objf = net.train_step(opt, torch.as_tensor(x, device=dev),
-                                       torch.as_tensor(y, device=dev), lr,
-                                       weights=torch.as_tensor(w, device=dev))
+            opt, objf = net.train_step(
+                opt, torch.as_tensor(x, device=dev),
+                torch.as_tensor(y, device=dev), lr,
+                weights=torch.as_tensor(w, device=dev),
+                generator=torch_generator(cfg.seed, "train_step", it, dev))
             objfs.append(objf)
             frame_counts.append(float(w.sum()))
             it += 1

@@ -691,6 +691,44 @@ def test_swbd_train_step_on_card_runs_the_maxpool_kernels(cuda):
             < 1e-3, k
 
 
+def test_wsj_discriminative_step_on_card_matches_cpu(cuda):
+    """One MMI step (``Nnet.discriminative_step``) of the WSJ recipe's
+    CNN (F = 64) on 300 frames on the card: the maxpool forward with
+    argmax and the backward launch once each, and objf and parameters
+    agree with the same step on the CPU (1e-3, 1e-3 relative)."""
+    import copy
+    from kaldi_cnn_tpu_torch.models.factory import make_convnet
+    from kaldi_cnn_tpu_torch.recipes import wsj
+    num_pdfs = 200
+    net = make_convnet(wsj.model_config(36, num_pdfs), device=cuda)
+    gen = torch_generator(6, "wsj mmi")
+    net.init(gen)
+    with torch.no_grad():
+        out = net.components[-2]
+        out.w.copy_(torch.randn(out.w.shape, generator=gen) / 200 ** 0.5)
+    cpu = copy.deepcopy(net).to("cpu")
+    r = np_rng(7, "wsj mmi")
+    n = 300
+    x = torch.as_tensor(r.normal(size=(n, net.input_dim)).astype(
+        np.float32))
+    num = torch.zeros((n, num_pdfs))
+    num[torch.arange(n), torch.as_tensor(r.integers(0, num_pdfs, n))] = 1.0
+    den = torch.as_tensor(r.dirichlet(np.ones(num_pdfs) * 0.1, size=n)
+                          .astype(np.float32))
+    before = (mp.maxpool3d.launches, mp.maxpool3d_backward.launches)
+    _, objf = net.discriminative_step(net.init_opt(), x.to(cuda),
+                                      num.to(cuda), den.to(cuda), 0.002)
+    torch.cuda.synchronize()
+    assert (mp.maxpool3d.launches, mp.maxpool3d_backward.launches) == (
+        before[0] + 1, before[1] + 1)
+    _, objf_c = cpu.discriminative_step(cpu.init_opt(), x, num, den, 0.002)
+    assert float(objf) == pytest.approx(float(objf_c), abs=1e-3)
+    for (k, a), (_, b) in zip(net.named_parameters(),
+                              cpu.named_parameters()):
+        assert float((a.cpu() - b).norm() / b.norm().clamp_min(1e-30)) \
+            < 1e-3, k
+
+
 @pytest.mark.parametrize("rows", [1, 300, 4097])
 def test_rm_dnn_loglikes_on_card_match_cpu(cuda, rows):
     """The RM recipe's p-norm DNN (180-dim rows: 20-dim fMLLR features

@@ -4,7 +4,7 @@ files written by one package and read by the other; and the ``.mdl``
 model files (a small CNN: Conv2D, Maxpool, Affine, Pnorm, Normalize,
 Softmax; a GMM), written by each package and read by the other with
 bit-equal parameters, the port's loglikes within LOGLIKE_ATOL of the JAX
-package's, and a clear error for components the port lacks."""
+package's, and the nnet2 chain's components read as the port's own."""
 
 import os
 
@@ -161,8 +161,10 @@ def test_port_mdl_rewrites_byte_identical(tmp_path, jax_cnn):
     "TanhComponent", "SigmoidComponent", "RectifiedLinearComponent",
     "DropoutComponent", "FixedAffineComponent", "SpliceComponent"])
 def test_unported_component_raises_not_implemented(tmp_path, comp):
-    """Not ValueError: online2-wav-latgen reads a ValueError as "not an
-    nnet model" and would try the GMM reader instead."""
+    """The six components the port once refused (with
+    NotImplementedError) now read: a JAX-written model that starts with
+    one loads as the port's class with the same parameters, and writes
+    back byte for byte."""
     first = {"TanhComponent": lambda: JC.TanhComponent(dim=4),
              "SigmoidComponent": lambda: JC.SigmoidComponent(dim=4),
              "RectifiedLinearComponent":
@@ -177,10 +179,16 @@ def test_unported_component_raises_not_implemented(tmp_path, comp):
     net = JNnet([first, JC.AffineComponent(4, 9), JC.SoftmaxComponent(9)])
     params = [{}, {"w": np.zeros((9, 4), np.float32),
                    "b": np.zeros(9, np.float32)}, {}]
-    path = str(tmp_path / "x.mdl")
+    path, back = str(tmp_path / "x.mdl"), str(tmp_path / "y.mdl")
     jkm.write_am_nnet(path, make_tm(), net, params)
-    with pytest.raises(NotImplementedError, match=comp):
-        tkm.read_am_nnet(path, device="cpu")
+    tm, tnet, tparams, pri = tkm.read_am_nnet(path, device="cpu")
+    assert type(tnet.components[0]).__name__ == comp
+    assert type(tnet.components[0]) is getattr(TC, comp)
+    if comp == "FixedAffineComponent":
+        np.testing.assert_array_equal(params_to_numpy(tnet)[0]["w"],
+                                      np.eye(4, dtype=np.float32))
+    tkm.write_am_nnet(back, tm, tnet, None, pri)
+    assert open(path, "rb").read() == open(back, "rb").read()
 
 
 @pytest.mark.parametrize("writer", ["jax", "port"])

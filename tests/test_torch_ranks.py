@@ -2,8 +2,9 @@
 CPU (gloo, ranks spawned by ``multihost.run_ranks`` with a file
 rendezvous: no port), against the port itself in one process: the
 mode-A step of two ranks against the single-process step of the whole
-minibatch, replica averaging, the lattice decode split over ranks, and
-the Librispeech recipe over two ranks.
+minibatch (the train step, the MMI step, and a Dropout net's step with
+one generator), replica averaging, the lattice decode split over ranks,
+and the Librispeech recipe over two ranks.
 
 This module imports no JAX: the spawned ranks import it to find their
 worker functions, and ``test_torch_parallel.py`` reuses them."""
@@ -209,6 +210,127 @@ def test_replica_average_is_the_mean_of_the_streams():
         for k in want:
             np.testing.assert_allclose(got[k], want[k], rtol=1e-6,
                                        atol=1e-7)
+
+
+def mmi_batch(n=64, seed=5):
+    """n rows with a one-hot numerator and a random denominator."""
+    r = np.random.default_rng(seed)
+    P = CFG["num_pdfs"]
+    num = np.zeros((n, P), np.float32)
+    num[np.arange(n), r.integers(0, P, n)] = 1.0
+    return (r.normal(size=(n, DIM)).astype(np.float32), num,
+            r.dirichlet(np.ones(P), size=n).astype(np.float32))
+
+
+def disc_steps(net, x, num, den, steps, group=None):
+    """``steps`` discriminative steps: (params, NG states, objfs)."""
+    opt, objfs = net.init_opt(), []
+    for _ in range(steps):
+        opt, objf = net.discriminative_step(
+            opt, torch.as_tensor(x), torch.as_tensor(num),
+            torch.as_tensor(den), LR, group=group)
+        objfs.append(float(objf))
+    return params_to_numpy(net), opt_to_numpy(opt), objfs
+
+
+def dropout_net():
+    """Affine -> Tanh -> Dropout(0.4) -> Affine -> Softmax over DIM."""
+    from kaldi_cnn_tpu_torch.models.components import (
+        AffineComponent, DropoutComponent, SoftmaxComponent, TanhComponent)
+    from kaldi_cnn_tpu_torch.models.nnet import Nnet
+    net = Nnet([AffineComponent(DIM, 24, device="cpu"),
+                TanhComponent(24), DropoutComponent(24, 0.4),
+                AffineComponent(24, CFG["num_pdfs"], device="cpu"),
+                SoftmaxComponent(CFG["num_pdfs"])])
+    return net.init(torch_generator(3, "init"))
+
+
+def dropout_steps(net, x, y, steps, step_fn=None):
+    """``steps`` train steps, step s with generator (11, "mh_step", s)."""
+    opt, objfs = net.init_opt(), []
+    for s in range(steps):
+        gen = torch_generator(11, "mh_step", s)
+        if step_fn is None:
+            opt, objf = net.train_step(opt, torch.as_tensor(x),
+                                       torch.as_tensor(y), LR,
+                                       generator=gen)
+        else:
+            opt, objf = step_fn(opt, x, y, LR, None, gen)
+        objfs.append(float(objf))
+    return params_to_numpy(net), opt_to_numpy(opt), objfs
+
+
+def disc_rank(rank, init, x, num, den, steps):
+    """One rank's mode-A discriminative steps on its rows of (x, num,
+    den), then a Dropout net's mode-A train steps on its rows of x."""
+    torch.set_num_threads(1)
+    mesh = make_mesh(1, "cpu")
+    xs, ns, ds = shard_batch(mesh, (x, num, den))
+    disc = disc_steps(_net(init), xs, ns, ds, steps, mesh.data_group)
+    net = dropout_net()
+    y = num.argmax(axis=1).astype(np.int32)
+    xs, ys = shard_batch(mesh, (x, y))
+    drop = dropout_steps(net, xs, ys, steps, make_dp_step(net, mesh))
+    return disc, drop
+
+
+@pytest.fixture(scope="module")
+def disc_two_ranks():
+    init = init_params(4)
+    x, num, den = mmi_batch()
+    return init, (x, num, den), run_ranks(disc_rank, 2, init, x, num, den,
+                                          STEPS, timeout_s=RANK_TIMEOUT_S)
+
+
+def _rel(a, b):
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
+
+
+def test_discriminative_step_at_world_size_one_is_bit_equal():
+    """The MMI step over a group of one rank changes no bit."""
+    init = init_params(5)
+    x, num, den = mmi_batch(seed=6)
+    ((got, _),) = run_ranks(disc_rank, 1, init, x, num, den, STEPS,
+                            timeout_s=RANK_TIMEOUT_S)
+    assert_bit_equal(got, disc_steps(_net(init), x, num, den, STEPS))
+
+
+def test_discriminative_step_over_two_ranks(disc_two_ranks):
+    """Two gloo ranks, each with half of the frames: the single-process
+    MMI step within PARAM_REL (relative Frobenius, as chip_smoke.py) in
+    every parameter tensor, objf within 1e-4; the ranks bit-equal."""
+    from test_torch_ngsgd import assert_state_close
+    init, (x, num, den), ((d0, _), (d1, _)) = disc_two_ranks
+    assert_bit_equal(d0, d1)
+    want_p, want_o, want_objf = disc_steps(_net(init), x, num, den, STEPS)
+    np.testing.assert_allclose(d0[2], want_objf, rtol=0, atol=1e-4)
+    for got, want in zip(d0[0], want_p):
+        for k in want:
+            assert _rel(got[k], want[k]) < 1e-3, k
+    for got, want in zip(d0[1], want_o):
+        for side in got:
+            assert_state_close(got[side], want[side])
+
+
+def test_dropout_mode_a_over_two_ranks_is_the_single_process_step(
+        disc_two_ranks):
+    """Each rank draws the global minibatch's mask from the shared
+    generator and keeps its rows: the single-process steps with the same
+    generators (within 1e-4), the ranks bit-equal."""
+    _, (x, num, _), ((_, r0), (_, r1)) = disc_two_ranks
+    assert_bit_equal(r0, r1)
+    y = num.argmax(axis=1).astype(np.int32)
+    want_p, _, want_objf = dropout_steps(dropout_net(), x, y, STEPS)
+    np.testing.assert_allclose(r0[2], want_objf, rtol=1e-4)
+    for got, want in zip(r0[0], want_p):
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4,
+                                       atol=1e-6)
+    # the mask mattered: without the generator the steps differ
+    net = dropout_net()
+    opt, objf = net.train_step(net.init_opt(), torch.as_tensor(x),
+                               torch.as_tensor(y), LR)
+    assert abs(float(objf) - want_objf[0]) > 1e-4
 
 
 def tiny_graph():

@@ -137,11 +137,12 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
-    assert len(mods) >= 81
+    assert len(mods) >= 84
     assert {f"kaldi_cnn_tpu_torch.{m}" for m in (
         "core.mesh", "parallel", "parallel.dp", "parallel.multihost",
         "parallel.rank_check", "recipes.librispeech",
-        "train.sharded_egs")} <= mods
+        "train.sharded_egs", "gmm.ebw", "models.utils",
+        "train.discriminative")} <= mods
 
 
 def _tiny_graph():
