@@ -190,6 +190,24 @@ then runs these phases; any failure raises and the exit code is not 0.
    card with a Dropout generator gives a finite objf.  Prints the
    per-iteration objf (not asserted), the step's median ms, and the
    phase's seconds.
+14. The command-line verbs (run right after phase 13, on phase 8's
+   artifacts before they are removed), through ``cli.main`` on the card:
+   (a) ``tests/test_cli_pipeline.py``'s shell pipeline on CLI_UTTS
+   synthetic yesno utterances written by ``write_data_dir``:
+   compute-mfcc-feats --dither=0 -> add-deltas -> prepare-lang ->
+   gmm-train-mono -> compile-train-graphs -> gmm-align -> nnet-get-egs
+   -> nnet-train -> mkgraph -> splice-feats -> latgen-faster
+   --host-decode -> compute-wer (each verb's seconds, the WER, not
+   asserted); (b) phase
+   8's CNN written by ``write_am_nnet`` and its test utterances written
+   as a data dir, through compute-fbank-feats --num-mel-bins=36
+   --dither=0 -> add-deltas -> splice-feats +-5 -> latgen-faster on
+   phase 8's triphone HCLG (beam 60, max_active 2000, lattice beam 8):
+   its one-best words must equal ``wsj.nnet_decode``'s on
+   ``compute_fbank_volumes(dither=0)`` of the same (int16) waves, and
+   its loglikes those of the same verb with --device=cpu --host-decode
+   within LOGLIKE_ATOL.  The fbank and conv+maxpool kernels must launch
+   in the phase, which must end within CLI_PHASE_S.
 
 Output: the GPU's name and power limit (nvidia-smi), the build time, one
 line per check, the total seconds, a JSON line {"kernels": [...]} (for
@@ -197,7 +215,7 @@ each kernel its launches in the recipe run of phase 8, the whole main
 path, with each phase's count in ``launches_by_phase``, phase 9's as
 its recognizer run "streaming" and its two verb runs "verb_card" and
 "verb_host", phase 10's as "swbd", phase 11's as "rm", phase 12's as
-"librispeech", phase 13's as "mmi"; error, ms,
+"librispeech", phase 13's as "mmi", phase 14's as "cli"; error, ms,
 plain_ms, bound_ms, bound_by, library_ms, graph_ms and library_graph_ms,
 at the main path's shapes, and the same at the Switchboard shapes under
 "swbd_f48...") and, last, the JSON line {"ok": true,
@@ -212,6 +230,7 @@ import contextlib
 import copy
 import functools
 import glob
+import io
 import json
 import os
 import pickle
@@ -225,7 +244,7 @@ import numpy as np
 import torch
 import torch.nn.functional as nnf
 
-from kaldi_cnn_tpu_torch import cli
+from kaldi_cnn_tpu_torch import cli, cli_train
 from kaldi_cnn_tpu_torch.cli_train import AdvanceRecorder
 from kaldi_cnn_tpu_torch.convert import (opt_from_jax, opt_to_numpy,
                                          params_from_jax, params_to_numpy)
@@ -264,6 +283,8 @@ from kaldi_cnn_tpu_torch.ops.fbank import fbank_frames, fbank_reference_frames
 from kaldi_cnn_tpu_torch.parallel import rank_check
 from kaldi_cnn_tpu_torch.recipes import (librispeech, rm, swbd, synthetic,
                                          wsj, yesno)
+from kaldi_cnn_tpu_torch.recipes.datadir import (DataDir, write_data_dir,
+                                                 write_lexicon_file)
 from kaldi_cnn_tpu_torch.train.checkpoint import load_checkpoint
 from kaldi_cnn_tpu_torch.train.discriminative import mmi_train_nnet
 
@@ -336,6 +357,13 @@ MMI_ITERS = 2
 MMI_LR = 0.002
 MMI_DEN_ATOL = 1e-3       # each frame's denominator occupancies sum to 1
 CHAIN_HIDDEN = 512
+# the verbs (phase 14): tests/test_cli_pipeline.py's yesno pipeline cut
+# to CLI_UTTS utterances (from 50), CLI_MONO_ITERS mono iterations (from
+# 18) and CLI_EPOCHS DNN epochs (from 12) to fit the phase's CLI_PHASE_S
+CLI_UTTS = 40
+CLI_MONO_ITERS = 14
+CLI_EPOCHS = 8
+CLI_PHASE_S = 40.0
 # published H100 SXM peaks (NVIDIA data sheet, dense) for bound_ms
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -1090,11 +1118,10 @@ def load_stage(exp_dir, name):
         return pickle.load(f)
 
 
-def streaming_model(dev, exp_dir, test):
-    """Phase 8's artifacts for serving ``test``: (the triphone Lang, its
+def phase8_model(dev, exp_dir, test):
+    """Phase 8's artifacts for decoding ``test``: (the triphone Lang, its
     GMM, the unigram HCLG as an Fst and compiled, the CNN's AmNnet on
-    ``dev``, a StreamingDecoder over TopKDecoder(beam 60, max_active
-    2000) on ``dev``)."""
+    ``dev``)."""
     am_gmm, _, tri = load_stage(exp_dir, "gmm_bootstrap")
     egs_train, _ = wsj.split_valid(load_stage(exp_dir, "egs"))
     t2p = tri.trans_model.trans_id_to_pdf_array()
@@ -1105,6 +1132,13 @@ def streaming_model(dev, exp_dir, test):
                        device=dev)
     params_from_jax(net, load_stage(exp_dir, "nnet_train"))
     am = wsj.acoustic_model(net, egs_train, num_pdfs)
+    return tri, am_gmm, hclg_fst, hclg, am
+
+
+def streaming_model(dev, exp_dir, test):
+    """``phase8_model`` and a StreamingDecoder over TopKDecoder(beam 60,
+    max_active 2000) on ``dev``."""
+    tri, am_gmm, hclg_fst, hclg, am = phase8_model(dev, exp_dir, test)
     stream = StreamingDecoder(TopKDecoder(
         hclg, beam=60.0, max_active=2000, acoustic_scale=wsj.ACOUSTIC_SCALE,
         device=dev))
@@ -1813,6 +1847,187 @@ def mmi_phase(dev, exp_dir, tmp, word_probs):
     return launches
 
 
+def run_verb(argv, secs):
+    """``cli.main(argv)`` on the card (the verbs' default device); its
+    seconds go to ``secs[argv[0]]``; returns its stdout."""
+    t = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc = cli.main(argv)
+    torch.cuda.synchronize()
+    secs[argv[0]] = secs.get(argv[0], 0.0) + time.perf_counter() - t
+    if rc != 0:
+        raise AssertionError(f"{argv[0]} exited {rc}: {argv}")
+    return out.getvalue()
+
+
+@contextlib.contextmanager
+def recorded_scores(out):
+    """Wraps ``cli_train._load_am`` so that each loglike matrix its
+    scorer returns is appended to ``out``."""
+    load = cli_train._load_am
+
+    def wrapped(path, device="cuda"):
+        tm, scorer, dim = load(path, device)
+
+        def scored(f):
+            ll = scorer(f)
+            out.append(np.asarray(ll, np.float32))
+            return ll
+        return tm, scored, dim
+
+    cli_train._load_am = wrapped
+    try:
+        yield out
+    finally:
+        cli_train._load_am = load
+
+
+def cli_phase(dev, exp_dir, tmp, test):
+    """Phase 14: the shell pipeline through the verbs on the card; returns
+    the kernels' launches in the phase."""
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "cli")
+
+    def p(*names):
+        return os.path.join(d, *names)
+
+    reset_launches()
+    # ---- (a) the shell pipeline on a small yesno corpus -------------------
+    secs = {}
+    lex = synthetic.yesno_lexicon()
+    wp = {"yes": 0.5, "no": 0.5}
+    corpus = synthetic.make_corpus(lex, wp, CLI_UTTS, 1, 3, seed=23)
+    train, ytest = corpus.split(0.2)
+    for part, c in (("train", train), ("test", ytest)):
+        write_data_dir(p(part), c.waves, c.transcripts, None,
+                       corpus.sample_rate)
+    write_lexicon_file(p("lexicon.txt"), lex)
+    with open(p("unigram.arpa"), "w") as f:
+        f.write(make_unigram_arpa(wp))
+    steps = []
+    for part in ("train", "test"):
+        steps += [["compute-mfcc-feats", "--dither=0", p(part, "wav.scp"),
+                   p(f"{part}_mfcc.ark")],
+                  ["add-deltas", p(f"{part}_mfcc.ark"), p(f"{part}_feats.ark"),
+                   f"--out-scp={p(f'{part}_feats.scp')}"]]
+    steps += [
+        ["prepare-lang", p("lexicon.txt"), p("lang")],
+        ["gmm-train-mono", f"--num-iters={CLI_MONO_ITERS}", "--totgauss=300",
+         p("lang"), p("train_feats.scp"), p("train", "text"), p("mono.mdl"),
+         p("ali0.ark")],
+        ["compile-train-graphs", p("lang"), p("train", "text"),
+         p("graphs.txt")],
+        ["gmm-align", "--beam=200", p("mono.mdl"), p("graphs.txt"),
+         p("train_feats.scp"), p("ali.ark")],
+        ["nnet-get-egs", "--left-context=4", "--right-context=4",
+         p("mono.mdl"), p("train_feats.scp"), p("ali.ark"), p("egs.npz")],
+        ["nnet-train", f"--num-epochs={CLI_EPOCHS}", "--minibatch-size=128",
+         "--initial-learning-rate=0.04", "--final-learning-rate=0.004",
+         "--num-hidden-layers=1", "--pnorm-input-dim=200",
+         "--pnorm-output-dim=40", p("mono.mdl"), p("egs.npz"), p("am.mdl")],
+        ["mkgraph", p("lang"), p("unigram.arpa"), p("HCLG.txt")],
+        ["splice-feats", "--left-context=4", "--right-context=4",
+         p("test_feats.ark"), p("test_spliced.ark"),
+         f"--out-scp={p('test_spliced.scp')}"],
+        # the host search here: the batched search's host cost on 8
+        # padded utterances (17.3 s on the H100's host) would take most
+        # of the phase's limit; (b) decodes on the card
+        ["latgen-faster", "--host-decode", "--beam=1e9", "--max-active=0",
+         "--acoustic-scale=0.1", f"--lang-dir={p('lang')}", p("am.mdl"),
+         p("HCLG.txt"), p("test_spliced.scp"), p("lats.npz"), p("hyp.txt")]]
+    for argv in steps:
+        run_verb(argv, secs)
+    wer_line = run_verb(["compute-wer", p("test", "text"), p("hyp.txt")],
+                        secs).strip()
+    hyps = cli_train._read_text(p("hyp.txt"))
+    pipe_s = sum(secs.values())
+    log(f"cli pipeline: {len(train.waves)} train / {len(ytest.waves)} test "
+        f"yesno utterances, mono {CLI_MONO_ITERS} iterations, DNN "
+        f"{CLI_EPOCHS} epochs: {pipe_s:.3f} s; "
+        + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+        + f"; {wer_line} (not asserted); launches {read_launches()}")
+    if sorted(hyps) != sorted(ytest.waves) or not wer_line.startswith(
+            "%WER"):
+        raise AssertionError(f"the verb pipeline's output is malformed: "
+                             f"{wer_line!r}, {sorted(hyps)}")
+
+    # ---- (b) phase 8's CNN through the verbs ------------------------------
+    secs = {}
+    tri, _, hclg_fst, hclg, am = phase8_model(dev, exp_dir, test)
+    write_data_dir(p("wsj"), test.waves, test.transcripts, None,
+                   test.sample_rate)
+    os.makedirs(p("wsj_lang"))
+    tri.word_table.write(p("wsj_lang", "words.txt"))
+    with open(p("wsj_HCLG.txt"), "w") as f:
+        hclg_fst.write_text(f)
+    write_am_nnet(p("cnn.mdl"), tri.trans_model, am.nnet, None, am.priors)
+    for argv in (
+            ["compute-fbank-feats", "--num-mel-bins=36", "--dither=0",
+             p("wsj", "wav.scp"), p("wsj_fbank.ark")],
+            ["add-deltas", p("wsj_fbank.ark"), p("wsj_deltas.ark")],
+            ["splice-feats", f"--left-context={wsj.CONTEXT}",
+             f"--right-context={wsj.CONTEXT}", p("wsj_deltas.ark"),
+             p("wsj_spliced.ark"), f"--out-scp={p('wsj_spliced.scp')}"]):
+        run_verb(argv, secs)
+    decode = ["--beam=60", "--max-active=2000", "--lattice-beam=8",
+              f"--acoustic-scale={wsj.ACOUSTIC_SCALE}",
+              f"--lang-dir={p('wsj_lang')}", p("cnn.mdl"), p("wsj_HCLG.txt"),
+              p("wsj_spliced.scp")]
+    with recorded_scores([]) as lls:
+        run_verb(["latgen-faster", *decode, p("wsj_lats.npz"),
+                  p("wsj_hyp.txt")], secs)
+    launches = read_launches()
+    verb_hyps = cli_train._read_text(p("wsj_hyp.txt"))
+    # the recipe's own path on the same (int16-quantised) waves
+    waves, rate = DataDir.load(p("wsj")).load_waves()
+    same = synthetic.SyntheticCorpus(test.lexicon, test.word_probs, waves,
+                                     test.transcripts, int(rate))
+    t = time.perf_counter()
+    lats = wsj.nnet_decode(am, wsj.compute_fbank_volumes(
+        same, 36, device=dev, dither=0.0), hclg)
+    recipe_s = time.perf_counter() - t
+    recipe_hyps = {u: [tri.word_table.sym(int(w)) for w in
+                       shortest_path(lat, 1.0, wsj.ACOUSTIC_SCALE)[1]]
+                   for u, lat in lats.items()}
+    # the same verb on the CPU (host lattice decode), its loglikes replayed
+    t = time.perf_counter()
+    with recorded_scores([]) as lls_cpu:
+        assert cli.main(["latgen-faster", "--device=cpu", "--host-decode",
+                         *decode, p("wsj_lats_cpu.npz"),
+                         p("wsj_hyp_cpu.txt")]) == 0
+    cpu_s = time.perf_counter() - t
+    cpu_hyps = cli_train._read_text(p("wsj_hyp_cpu.txt"))
+    ll_err = max(float(np.abs(a - b).max()) for a, b in zip(lls, lls_cpu))
+    frames = sum(len(ll) for ll in lls)
+    agree = sum(verb_hyps[u] == recipe_hyps[u] for u in recipe_hyps)
+    log(f"cli cnn: phase 8's CNN (F = 64, {tri.trans_model.num_pdfs} pdfs) "
+        f"through compute-fbank-feats -> add-deltas -> splice-feats -> "
+        f"latgen-faster on its {len(test.waves)} test utterances ({frames} "
+        f"frames): "
+        + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+        + f" s; one-best words equal to wsj.nnet_decode's ({recipe_s:.3f} s) "
+        f"on {agree} of {len(recipe_hyps)} utterances; loglikes card vs "
+        f"--device cpu max |diff| {ll_err:.3g} (limit {LOGLIKE_ATOL}; the "
+        f"CPU replay {cpu_s:.3f} s, words equal on "
+        f"{sum(cpu_hyps[u] == verb_hyps[u] for u in verb_hyps)} of "
+        f"{len(verb_hyps)}, not asserted); launches in the phase "
+        f"{launches}")
+    if (sorted(verb_hyps) != sorted(recipe_hyps)
+            or agree != len(recipe_hyps) or len(lls) != len(lls_cpu)
+            or not np.isfinite(ll_err) or ll_err > LOGLIKE_ATOL):
+        raise AssertionError("the verbs' CNN decode disagrees with "
+                             "wsj.nnet_decode or with the CPU replay")
+    if min(launches["fbank_fft"], launches["conv_maxpool"]) <= 0:
+        raise AssertionError(f"a kernel did not run in the cli phase: "
+                             f"{launches}")
+    phase_s = time.perf_counter() - t_phase
+    log(f"cli phase: {phase_s:.1f} s (limit {CLI_PHASE_S})")
+    if phase_s > CLI_PHASE_S:
+        raise AssertionError(f"the cli phase took {phase_s:.1f} s")
+    return launches
+
+
 def stream_rows(stream, rows):
     """``rows`` fed to ``stream`` in the frame counts of STREAM_CHUNK_S
     chunks; its final (tids, words, cost)."""
@@ -2075,6 +2290,10 @@ def main() -> int:
         # ---- 13. MMI on phase 8's artifacts (before they go) -------------
         mmi_launches = mmi_phase(dev, os.path.join(tmp, "wsj"), tmp,
                                  recipe_corpus.word_probs)
+
+        # ---- 14. the command-line verbs, on phase 8's artifacts too ----
+        cli_launches = cli_phase(dev, os.path.join(tmp, "wsj"), tmp,
+                                 wsj.split_corpus(recipe_corpus)[2])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2103,7 +2322,8 @@ def main() -> int:
         "train": {**train_launches, "maxpool_fwd_scalar": scalar_launches},
         "recipe": recipe_launches, "recipe_mfcc_stage": {"fbank_fft": mfcc_n},
         **stream_launches, "swbd": swbd_launches, "rm": rm_launches,
-        "librispeech": libri_launches, "mmi": mmi_launches}
+        "librispeech": libri_launches, "mmi": mmi_launches,
+        "cli": cli_launches}
 
     def entry(name, source, replaces, n, r, pre=""):
         return {"name": name, "route": "cuda",

@@ -3,8 +3,9 @@
 Twin of ``kaldi_cnn_tpu/features/functional.py``: options, framing,
 windows, the mel, DFT and DCT tables and the lifter (numpy, identical to
 the JAX package's), the rfft-based ``compute_fbank`` and
-``compute_mfcc`` references and ``compute_deltas``.  The fused kernel
-path is ``kaldi_cnn_tpu_torch.ops.fbank``.
+``compute_mfcc`` references, the CMVN family (on the input's device;
+``cmvn_stats`` host numpy in float64) and ``compute_deltas``.  The
+fused kernel path is ``kaldi_cnn_tpu_torch.ops.fbank``.
 
 Dither is ``opts.dither * randn`` drawn from an explicit
 ``torch.Generator`` and added to the raw frames before DC removal
@@ -336,6 +337,72 @@ def compute_mfcc(
     opts = opts or MfccOptions()
     both = compute_fbank(wave, mfcc_fbank_options(opts), generator)
     return cepstra(both[:, 1:], both[:, 0], opts)
+
+
+# --------------------------------------------------------------------------
+# Post-processing: CMVN, deltas, splicing
+# --------------------------------------------------------------------------
+
+def apply_cmvn(feats: torch.Tensor, norm_vars: bool = False) -> torch.Tensor:
+    """Per-utterance cepstral mean (and optionally variance) normalization
+    (ref: transform/cmvn.cc ApplyCmvn with per-utt stats), on the
+    input's device."""
+    mean = feats.mean(dim=0, keepdim=True)
+    out = feats - mean
+    if norm_vars:
+        var = feats.var(dim=0, correction=0, keepdim=True)
+        out = out / torch.sqrt(var + 1e-10)
+    return out
+
+
+def cmvn_stats(feats: np.ndarray) -> np.ndarray:
+    """Kaldi-layout CMVN stats [2, dim+1]: row0 = sum,count; row1 = sumsq.
+    (ref: transform/cmvn.cc AccCmvnStats)."""
+    dim = feats.shape[1]
+    stats = np.zeros((2, dim + 1), dtype=np.float64)
+    stats[0, :dim] = feats.sum(axis=0)
+    stats[0, dim] = feats.shape[0]
+    stats[1, :dim] = (feats ** 2).sum(axis=0)
+    return stats
+
+
+def apply_cmvn_stats(feats: torch.Tensor, stats: np.ndarray,
+                     norm_vars: bool = False) -> torch.Tensor:
+    """Normalize with precomputed stats (``cmvn_stats`` layout): the mean
+    and variance in float64 on the host, the arithmetic in the
+    features' dtype on their device."""
+    count = stats[0, -1]
+    mean = stats[0, :-1] / count
+    like = dict(dtype=feats.dtype, device=feats.device)
+    out = feats - torch.as_tensor(mean, **like)
+    if norm_vars:
+        var = stats[1, :-1] / count - mean ** 2
+        out = out / torch.as_tensor(np.sqrt(np.maximum(var, 1e-10)), **like)
+    return out
+
+
+def sliding_window_cmn(feats: torch.Tensor, window: int = 600,
+                       center: bool = True) -> torch.Tensor:
+    """Sliding-window cepstral mean normalization
+    (ref: feature-functions.cc SlidingWindowCmn, cmn_window=600, center):
+    the window bounds on the host, the prefix sums on the input's
+    device."""
+    T = feats.shape[0]
+    cum = torch.cumsum(torch.nn.functional.pad(feats, (0, 0, 1, 0)), dim=0)
+    t = np.arange(T)
+    if center:
+        lo = np.clip(t - window // 2, 0, T)
+        hi = np.clip(t + (window + 1) // 2, 0, T)
+        # widen clipped edge windows to `window` frames where possible
+        lo = np.where(hi - lo < window, np.maximum(0, hi - window), lo)
+        hi = np.where(hi - lo < window, np.minimum(T, lo + window), hi)
+    else:
+        lo = np.clip(t + 1 - window, 0, T)
+        hi = np.maximum(t + 1, np.minimum(window, T))
+    n = torch.as_tensor((hi - lo)[:, None], dtype=feats.dtype,
+                        device=feats.device)
+    lo, hi = (torch.as_tensor(i, device=feats.device) for i in (lo, hi))
+    return feats - (cum[hi] - cum[lo]) / n
 
 
 def compute_deltas(feats: torch.Tensor, order: int = 2,

@@ -22,7 +22,10 @@ steps/nnet2/train_convnet_accel2.sh driven from egs/wsj/s5/run.sh).
 The stages are also callable one by one (``compute_fbank_volumes``,
 ``train``, ``decode``, ``decode_and_score``).
 
-Run on the card: ``python -m kaldi_cnn_tpu_torch.recipes.wsj``
+Run on the card: ``python -m kaldi_cnn_tpu_torch.recipes.wsj``; with
+``--data-dir D --lexicon L`` it trains and decodes a Kaldi data
+directory instead of the synthetic corpus, and ``--ali-ark A --ali-mdl
+M`` trains the CNN from external alignments.
 """
 
 from __future__ import annotations
@@ -48,12 +51,15 @@ from kaldi_cnn_tpu_torch.features import functional as F
 from kaldi_cnn_tpu_torch.features.extractor import FeatureExtractor
 from kaldi_cnn_tpu_torch.gmm.train import (
     DeltasTrainOptions, MonoTrainOptions, train_deltas, train_mono)
+from kaldi_cnn_tpu_torch.io.kaldi_model import read_gmm_model
 from kaldi_cnn_tpu_torch.lang.arpa import make_unigram_arpa
 from kaldi_cnn_tpu_torch.lang.hclg import Lang, make_hclg_from_arpa
 from kaldi_cnn_tpu_torch.models.factory import (
     ConvnetConfig, PnormDnnConfig, make_convnet, make_pnorm_dnn)
 from kaldi_cnn_tpu_torch.models.nnet import AmNnet, Nnet
 from kaldi_cnn_tpu_torch.recipes import synthetic
+from kaldi_cnn_tpu_torch.recipes.datadir import (corpus_from_data_dir,
+                                                 load_alignments_ark)
 from kaldi_cnn_tpu_torch.recipes.rm import score_sweep
 from kaldi_cnn_tpu_torch.recipes.yesno import compute_features
 from kaldi_cnn_tpu_torch.train.egs import Egs
@@ -336,6 +342,7 @@ def run(
     metrics: Optional[MetricsWriter] = None,
     corpus=None,
     ext_alignments: Optional[Dict[str, np.ndarray]] = None,
+    ext_ali_mdl: Optional[str] = None,
     batched_decode: bool = True,
     exp_dir: Optional[str] = None,
     stage: int = 0,
@@ -361,7 +368,9 @@ def run(
     default corpus and raises with a given one.
     ext_alignments: transition-id alignments used instead of the GMM
     bootstrap's; they must come from this run's transition model
-    (checked by the largest id).  batched_decode: dev/test lattices from
+    (checked by the largest id) unless ``ext_ali_mdl`` names the GMM
+    .mdl that produced them, whose transition model then maps their ids
+    to pdfs and sets the pdf count.  batched_decode: dev/test lattices from
     the batched top-K search on the device (``decode_utterances``);
     False takes the host ``lattice_decode``.  exp_dir/stage:
     stage-guarded execution, artifacts (host numpy, loadable on any
@@ -431,12 +440,21 @@ def run(
     tid2pdf = tri.trans_model.trans_id_to_pdf_array()
     num_pdfs = tri.trans_model.num_pdfs
     if ext_alignments is not None:
+        # differential mode: external (reference-produced) alignments
+        # replace the bootstrap's (ref: steps/nnet2/get_egs.sh --alidir,
+        # which pairs the ali dir with the model that produced it)
+        if ext_ali_mdl is not None:
+            ext_tm, _ = read_gmm_model(ext_ali_mdl)
+            tid2pdf = ext_tm.trans_id_to_pdf_array()
+            num_pdfs = ext_tm.num_pdfs
         max_tid = max((int(np.max(a)) for a in ext_alignments.values()
                        if len(a)), default=0)
         if max_tid >= len(tid2pdf):
             raise ValueError(
-                f"external alignment transition-id {max_tid} out of range "
-                f"for the bootstrap transition model ({len(tid2pdf)} ids)")
+                f"external alignment transition-id {max_tid} out of "
+                f"range for the {'supplied' if ext_ali_mdl else 'bootstrap'}"
+                f" transition model ({len(tid2pdf)} ids); pass the .mdl "
+                f"that produced the ark via --ali-mdl")
         ali1 = ext_alignments
         logger.info("using %d external alignments", len(ali1))
     egs_train, egs_valid = split_valid(timed("egs", lambda: make_cnn_egs(
@@ -528,6 +546,15 @@ def main(argv=None) -> int:
         description="The WSJ-style CNN recipe on one device; prints the "
                     "result's numbers as one JSON line.")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--data-dir", default=None,
+                    help="Kaldi data dir (wav.scp/text/utt2spk); "
+                         "default: synthetic corpus")
+    ap.add_argument("--lexicon", default=None)
+    ap.add_argument("--ali-ark", default=None,
+                    help="external transition-id alignments ark")
+    ap.add_argument("--ali-mdl", default=None,
+                    help=".mdl that produced --ali-ark (its transition "
+                         "model maps the ark's tids to pdfs)")
     ap.add_argument("--exp-dir", default=None,
                     help="experiment dir for per-stage artifacts "
                          "(enables --stage resume)")
@@ -539,11 +566,16 @@ def main(argv=None) -> int:
                     help="resume from this stage index; 'auto' resumes "
                          "after the last completed stage")
     a = ap.parse_args(argv)
+    corpus = None
+    if a.data_dir:
+        corpus = corpus_from_data_dir(a.data_dir, a.lexicon)
+    ext = load_alignments_ark(a.ali_ark) if a.ali_ark else None
     stage = 0
     if a.exp_dir:
         stage = (auto_stage(a.exp_dir) if a.stage == "auto"
                  else int(a.stage))
-    res = run(device=a.device, exp_dir=a.exp_dir, stage=stage,
+    res = run(device=a.device, corpus=corpus, ext_alignments=ext,
+              ext_ali_mdl=a.ali_mdl, exp_dir=a.exp_dir, stage=stage,
               eval_utts=a.eval_utts, eval_dnn=a.eval_dnn)
     print(json.dumps({k: v for k, v in res.items()
                       if k not in ("per_utt", "hyps")}))

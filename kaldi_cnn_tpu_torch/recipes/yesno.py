@@ -7,6 +7,7 @@ Expected WER: 0.0 like the reference's yesno.  ``compute_features`` is
 also the MFCC stage of the WSJ, Switchboard and RM recipes.
 
 Run on the card: ``python -m kaldi_cnn_tpu_torch.recipes.yesno``
+(``--data-dir D [--lexicon L]`` for a Kaldi data directory).
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from kaldi_cnn_tpu_torch.gmm.train import MonoTrainOptions, train_mono
 from kaldi_cnn_tpu_torch.lang.arpa import make_unigram_arpa
 from kaldi_cnn_tpu_torch.lang.hclg import Lang, make_hclg_from_arpa
 from kaldi_cnn_tpu_torch.recipes import synthetic
+from kaldi_cnn_tpu_torch.recipes.datadir import corpus_from_data_dir
 
 logger = get_logger(__name__)
 
@@ -154,8 +156,15 @@ def main(argv=None) -> int:
         description="The yesno recipe on one device; prints the result's "
                     "numbers as one JSON line and exits 0 at WER 0.")
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--data-dir", default=None,
+                    help="Kaldi data dir (wav.scp/text/utt2spk); "
+                         "default: synthetic corpus")
+    ap.add_argument("--lexicon", default=None)
     a = ap.parse_args(argv)
-    res = run(device=a.device)
+    corpus = None
+    if a.data_dir:
+        corpus = corpus_from_data_dir(a.data_dir, a.lexicon)
+    res = run(device=a.device, corpus=corpus)
     print(json.dumps({k: v for k, v in res.items() if k != "per_utt"}))
     return 0 if res["wer"] == 0.0 else 1
 

@@ -140,8 +140,35 @@ def test_verb_without_a_card_raises(workdir):
         _verb(cli.main, p, "mono.mdl", "nocard", [])
 
 
+# each verb that computes on tensors, with file arguments it never opens:
+# without a card it raises before it reads anything
+CARD_VERBS = {
+    "compute-mfcc-feats": ["wav.scp", "mfcc.ark"],
+    "compute-fbank-feats": ["wav.scp", "fbank.ark"],
+    "apply-cmvn": ["feats.ark", "cmvn.ark"],
+    "add-deltas": ["feats.ark", "deltas.ark"],
+    "apply-cmvn-stats": ["stats.ark", "feats.ark", "out.ark"],
+    "nnet-am-info": ["am.mdl"],
+    "nnet-am-copy": ["am.mdl", "copy.mdl"],
+    "nnet-am-average": ["a.mdl", "b.mdl", "avg.mdl"],
+    "nnet-train": ["mono.mdl", "egs.npz", "am.mdl"],
+    "latgen-faster": ["--lang-dir=lang", "am.mdl", "HCLG.txt", "feats.scp",
+                      "lats.npz", "hyp.txt"]}
+
+
+@pytest.mark.parametrize("verb", sorted(CARD_VERBS))
+def test_card_verbs_without_a_card_raise(verb, tmp_path, monkeypatch):
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA GPU")
+    monkeypatch.chdir(tmp_path)
+    with pytest.raises((RuntimeError, AssertionError),
+                       match="CUDA|cuda|NVIDIA"):
+        cli.main([verb, *CARD_VERBS[verb]])
+    assert os.listdir(tmp_path) == []
+
+
 def test_unknown_verb_and_help(capsys):
-    assert cli.main(["compute-mfcc-feats"]) == 2
+    assert cli.main(["lattice-best-path"]) == 2
     assert cli.main([]) == 0
     assert "online2-wav-latgen" in capsys.readouterr().out
 

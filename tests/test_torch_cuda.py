@@ -796,3 +796,148 @@ def test_two_ranks_on_the_card_match_world_size_one(cuda, replicas):
     assert min(sum(res["launches"], ())) >= 3
     assert res["objf_err"] <= DP_OBJF_ATOL
     assert res["param_rel"] <= DP_PARAM_REL
+
+
+# ---- the command-line verbs -----------------------------------------------
+
+def _wav_scp(d, n=3, seed=4):
+    """``n`` synthetic digit utterances at 8 kHz as wav files and a
+    ``wav.scp``; returns its path."""
+    import os
+    from kaldi_cnn_tpu_torch.io.wave import write_wave
+    lex = synthetic.digits_lexicon()
+    corpus = synthetic.make_corpus(
+        lex, {w: 1.0 / len(lex.entries) for w in lex.entries}, n, 1, 3, seed)
+    scp = os.path.join(d, "wav.scp")
+    with open(scp, "w") as f:
+        for utt in sorted(corpus.waves):
+            path = os.path.join(d, f"{utt}.wav")
+            write_wave(path, corpus.waves[utt], corpus.sample_rate)
+            f.write(f"{utt} {path}\n")
+    return scp, len(corpus.waves)
+
+
+def _verb_on_both(verb, args, d, tag):
+    """``verb`` on the card and with --device=cpu; the two output arks
+    read back (utt -> matrix), and the fbank kernel's launches on the
+    card."""
+    import os
+    from kaldi_cnn_tpu_torch import cli
+    from kaldi_cnn_tpu_torch.io.kaldi_io import read_mat_ark
+    out = {}
+    for dev in ("cuda", "cpu"):
+        path = os.path.join(d, f"{tag}_{dev}.ark")
+        before = fb.fbank_frames.launches
+        assert cli.main([verb, *args, f"--device={dev}", path]) == 0
+        torch.cuda.synchronize()
+        out[dev] = (dict(read_mat_ark(path)), fb.fbank_frames.launches
+                    - before)
+    return out
+
+
+@pytest.mark.parametrize("kind,bins", [("fbank", 36), ("fbank", 23),
+                                       ("mfcc", 23)])
+def test_feature_verbs_on_card_match_cpu(cuda, tmp_path, kind, bins):
+    """compute-{fbank,mfcc}-feats on the card (one fbank kernel launch an
+    utterance) against --device=cpu (the plain version), at dither 0 and
+    at dither 1 (the same generator stages on both): fbank 1e-3; MFCC
+    cepstrum c within 2e-3 x lifter_coeffs[c], energy 1e-3."""
+    scp, n = _wav_scp(str(tmp_path))
+    if kind == "mfcc":
+        lim = 2e-3 * F.lifter_coeffs(13, 22.0).astype(np.float64)
+        lim[0] = 1e-3
+    else:
+        lim = FBANK_ATOL
+    for dither in ("0", "1"):
+        out = _verb_on_both(f"compute-{kind}-feats",
+                            [f"--num-mel-bins={bins}", f"--dither={dither}",
+                             scp], str(tmp_path), f"{kind}{dither}")
+        (card, launched), (cpu, none) = out["cuda"], out["cpu"]
+        assert (launched, none) == (n, 0)
+        assert sorted(card) == sorted(cpu) and len(cpu) == n
+        for u in cpu:
+            assert card[u].shape == cpu[u].shape
+            assert (np.abs(card[u] - cpu[u]) <= lim).all(), u
+
+
+def test_latgen_faster_on_card_matches_cpu(cuda, tmp_path):
+    """A WSJ-width CNN .mdl (F = 64, random weights, the digits monophone
+    transition model) through compute-fbank-feats -> add-deltas ->
+    splice-feats -> latgen-faster on the card and with --device=cpu: the
+    conv+maxpool kernel launches on the card, and the two give the same
+    hyps and lattice one-best costs (rel 1e-4 / abs 5e-2)."""
+    import os
+    from kaldi_cnn_tpu_torch import cli
+    from kaldi_cnn_tpu_torch.decode.lattice import (load_lattices,
+                                                    shortest_path)
+    from kaldi_cnn_tpu_torch.io.kaldi_model import write_am_nnet
+    from kaldi_cnn_tpu_torch.models.factory import make_convnet
+    from kaldi_cnn_tpu_torch.recipes import wsj
+    d = str(tmp_path)
+
+    def p(name):
+        return os.path.join(d, name)
+    scp, n = _wav_scp(d, n=4, seed=9)
+    lang = Lang.create(synthetic.digits_lexicon())
+    tm = lang.trans_model
+    net = make_convnet(wsj.model_config(36, tm.num_pdfs), fused=True,
+                       device="cpu")
+    gen = torch_generator(3, "latgen")
+    net.init(gen)
+    with torch.no_grad():
+        out = net.components[-2]
+        out.w.copy_(torch.randn(out.w.shape, generator=gen) / 20)
+    priors = np_rng(3, "priors").dirichlet(np.ones(tm.num_pdfs))
+    write_am_nnet(p("cnn.mdl"), tm, net, None, priors)
+    os.makedirs(p("lang"))
+    lang.word_table.write(p("lang/words.txt"))
+    wp = {w: 1.0 / len(lang.lexicon.entries) for w in lang.lexicon.entries}
+    with open(p("HCLG.txt"), "w") as f:
+        make_hclg_from_arpa(lang, make_unigram_arpa(wp)).write_text(f)
+    for argv in (["compute-fbank-feats", "--num-mel-bins=36", "--dither=0",
+                  scp, p("fbank.ark")],
+                 ["add-deltas", p("fbank.ark"), p("deltas.ark")],
+                 ["splice-feats", "--left-context=5", "--right-context=5",
+                  p("deltas.ark"), p("spliced.ark"),
+                  f"--out-scp={p('spliced.scp')}"]):
+        assert cli.main(argv) == 0
+    lats, hyps = {}, {}
+    for dev in ("cuda", "cpu"):
+        before = tc.conv2d_maxpool.launches
+        assert cli.main(["latgen-faster", "--beam=30", "--max-active=500",
+                         f"--device={dev}", f"--lang-dir={p('lang')}",
+                         p("cnn.mdl"), p("HCLG.txt"), p("spliced.scp"),
+                         p(f"lats_{dev}.npz"), p(f"hyp_{dev}.txt")]) == 0
+        torch.cuda.synchronize()
+        launched = tc.conv2d_maxpool.launches - before
+        assert launched == (n if dev == "cuda" else 0)
+        lats[dev] = load_lattices(p(f"lats_{dev}.npz"))
+        with open(p(f"hyp_{dev}.txt")) as f:
+            hyps[dev] = f.read()
+    assert hyps["cuda"] == hyps["cpu"] and len(lats["cpu"]) == n
+    for u, lat in lats["cpu"].items():
+        _, words, cost = shortest_path(lat, 1.0, 0.1)
+        _, words_c, cost_c = shortest_path(lats["cuda"][u], 1.0, 0.1)
+        assert list(words_c) == list(words)
+        assert cost_c == pytest.approx(cost, rel=1e-4, abs=5e-2)
+
+
+def test_chip_smoke_cli_phase(cuda, tmp_path):
+    """chip_smoke.py's phase 14 on the artifacts of a small wsj.run on the
+    card (12 utterances, 1 epoch; the phase's own checks: the verbs'
+    pipeline, the CNN's words equal to wsj.nnet_decode's, the loglikes
+    within 5e-2 of the CPU replay, kernels 2.1 and 2.2 launched)."""
+    import importlib.util
+    import os
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(root, "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    corpus = smoke.wsj.make_corpus(12, smoke.SEED)
+    exp = str(tmp_path / "wsj")
+    smoke.wsj.run(corpus=corpus, nnet_epochs=1, seed=smoke.SEED,
+                  device=cuda, exp_dir=exp)
+    launches = smoke.cli_phase(cuda, exp, str(tmp_path),
+                               smoke.wsj.split_corpus(corpus)[2])
+    assert min(launches["fbank_fft"], launches["conv_maxpool"]) > 0

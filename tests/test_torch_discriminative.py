@@ -46,6 +46,7 @@ from kaldi_cnn_tpu_torch.models.factory import (
 from kaldi_cnn_tpu_torch.recipes import synthetic
 from kaldi_cnn_tpu_torch.train import discriminative as tdisc
 from test_torch_ngsgd import assert_state_close
+from test_torch_lang import load_jax_native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 OBJF_ATOL = 1e-5          # one discriminative_step's objf
@@ -62,10 +63,11 @@ def _one_torch_thread():
 
 
 @pytest.fixture(scope="module")
-def system():
+def system(tmp_path_factory):
     """tests/test_discriminative.py's yesno system, trained by each
     package on the JAX package's MFCC (each with its own Lang:
     training updates the transition model in place)."""
+    load_jax_native(tmp_path_factory)
     wp = {"yes": 0.5, "no": 0.5}
     corpus = jsyn.make_corpus(jsyn.yesno_lexicon(), wp, 16, 1, 2, 83)
     feats = j_features(corpus, seed=83)

@@ -41,7 +41,7 @@ from kaldi_cnn_tpu_torch.models import factory as tfactory
 from kaldi_cnn_tpu_torch.ops import fbank as fb
 from kaldi_cnn_tpu_torch.recipes import synthetic
 from kaldi_cnn_tpu_torch.recipes.yesno import compute_features
-from test_torch_lang import assert_fst_equal
+from test_torch_lang import assert_fst_equal, load_jax_native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 NUM_CEPS, LIFTER = 13, 22.0
@@ -212,11 +212,12 @@ def test_paired_sign_test_equals_jax(a, b):
 
 
 @pytest.fixture(scope="module")
-def bootstrap():
+def bootstrap(tmp_path_factory):
     """train_mono (4 iterations) then train_deltas (3 iterations, 40
     leaves) in both packages on the JAX package's own MFCC features of
     10 noisy digit utterances; each side builds its own Lang, since the
     training updates the transition model in place."""
+    load_jax_native(tmp_path_factory)
     jlex = jsyn.digits_lexicon()
     wp = {w: 1.0 / len(jlex.entries) for w in jlex.entries}
     corpus = jsyn.make_noisy_corpus(jlex, wp, 10, 2, 4, 37)

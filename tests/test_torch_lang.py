@@ -44,8 +44,38 @@ def assert_fst_equal(a, b):
     assert _arcs(a) == _arcs(b)
 
 
+def load_jax_native(tmp_path_factory):
+    """Loads both packages' native libraries, the JAX package's from a
+    build directory of this test process's own, and asserts that both
+    loaded.  The JAX loader (``kaldi_cnn_tpu/native/__init__.py``)
+    compiles straight into its shared ``_build/``, loads any library
+    there newer than the sources, and turns an ``OSError`` into None.  So
+    under xdist a process can load another's half-written library, and
+    its ``viterbi_align`` then takes the numpy path for the rest of its
+    life while the port's takes the C++ one, and the two give different
+    alignments.  Fixtures that hold the JAX package's alignments (and
+    all that is trained on them) bit-equal to the port's call this
+    first."""
+    from kaldi_cnn_tpu import native as jnative
+    d = tmp_path_factory.getbasetemp() / "jax_native"
+    d.mkdir(exist_ok=True)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jnative, "_build_dir", lambda: str(d))
+        jnative._TRIED, jnative._LIB = False, None
+        jlib = jnative.load()
+    assert jlib is not None, (
+        "the JAX package's native library did not build or load from "
+        f"{d} (no g++, or KALDI_CNN_TPU_NATIVE=0): its viterbi_align "
+        "would take the numpy path and its alignments differ from the "
+        "port's C++ ones")
+    assert native.load() is not None, (
+        "the port's native library did not build or load from "
+        f"{native.LIB_PATH} (no g++?)")
+
+
 @pytest.fixture(scope="module")
-def langs():
+def langs(tmp_path_factory):
+    load_jax_native(tmp_path_factory)
     lex, jlex = synthetic.digits_lexicon(), jsyn.digits_lexicon()
     assert isinstance(lex, tlexicon.Lexicon)
     assert isinstance(jlex, jlexicon.Lexicon)

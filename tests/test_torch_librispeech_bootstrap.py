@@ -20,6 +20,7 @@ from kaldi_cnn_tpu.recipes import synthetic as jsyn
 from kaldi_cnn_tpu_torch.lang.hclg import Lang
 from kaldi_cnn_tpu_torch.recipes import librispeech
 from kaldi_cnn_tpu_torch.recipes.yesno import compute_features
+from test_torch_lang import load_jax_native
 
 NUM_UTTS, SEED = 24, 71
 
@@ -36,8 +37,11 @@ def _one_thread():
 
 
 @pytest.fixture(scope="module")
-def mfcc():
-    """The port's MFCC of the training set of librispeech.make_corpus."""
+def mfcc(tmp_path_factory):
+    """The port's MFCC of the training set of librispeech.make_corpus
+    (and both packages' native libraries loaded, since the tests hold
+    the JAX bootstrap's alignments equal to the port's)."""
+    load_jax_native(tmp_path_factory)
     train, _, _ = librispeech.make_corpus(NUM_UTTS, SEED)
     return compute_features(train, SEED, "cpu"), train.transcripts
 

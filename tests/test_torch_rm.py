@@ -49,6 +49,7 @@ from kaldi_cnn_tpu_torch.train import egs as tegs
 from kaldi_cnn_tpu_torch.transform import fmllr as tfmllr
 from kaldi_cnn_tpu_torch.transform import lda as tlda
 from kaldi_cnn_tpu_torch.transform import mllt as tmllt
+from test_torch_lang import load_jax_native
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # lattice one-best cost between the packages (PERF.md section 2)
@@ -187,12 +188,13 @@ def test_fmllr_update_and_auxf_bit_equal(seed):
 # ---- the GMM chain in both packages --------------------------------------
 
 @pytest.fixture(scope="module")
-def chain():
+def chain(tmp_path_factory):
     """mono -> tri1 (cut) then train_lda_mllt and train_sat (LDA_OPTS,
     SAT_OPTS) in both packages on the same MFCC features (the port's, at
     the recipe's dither) of the recipe's corpus cut to 14 utterances, each
     package with its own Lang (training updates transition models in
     place); the LDA and SAT stages see the 13 statics, as in rm.run."""
+    load_jax_native(tmp_path_factory)
     lex = synthetic.digits_lexicon()
     wp = {w: 1.0 / len(lex.entries) for w in lex.entries}
     corpus = synthetic.make_corpus(lex, wp, 14, 1, 4, 29)

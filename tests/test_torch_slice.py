@@ -3,7 +3,9 @@ fbank volumes -> CNN loglikes -> top-K best path -> words, at dither 0;
 the corpus twin; and the port's independence from jax (chip_smoke.py and
 every port module import with jax blocked)."""
 
+import glob
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -145,6 +147,50 @@ def test_port_imports_without_jax():
         "train.discriminative")} <= mods
 
 
+BANNED_IMPORT = re.compile(
+    r"^\s*(?:from|import)\s+(?:jax\b|kaldi_cnn_tpu(?!_torch)\b)"
+    r"|(?:import_module|__import__)\(\s*f?[\"'](?:jax\b|kaldi_cnn_tpu"
+    r"(?!_torch)\b)")
+
+
+def banned_imports(text):
+    """The lines of ``text`` that import jax or the JAX package, at any
+    depth (a verb body's lazy import included)."""
+    return [ln for ln in text.splitlines() if BANNED_IMPORT.search(ln)]
+
+
+def test_banned_imports_finds_lazy_imports():
+    for ln in ("import jax", "    import jax.numpy as jnp",
+               "from jax import lax", "        from kaldi_cnn_tpu.io import x",
+               "import kaldi_cnn_tpu", "import kaldi_cnn_tpu.cli as c",
+               "    m = importlib.import_module(f'kaldi_cnn_tpu.recipes.x')",
+               "__import__('jax')"):
+        assert banned_imports(ln) == [ln], ln
+    for ln in ("import jaxtyping_like_name_is_not_jax_x",
+               "from kaldi_cnn_tpu_torch.io import x",
+               "import kaldi_cnn_tpu_torch",
+               "importlib.import_module(f'kaldi_cnn_tpu_torch.recipes.x')",
+               "# the JAX package (kaldi_cnn_tpu/cli.py:31) draws jax keys"):
+        assert banned_imports(ln) == [], ln
+
+
+def test_port_sources_import_no_jax():
+    """A source scan of every port module and chip_smoke.py: no import of
+    jax or the JAX package anywhere, inside function bodies too (which
+    ``test_port_imports_without_jax`` cannot see)."""
+    paths = sorted(glob.glob(os.path.join(ROOT, "kaldi_cnn_tpu_torch", "**",
+                                          "*.py"), recursive=True))
+    paths.append(os.path.join(ROOT, "chip_smoke.py"))
+    assert len(paths) >= 85
+    found = {}
+    for path in paths:
+        with open(path) as f:
+            bad = banned_imports(f.read())
+        if bad:
+            found[os.path.relpath(path, ROOT)] = bad
+    assert found == {}
+
+
 def _tiny_graph():
     lex = synthetic.digits_lexicon()
     wp = {w: 1.0 / len(lex.entries) for w in lex.entries}
@@ -158,7 +204,9 @@ def _tiny_graph():
     "compute_fbank_volumes", "Conv2DComponent", "ng_init", "wsj.run",
     "compute_features", "mfcc FeatureExtractor", "make_pnorm_dnn",
     "OnlineBaseFeature", "OnlineRecognizer", "StreamingDecoder",
-    "swbd.run", "make_convnet_ivector", "librispeech.run"])
+    "swbd.run", "make_convnet_ivector", "librispeech.run",
+    "compute-fbank-feats verb", "add-deltas verb", "nnet-train verb",
+    "latgen-faster verb"])
 def test_entry_points_default_to_the_card(entry):
     """Left without ``device``, the port's entry points run on the card;
     where there is none they raise, at construction or at the first call,
@@ -177,6 +225,7 @@ def test_entry_points_default_to_the_card(entry):
     from kaldi_cnn_tpu_torch.online2 import (OnlineBaseFeature,
                                              OnlineRecognizer)
     from kaldi_cnn_tpu_torch.recipes.yesno import compute_features
+    from kaldi_cnn_tpu_torch import cli
     wave = np.zeros(800, np.float32)
     lex = synthetic.digits_lexicon()
     wp = {w: 1.0 / len(lex.entries) for w in lex.entries}
@@ -208,6 +257,15 @@ def test_entry_points_default_to_the_card(entry):
                                                    nnet_epochs=1),
         "make_convnet_ivector": lambda: make_convnet_ivector(
             ConvnetConfig(**CFG), ivector_dim=4),
+        "compute-fbank-feats verb": lambda: cli.main([
+            "compute-fbank-feats", "wav.scp", "feats.ark"]),
+        "add-deltas verb": lambda: cli.main([
+            "add-deltas", "feats.ark", "deltas.ark"]),
+        "nnet-train verb": lambda: cli.main([
+            "nnet-train", "mono.mdl", "egs.npz", "am.mdl"]),
+        "latgen-faster verb": lambda: cli.main([
+            "latgen-faster", "--lang-dir=lang", "am.mdl", "HCLG.txt",
+            "feats.scp", "lats.npz", "hyp.txt"]),
     }
     with pytest.raises((RuntimeError, AssertionError),
                        match="CUDA|NVIDIA|cuda"):
