@@ -208,6 +208,33 @@ then runs these phases; any failure raises and the exit code is not 0.
    its loglikes those of the same verb with --device=cpu --host-decode
    within LOGLIKE_ATOL.  The fbank and conv+maxpool kernels must launch
    in the phase, which must end within CLI_PHASE_S.
+15. The lattice layer (run right after phase 14, on its files): (a)
+   phase 14 (b)'s front end again in the phase (compute-fbank-feats ->
+   add-deltas -> splice-feats -> latgen-faster on the card, so both
+   kernels run in it), then the lattice verbs on those lattices:
+   lattice-best-path must give latgen-faster's one-best on every
+   utterance; lattice-copy npz -> Kaldi-binary ark -> npz, twice, must
+   give the same ark bytes and the same lattices arc for arc; lattice-copy
+   with no output prints every key; lattice-scale --acoustic-scale=0.1
+   then lattice-best-path must equal lattice-best-path at that scale;
+   lattice-lmrescore with the unigram ARPA the HCLG was built from, at
+   --scale=-1 (which must move every one-best cost) and then +1, must
+   give back every one-best with its cost within LM_COST_ATOL;
+   lattice-prune, -determinize, -push, -minimize, -mbr-decode, -nbest and
+   -to-post must give output for every key; the native Table reader
+   (``io.native_io.ArkIndex``, built on this machine) must read
+   compute-fbank-feats' ark equal to ``read_ark``.  (b) The big graph of
+   ``bench.py:194`` (``make_big_graph``, BIG_GRAPH: >= 100,000 states and
+   >= 1,000,000 arcs): 20 frames at beam 60, max_active 16384 on the card
+   must give the host exact Viterbi's words and cost (BIG_COST_REL /
+   BIG_COST_ABS); then BIG_UTTS x BIG_FRAMES frames at the reference
+   settings (beam 15, max_active 7000, lattice beam 8): the best-path and
+   lattice decodes' seconds and RTF, the lattice arcs, the overflow
+   (must drop no arc) and the peak ``torch.cuda.max_memory_allocated``;
+   the first BIG_COPY_UTTS lattices through lattice-copy (ark and back,
+   arc for arc) and lattice-determinize.  The fbank and conv+maxpool
+   kernels must launch in the phase, which must end within
+   LATTICE_PHASE_S.
 
 Output: the GPU's name and power limit (nvidia-smi), the build time, one
 line per check, the total seconds, a JSON line {"kernels": [...]} (for
@@ -215,7 +242,8 @@ each kernel its launches in the recipe run of phase 8, the whole main
 path, with each phase's count in ``launches_by_phase``, phase 9's as
 its recognizer run "streaming" and its two verb runs "verb_card" and
 "verb_host", phase 10's as "swbd", phase 11's as "rm", phase 12's as
-"librispeech", phase 13's as "mmi", phase 14's as "cli"; error, ms,
+"librispeech", phase 13's as "mmi", phase 14's as "cli", phase 15's as
+"lattice"; error, ms,
 plain_ms, bound_ms, bound_by, library_ms, graph_ms and library_graph_ms,
 at the main path's shapes, and the same at the Switchboard shapes under
 "swbd_f48...") and, last, the JSON line {"ok": true,
@@ -251,14 +279,18 @@ from kaldi_cnn_tpu_torch.convert import (opt_from_jax, opt_to_numpy,
 from kaldi_cnn_tpu_torch.core import mesh as mesh_ops
 from kaldi_cnn_tpu_torch.core.rng import np_rng, torch_generator
 from kaldi_cnn_tpu_torch.decode import topk_decoder
-from kaldi_cnn_tpu_torch.decode.decoder import lattice_decode
+from kaldi_cnn_tpu_torch.decode.biggraph import make_big_graph, sample_loglikes
+from kaldi_cnn_tpu_torch.decode.decoder import lattice_decode, viterbi_decode
 from kaldi_cnn_tpu_torch.decode.graph import CompiledGraph
-from kaldi_cnn_tpu_torch.decode.lattice import load_lattices, shortest_path
+from kaldi_cnn_tpu_torch.decode.lattice import (load_lattices, save_lattices,
+                                                shortest_path)
 from kaldi_cnn_tpu_torch.decode.score import wer_details
 from kaldi_cnn_tpu_torch.decode.topk_decoder import (StreamingDecoder,
                                                      TopKDecoder)
 from kaldi_cnn_tpu_torch.features import functional as F
 from kaldi_cnn_tpu_torch.gmm.train import align_equal
+from kaldi_cnn_tpu_torch.io import native_io
+from kaldi_cnn_tpu_torch.io.kaldi_io import read_ark
 from kaldi_cnn_tpu_torch.io.kaldi_model import (read_am_nnet,
                                                 write_am_nnet,
                                                 write_gmm_model)
@@ -364,6 +396,15 @@ CLI_UTTS = 40
 CLI_MONO_ITERS = 14
 CLI_EPOCHS = 8
 CLI_PHASE_S = 40.0
+# the lattice layer (phase 15): the verbs on latgen-faster's lattices of
+# phase 8's CNN, then the big graph of bench.py:194 on the card
+LATTICE_PHASE_S = 60.0
+LM_COST_ATOL = 1e-3       # one-best cost after lmrescore at -1, then +1
+BIG_GRAPH = dict(num_words=90_000, num_pdfs=256, min_len=4, max_len=8,
+                 seed=3)
+BIG_COST_REL, BIG_COST_ABS = 1e-4, 0.1   # top-K vs host exact Viterbi
+BIG_UTTS, BIG_FRAMES = 16, 200
+BIG_COPY_UTTS = 4
 # published H100 SXM peaks (NVIDIA data sheet, dense) for bound_ms
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -2028,6 +2069,230 @@ def cli_phase(dev, exp_dir, tmp, test):
     return launches
 
 
+def lattices_equal(a, b) -> bool:
+    """Two lattice dicts with the same keys and, per key, the same states
+    and arcs (labels and costs bit for bit)."""
+    return sorted(a) == sorted(b) and all(
+        (a[u].num_states, a[u].start) == (b[u].num_states, b[u].start)
+        and all(np.array_equal(getattr(a[u], k), getattr(b[u], k))
+                for k in ("state_time", "arc_src", "arc_dst", "arc_ilabel",
+                          "arc_olabel", "arc_graph", "arc_acoustic",
+                          "final_graph"))
+        for u in a)
+
+
+def kaldi_round_trip(npz, stem, secs):
+    """``lattice-copy`` npz -> Kaldi-binary ark -> npz, twice: True when
+    the second ark is byte for byte the first (the CompactLattice arcs
+    survive the archive) and the two npz hold the same lattices, arc for
+    arc; also returns the lattices read back."""
+    ark1, ark2 = f"{stem}.1.ark", f"{stem}.2.ark"
+    back1, back2 = f"{stem}.1.npz", f"{stem}.2.npz"
+    for a, b in ((npz, ark1), (ark1, back1), (back1, ark2), (ark2, back2)):
+        run_verb(["lattice-copy", a, b], secs)
+    with open(ark1, "rb") as f, open(ark2, "rb") as g:
+        same_ark = f.read() == g.read()
+    lats = load_lattices(back1)
+    return same_ark and lattices_equal(lats, load_lattices(back2)), lats
+
+
+def best_paths(text):
+    """``lattice-best-path`` stdout -> {utt: words}."""
+    return {ln.split()[0]: ln.split()[1:] for ln in text.splitlines()
+            if ln.strip()}
+
+
+def lattice_phase(dev, tmp, test):
+    """Phase 15: (a) the lattice verbs on latgen-faster's lattices of phase
+    8's CNN (phase 14's files, the features redone in the phase), (b) the
+    big graph on the card; returns the kernels' launches in the phase."""
+    t_phase = time.perf_counter()
+    d = os.path.join(tmp, "cli")
+    L = os.path.join(tmp, "lattice")
+    os.makedirs(L)
+
+    def p(*names):
+        return os.path.join(d, *names)
+
+    def q(name):
+        return os.path.join(L, name)
+
+    reset_launches()
+    # ---- (a) the verbs on the CNN's lattices ------------------------------
+    secs = {}
+    for argv in (
+            ["compute-fbank-feats", "--num-mel-bins=36", "--dither=0",
+             p("wsj", "wav.scp"), q("fbank.ark")],
+            ["add-deltas", q("fbank.ark"), q("deltas.ark")],
+            ["splice-feats", f"--left-context={wsj.CONTEXT}",
+             f"--right-context={wsj.CONTEXT}", q("deltas.ark"),
+             q("spliced.ark"), f"--out-scp={q('spliced.scp')}"],
+            ["latgen-faster", "--beam=60", "--max-active=2000",
+             "--lattice-beam=8", f"--acoustic-scale={wsj.ACOUSTIC_SCALE}",
+             f"--lang-dir={p('wsj_lang')}", p("cnn.mdl"), p("wsj_HCLG.txt"),
+             q("spliced.scp"), q("lats.npz"), q("hyp.txt")]):
+        run_verb(argv, secs)
+    # the native Table reader, built on this machine, on the feature ark
+    index = native_io.ArkIndex(q("fbank.ark"))
+    feats = list(read_ark(q("fbank.ark")))
+    native_ok = index.keys == [k for k, _ in feats] and all(
+        np.array_equal(index.value(i), v) for i, (_, v) in enumerate(feats))
+    lats = load_lattices(q("lats.npz"))
+    utts = sorted(lats)
+    hyps = cli_train._read_text(q("hyp.txt"))
+    same_as_cli = sum(hyps[u] == h for u, h in cli_train._read_text(
+        p("wsj_hyp.txt")).items() if u in hyps)
+    words = f"--word-table={p('wsj_lang', 'words.txt')}"
+    ac = f"--acoustic-scale={wsj.ACOUSTIC_SCALE}"
+    best = best_paths(run_verb(["lattice-best-path", ac, words,
+                                q("lats.npz")], secs))
+    copy_ok, _ = kaldi_round_trip(q("lats.npz"), q("lats"), secs)
+    text = run_verb(["lattice-copy", q("lats.npz")], secs)
+    text_keys = [ln for ln in text.splitlines() if ln in lats]
+    run_verb(["lattice-scale", ac, q("lats.npz"), q("scaled.npz")], secs)
+    scaled = best_paths(run_verb(["lattice-best-path", words,
+                                  q("scaled.npz")], secs))
+    with open(q("unigram.arpa"), "w") as f:
+        f.write(make_unigram_arpa(test.word_probs))
+    for scale, src, dst in (("-1", "lats", "minus"), ("1", "minus", "back")):
+        run_verb(["lattice-lmrescore", f"--scale={scale}", words,
+                  q("unigram.arpa"), q(f"{src}.npz"), q(f"{dst}.npz")], secs)
+    minus, back = load_lattices(q("minus.npz")), load_lattices(q("back.npz"))
+    lm_words = lm_cost = 0
+    lm_err = 0.0
+    for u in utts:
+        _, w0, c0 = shortest_path(lats[u], 1.0, wsj.ACOUSTIC_SCALE)
+        _, w1, c1 = shortest_path(back[u], 1.0, wsj.ACOUSTIC_SCALE)
+        lm_words += list(w0) == list(w1)
+        lm_err = max(lm_err, abs(c1 - c0))
+        lm_cost += abs(shortest_path(minus[u], 1.0, wsj.ACOUSTIC_SCALE)[2]
+                       - c0) > LM_COST_ATOL
+    outputs = {}
+    for verb, extra in (("lattice-prune", ["--beam=4", ac]),
+                        ("lattice-determinize", [ac]),
+                        ("lattice-push", []), ("lattice-minimize", [])):
+        run_verb([verb, *extra, q("lats.npz"), q(f"{verb}.npz")], secs)
+        outputs[verb] = sorted(load_lattices(q(f"{verb}.npz")))
+    for verb, extra in (("lattice-mbr-decode", [ac, words]),
+                        ("lattice-nbest", ["--n=3", ac]),
+                        ("lattice-to-post", [ac])):
+        out = run_verb([verb, *extra, q("lats.npz")], secs)
+        outputs[verb] = sorted({ln.split()[0].rsplit("-", 1)[0]
+                                if verb == "lattice-nbest" else ln.split()[0]
+                                for ln in out.splitlines() if ln.strip()})
+    verbs_s = time.perf_counter() - t_phase
+    arcs = [lats[u].num_arcs for u in utts]
+    log(f"lattice verbs: latgen-faster on phase 8's CNN ({len(utts)} test "
+        f"utterances, lattices of {min(arcs)}-{max(arcs)} arcs; one-best "
+        f"equal to phase 14's on {same_as_cli} of {len(utts)}, not "
+        f"asserted): " + ", ".join(f"{k} {v:.3f}" for k, v in secs.items())
+        + f" s; lattice-best-path = latgen-faster's one-best on "
+        f"{sum(best.get(u) == hyps[u] for u in utts)} of {len(utts)}; "
+        f"lattice-copy npz -> ark -> npz arc for arc: {copy_ok}; text for "
+        f"{len(text_keys)} keys; lattice-scale then best path = best path "
+        f"at the scale on {sum(scaled.get(u) == best.get(u) for u in utts)};"
+        f" lmrescore -1 moved the one-best cost of {lm_cost}, -1 then +1 "
+        f"gives back the one-best words on {lm_words}, cost max |diff| "
+        f"{lm_err:.3g} (limit {LM_COST_ATOL}); every key out of "
+        + ", ".join(f"{v} {len(k)}" for v, k in outputs.items())
+        + f"; native ArkIndex on compute-fbank-feats' ark: {len(index)} "
+        f"entries, equal to read_ark: {native_ok}; {verbs_s:.1f} s")
+    if not (all(best.get(u) == hyps[u] and scaled.get(u) == best[u]
+                for u in utts)
+            and copy_ok and sorted(text_keys) == utts
+            and lm_words == len(utts) and lm_cost == len(utts)
+            and lm_err <= LM_COST_ATOL
+            and all(k == utts for k in outputs.values())
+            and native_ok and len(index) == len(utts) and sorted(hyps) == utts):
+        raise AssertionError("a lattice verb's check failed")
+
+    # ---- (b) the big graph on the card ------------------------------------
+    t = time.perf_counter()
+    g = make_big_graph(**BIG_GRAPH)
+    P = BIG_GRAPH["num_pdfs"]
+    n_arcs = len(g.e_src) + len(g.n_src)
+    ll = sample_loglikes(g, P, T=20, seed=5)
+    dec = topk_decoder.TopKDecoder(g, beam=60.0, max_active=16384,
+                                   acoustic_scale=1.0, device=dev)
+    ((tids, w_card, c_card),) = dec.decode_batch([ll])
+    _, w_host, c_host = viterbi_decode(g, ll, acoustic_scale=1.0,
+                                       beam=np.inf, max_active=0)
+    exact_s = time.perf_counter() - t
+    exact = (list(w_card) == list(w_host) and len(tids) == len(ll)
+             and abs(c_card - c_host) <= max(BIG_COST_ABS,
+                                             BIG_COST_REL * abs(c_host)))
+    log(f"big graph: make_big_graph({BIG_GRAPH}) {g.num_states} states, "
+        f"{n_arcs} arcs; 20 frames at beam 60, max_active 16384 on the "
+        f"card: {len(w_card)} words, cost {c_card:.4f}; host exact Viterbi "
+        f"{len(w_host)} words, cost {c_host:.4f}; words equal and cost "
+        f"within rel {BIG_COST_REL} / abs {BIG_COST_ABS}: {exact} "
+        f"({exact_s:.2f} s)")
+    if g.num_states < 100_000 or n_arcs < 1_000_000 or not exact:
+        raise AssertionError("the big-graph exactness check failed")
+    del dec
+    lls = [sample_loglikes(g, P, T=BIG_FRAMES, seed=s)
+           for s in range(BIG_UTTS)]
+    audio_s = BIG_UTTS * BIG_FRAMES / 100.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    dec = topk_decoder.TopKDecoder(g, beam=15.0, max_active=7000,
+                                   acoustic_scale=1.0, lattice_beam=8.0,
+                                   lattice_arcs_per_frame=None, device=dev)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t
+    t = time.perf_counter()
+    paths = dec.decode_batch(lls)
+    best_s = time.perf_counter() - t
+    t = time.perf_counter()
+    big_lats = dec.decode_batch_lattice(lls, determinize=False)
+    lat_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
+    dropped, o_frames = dec.last_overflow
+    agree = sum(list(shortest_path(lat, 1.0, 1.0)[1]) == list(w)
+                for lat, (_, w, _) in zip(big_lats, paths))
+    big = {f"big{i:02d}": big_lats[i] for i in range(BIG_COPY_UTTS)}
+    save_lattices(q("big.npz"), big)
+    big_secs = {}
+    big_copy_ok, big_back = kaldi_round_trip(q("big.npz"), q("big"),
+                                             big_secs)
+    big_words_ok = all(
+        list(shortest_path(big_back[u], 1.0, 1.0)[1])
+        == list(shortest_path(big[u], 1.0, 1.0)[1]) for u in big)
+    run_verb(["lattice-determinize", "--acoustic-scale=1.0", q("big.npz"),
+              q("big_det.npz")], big_secs)
+    det = load_lattices(q("big_det.npz"))
+    log(f"big graph decode ({BIG_UTTS} x {BIG_FRAMES} frames, {audio_s} s "
+        f"of audio; beam 15, max_active 7000, lattice beam 8, acoustic "
+        f"scale 1.0; lattice_arcs_per_frame {dec.A_lat}): decoder built "
+        f"{build_s:.3f} s; best path {best_s:.3f} s (RTF "
+        f"{best_s / audio_s:.4f}); lattice, determinize=False, "
+        f"{lat_s:.3f} s (RTF {lat_s / audio_s:.4f}), "
+        f"{sum(l.num_arcs for l in big_lats)} lattice arcs, overflow "
+        f"{dropped} arcs dropped on {o_frames} frames; lattice one-best = "
+        f"best path on {agree} of {BIG_UTTS} (not asserted); peak "
+        f"torch.cuda.max_memory_allocated {peak / 2**20:.1f} MiB; first "
+        f"{BIG_COPY_UTTS} lattices through lattice-copy ark and back arc "
+        f"for arc: {big_copy_ok}, one-best words kept: {big_words_ok}; "
+        f"lattice-determinize: {sum(l.num_arcs for l in det.values())} "
+        f"arcs; " + ", ".join(f"{k} {v:.3f}" for k, v in big_secs.items())
+        + " s")
+    if (dropped != 0 or not big_copy_ok or not big_words_ok
+            or sorted(det) != sorted(big)
+            or any(l.num_arcs == 0 for l in det.values())):
+        raise AssertionError("the big-graph lattice checks failed")
+    launches = read_launches()
+    phase_s = time.perf_counter() - t_phase
+    log(f"lattice phase: {phase_s:.1f} s (limit {LATTICE_PHASE_S}); "
+        f"launches in the phase {launches}")
+    if min(launches["fbank_fft"], launches["conv_maxpool"]) <= 0:
+        raise AssertionError(f"a kernel did not run in the lattice phase: "
+                             f"{launches}")
+    if phase_s > LATTICE_PHASE_S:
+        raise AssertionError(f"the lattice phase took {phase_s:.1f} s")
+    return launches
+
+
 def stream_rows(stream, rows):
     """``rows`` fed to ``stream`` in the frame counts of STREAM_CHUNK_S
     chunks; its final (tids, words, cost)."""
@@ -2294,6 +2559,10 @@ def main() -> int:
         # ---- 14. the command-line verbs, on phase 8's artifacts too ----
         cli_launches = cli_phase(dev, os.path.join(tmp, "wsj"), tmp,
                                  wsj.split_corpus(recipe_corpus)[2])
+
+        # ---- 15. the lattice layer, on phase 14's files, and the big graph
+        lattice_launches = lattice_phase(dev, tmp,
+                                         wsj.split_corpus(recipe_corpus)[2])
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -2323,7 +2592,7 @@ def main() -> int:
         "recipe": recipe_launches, "recipe_mfcc_stage": {"fbank_fft": mfcc_n},
         **stream_launches, "swbd": swbd_launches, "rm": rm_launches,
         "librispeech": libri_launches, "mmi": mmi_launches,
-        "cli": cli_launches}
+        "cli": cli_launches, "lattice": lattice_launches}
 
     def entry(name, source, replaces, n, r, pre=""):
         return {"name": name, "route": "cuda",

@@ -23,6 +23,9 @@ ark/scp piping model via the io layer):
   gmm-info                   gmmbin/gmm-info.cc
   ali-to-pdf                 bin/ali-to-pdf.cc
   arpa2fst                   bin/arpa2fst.cc
+  lattice-best-path, -copy, -mbr-decode, -nbest, -prune, -push,
+  -minimize, -determinize, -scale, -lmrescore, -to-post
+                             latbin/lattice-*.cc
   run-recipe                 egs/<corpus>/run.sh equivalents
 
 and the pipeline verbs of ``cli_train.py`` (prepare-lang ...
@@ -30,7 +33,9 @@ latgen-faster, online2-wav-latgen).  A verb that computes on tensors
 (the feature extraction, apply-cmvn, add-deltas, apply-cmvn-stats, the
 nnet-am verbs, nnet-train, latgen-faster, online2-wav-latgen) runs on
 the card unless given ``--device=cpu``, and raises without one.  The
-JAX package's lattice verbs are not ported yet.
+lattice verbs (lattice-best-path ... lattice-to-post, on npz lattice
+archives and Kaldi-binary CompactLattice arks) are host code and take
+no ``--device``.
 
 Every verb self-documents with --help (ref: ParseOptions usage
 strings).
@@ -301,8 +306,15 @@ def cmd_apply_cmvn_stats(argv: List[str]) -> int:
 
 
 # --------------------------------------------------------------------------
-# model verbs (ref: src/nnet2bin/, src/gmmbin/)
+# lattice verbs (ref: src/latbin/*.cc; archives are the npz form of
+# decode/lattice.py save_lattices)
 # --------------------------------------------------------------------------
+
+def _lat_scales(p: argparse.ArgumentParser) -> None:
+    p.add_argument("--acoustic-scale", type=float, default=1.0)
+    p.add_argument("--lm-scale", type=float, default=1.0)
+    p.add_argument("--word-ins-penalty", type=float, default=0.0)
+
 
 def _load_word_table(path):
     from kaldi_cnn_tpu_torch.lang.symbols import SymbolTable
@@ -310,6 +322,192 @@ def _load_word_table(path):
         return None
     return SymbolTable.read(path)
 
+
+def _words_str(words, table) -> str:
+    if table is None:
+        return " ".join(str(int(w)) for w in words)
+    return " ".join(table.sym(int(w)) for w in words)
+
+
+def cmd_lattice_best_path(argv: List[str]) -> int:
+    from kaldi_cnn_tpu_torch.decode.lattice import load_lattices, shortest_path
+    p = argparse.ArgumentParser(prog="lattice-best-path")
+    _lat_scales(p)
+    p.add_argument("--word-table", default=None)
+    p.add_argument("lat_npz")
+    args = p.parse_args(argv)
+    table = _load_word_table(args.word_table)
+    for utt, lat in sorted(load_lattices(args.lat_npz).items()):
+        _, words, cost = shortest_path(
+            lat, args.lm_scale, args.acoustic_scale,
+            args.word_ins_penalty)
+        print(f"{utt} {_words_str(words, table)}")
+        print(f"{utt} cost={cost:.4f}", file=sys.stderr)
+    return 0
+
+
+def cmd_lattice_copy(argv: List[str]) -> int:
+    """Copy/convert lattice archives between the native npz form and
+    Kaldi-binary CompactLattice arks (ref: latbin/lattice-copy.cc).
+    Format is sniffed on read (npz = zip magic) and chosen on write by
+    extension: ``.npz`` native, anything else Kaldi binary."""
+    from kaldi_cnn_tpu_torch.decode.lattice import load_lattices, save_lattices
+    from kaldi_cnn_tpu_torch.io.kaldi_lattice import (
+        read_compact_lattice_ark, write_compact_lattice_ark)
+    p = argparse.ArgumentParser(prog="lattice-copy")
+    p.add_argument("lat_in")
+    p.add_argument("lat_out", nargs="?", default=None,
+                   help="omit to dump Kaldi text-lattice form to stdout")
+    args = p.parse_args(argv)
+    with open(args.lat_in, "rb") as f:
+        is_npz = f.read(2) == b"PK"
+    lats = (load_lattices(args.lat_in) if is_npz
+            else read_compact_lattice_ark(args.lat_in))
+    if args.lat_out is None:         # text dump (lattice-copy text mode)
+        from kaldi_cnn_tpu_torch.decode.lattice import write_lattice_text
+        for utt, lat in sorted(lats.items()):
+            print(utt)
+            write_lattice_text(lat, sys.stdout)
+            print()
+    elif args.lat_out.endswith(".npz"):
+        save_lattices(args.lat_out, lats)
+    else:
+        write_compact_lattice_ark(args.lat_out, lats)
+    print(f"lattice-copy: {len(lats)} lattices", file=sys.stderr)
+    return 0
+
+
+def cmd_lattice_mbr(argv: List[str]) -> int:
+    from kaldi_cnn_tpu_torch.decode.lattice import load_lattices, mbr_decode
+    p = argparse.ArgumentParser(prog="lattice-mbr-decode")
+    _lat_scales(p)
+    p.add_argument("--word-table", default=None)
+    p.add_argument("lat_npz")
+    args = p.parse_args(argv)
+    table = _load_word_table(args.word_table)
+    for utt, lat in sorted(load_lattices(args.lat_npz).items()):
+        words = mbr_decode(lat, args.lm_scale, args.acoustic_scale)
+        print(f"{utt} {_words_str(words, table)}")
+    return 0
+
+
+def cmd_lattice_nbest(argv: List[str]) -> int:
+    from kaldi_cnn_tpu_torch.decode.lattice import load_lattices, nbest
+    p = argparse.ArgumentParser(prog="lattice-nbest")
+    _lat_scales(p)
+    p.add_argument("--n", type=int, default=10)
+    p.add_argument("--word-table", default=None)
+    p.add_argument("lat_npz")
+    args = p.parse_args(argv)
+    table = _load_word_table(args.word_table)
+    for utt, lat in sorted(load_lattices(args.lat_npz).items()):
+        for i, (words, cost) in enumerate(nbest(
+                lat, args.n, args.lm_scale, args.acoustic_scale,
+                args.word_ins_penalty), 1):
+            print(f"{utt}-{i} {_words_str(words, table)}")
+    return 0
+
+
+def cmd_lattice_unary(argv: List[str], verb: str) -> int:
+    """prune/push/minimize/determinize/scale: npz in -> npz out."""
+    from kaldi_cnn_tpu_torch.decode import lattice as L
+    p = argparse.ArgumentParser(prog=verb)
+    _lat_scales(p)
+    if verb == "lattice-prune":
+        p.add_argument("--beam", type=float, default=8.0)
+    if verb == "lattice-determinize":
+        p.add_argument("--max-paths", type=int, default=200)
+    p.add_argument("lat_in")
+    p.add_argument("lat_out")
+    args = p.parse_args(argv)
+    out = {}
+    for utt, lat in L.load_lattices(args.lat_in).items():
+        if verb == "lattice-prune":
+            out[utt] = L.prune_lattice(lat, args.beam, args.lm_scale,
+                                       args.acoustic_scale)
+        elif verb == "lattice-push":
+            out[utt] = L.push_lattice(lat)
+        elif verb == "lattice-minimize":
+            out[utt] = L.minimize_lattice(lat)
+        elif verb == "lattice-determinize":
+            out[utt] = L.determinize_lattice(
+                lat, args.lm_scale, args.acoustic_scale,
+                max_paths=args.max_paths)
+        else:  # lattice-scale (ref: latbin/lattice-scale.cc)
+            lat.arc_graph = (args.lm_scale * lat.arc_graph).astype(
+                np.float32)
+            lat.arc_acoustic = (args.acoustic_scale
+                                * lat.arc_acoustic).astype(np.float32)
+            lat.final_graph = np.where(
+                np.isfinite(lat.final_graph),
+                args.lm_scale * lat.final_graph,
+                np.inf).astype(np.float32)
+            out[utt] = lat
+    L.save_lattices(args.lat_out, out)
+    print(f"{verb}: {len(out)} lattices", file=sys.stderr)
+    return 0
+
+
+def cmd_lattice_lmrescore(argv: List[str]) -> int:
+    """(ref: latbin/lattice-lmrescore-const-arpa.cc; use --scale=-1
+    with the old LM first to swap LMs)."""
+    from kaldi_cnn_tpu_torch.decode.lattice import (
+        lm_rescore, load_lattices, save_lattices)
+    from kaldi_cnn_tpu_torch.lang.arpa import parse_arpa
+    from kaldi_cnn_tpu_torch.lang.const_arpa import ConstArpaLm
+    p = argparse.ArgumentParser(prog="lattice-lmrescore")
+    p.add_argument("--scale", type=float, default=1.0)
+    p.add_argument("--word-table", default=None,
+                   help="words.txt mapping LM words to lattice ids")
+    p.add_argument("arpa_or_npz", help=".arpa text or const-arpa .npz")
+    p.add_argument("lat_in")
+    p.add_argument("lat_out")
+    args = p.parse_args(argv)
+    if args.arpa_or_npz.endswith(".npz"):
+        lm = ConstArpaLm.load(args.arpa_or_npz)
+    else:
+        table = _load_word_table(args.word_table)
+        vocab = dict(table._sym2id) if table is not None else None
+        lm = ConstArpaLm.from_arpa(
+            parse_arpa(open(args.arpa_or_npz).read()), vocab)
+    out = {utt: lm_rescore(lat, lm, args.scale)
+           for utt, lat in load_lattices(args.lat_in).items()}
+    save_lattices(args.lat_out, out)
+    print(f"rescored {len(out)} lattices", file=sys.stderr)
+    return 0
+
+
+def cmd_lattice_to_post(argv: List[str]) -> int:
+    """Per-frame transition-id posteriors in Kaldi text posterior
+    format ``utt [ tid w .. ] [ .. ]`` (ref: latbin/lattice-to-post.cc)."""
+    from kaldi_cnn_tpu_torch.decode.lattice import arc_posteriors, load_lattices
+    p = argparse.ArgumentParser(prog="lattice-to-post")
+    _lat_scales(p)
+    p.add_argument("lat_npz")
+    args = p.parse_args(argv)
+    for utt, lat in sorted(load_lattices(args.lat_npz).items()):
+        post = arc_posteriors(lat, args.lm_scale, args.acoustic_scale)
+        frames: Dict[int, Dict[int, float]] = {}
+        for a in range(lat.num_arcs):
+            tid = int(lat.arc_ilabel[a])
+            if tid <= 0:
+                continue
+            t = int(lat.state_time[lat.arc_src[a]])
+            frames.setdefault(t, {})
+            frames[t][tid] = frames[t].get(tid, 0.0) + float(post[a])
+        chunks = []
+        for t in range(max(frames) + 1 if frames else 0):
+            items = frames.get(t, {})
+            body = " ".join(f"{tid} {w:.6g}"
+                            for tid, w in sorted(items.items()))
+            chunks.append(f"[ {body} ]")
+        print(f"{utt} {' '.join(chunks)}")
+    return 0
+
+
+# --------------------------------------------------------------------------
+# model verbs (ref: src/nnet2bin/, src/gmmbin/)
+# --------------------------------------------------------------------------
 
 def cmd_nnet_am_info(argv: List[str]) -> int:
     from kaldi_cnn_tpu_torch.io.kaldi_model import read_am_nnet
@@ -478,6 +676,18 @@ VERBS.update({
     "arpa2fst": cmd_arpa2fst,
     "compute-kaldi-pitch-feats": cmd_compute_pitch,
     "process-kaldi-pitch-feats": cmd_process_pitch,
+    "lattice-best-path": cmd_lattice_best_path,
+    "lattice-copy": cmd_lattice_copy,
+    "lattice-mbr-decode": cmd_lattice_mbr,
+    "lattice-nbest": cmd_lattice_nbest,
+    "lattice-prune": lambda a: cmd_lattice_unary(a, "lattice-prune"),
+    "lattice-push": lambda a: cmd_lattice_unary(a, "lattice-push"),
+    "lattice-minimize": lambda a: cmd_lattice_unary(a, "lattice-minimize"),
+    "lattice-determinize":
+        lambda a: cmd_lattice_unary(a, "lattice-determinize"),
+    "lattice-scale": lambda a: cmd_lattice_unary(a, "lattice-scale"),
+    "lattice-lmrescore": cmd_lattice_lmrescore,
+    "lattice-to-post": cmd_lattice_to_post,
 })
 
 

@@ -610,7 +610,7 @@ def lm_rescore(lat: Lattice, lm, scale: float = 1.0) -> Lattice:
     (ref: lattice-lmrescore-const-arpa.cc; run once with the old LM at
     scale=-1 and once with the new LM at scale=+1 to swap LMs, exactly
     the reference's lattice-lmrescore flow).  ``lm`` is a
-    :class:`~kaldi_cnn_tpu.lang.const_arpa.ConstArpaLm` over the same
+    :class:`~kaldi_cnn_tpu_torch.lang.const_arpa.ConstArpaLm` over the same
     word ids as the lattice olabels.  States are expanded to
     (state, LM history) pairs, so higher-order LMs split lattice states
     as needed."""

@@ -187,12 +187,31 @@ def process_window(
     return x, raw_energy
 
 
+def frame_signal(
+    wave: torch.Tensor,
+    opts: FrameExtractionOptions,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """wave [N] -> (windowed, zero-padded frames [T, padded], log-energy
+    [T]), on the wave's device."""
+    win, energy = process_window(extract_frames(wave, opts), opts,
+                                 generator)
+    pad = opts.padded_window_size - opts.window_size
+    if pad > 0:
+        win = torch.nn.functional.pad(win, (0, pad))
+    return win, energy
+
+
 # --------------------------------------------------------------------------
 # Mel filterbank / DFT tables (host numpy)
 # --------------------------------------------------------------------------
 
 def mel_scale(freq):
     return 1127.0 * np.log(1.0 + np.asarray(freq) / 700.0)
+
+
+def inverse_mel_scale(mel):
+    return 700.0 * (np.exp(np.asarray(mel) / 1127.0) - 1.0)
 
 
 @lru_cache(maxsize=None)
@@ -261,6 +280,12 @@ def dft_matrices(padded_window_size: int):
 # fbank and MFCC references (rfft), deltas
 # --------------------------------------------------------------------------
 
+def power_spectrum(windowed: torch.Tensor) -> torch.Tensor:
+    """[T, padded] -> [T, padded//2+1] |rfft|^2 (srfft.cc equivalent)."""
+    spec = torch.fft.rfft(windowed, dim=-1)
+    return (spec.real ** 2 + spec.imag ** 2).to(torch.float32)
+
+
 def compute_fbank(
     wave: torch.Tensor,
     opts: Optional[FbankOptions] = None,
@@ -271,13 +296,8 @@ def compute_fbank(
     if used, goes in column 0)."""
     opts = opts or FbankOptions()
     fo = opts.frame_opts
-    windowed, log_energy = process_window(extract_frames(wave, fo), fo,
-                                          generator)
-    pad = fo.padded_window_size - fo.window_size
-    if pad > 0:
-        windowed = torch.nn.functional.pad(windowed, (0, pad))
-    spec = torch.fft.rfft(windowed, dim=-1)
-    power = (spec.real ** 2 + spec.imag ** 2).to(torch.float32)
+    windowed, log_energy = frame_signal(wave, fo, generator)
+    power = power_spectrum(windowed)
     mel = torch.as_tensor(mel_banks(opts.mel_opts, fo), device=wave.device)
     feats = power @ mel.T
     if opts.use_log_fbank:

@@ -1,15 +1,18 @@
 """Native (C++) host components with ctypes bindings (copy of
-``kaldi_cnn_tpu/native/__init__.py``, reduced to what the port uses).
+``kaldi_cnn_tpu/native/__init__.py``).
 
-C++ sources in this package are compiled on first use into a cached
-shared library (g++ -O3) under ``kaldi_cnn_tpu_torch/_build/`` and bound
-via ctypes, with numpy fallbacks in the callers when no toolchain is
-available.
+Every ``.cc`` source in this package is compiled on first use into one
+cached shared library (g++ -O3) under ``kaldi_cnn_tpu_torch/_build/``
+(written to a temporary name and renamed, so concurrent builds never
+load a half-written file) and bound via ctypes, with numpy / pure-Python
+fallbacks in the callers when no toolchain is available.
 
-Current components:
-  viterbi.cc  — host token-passing core (ref: faster-decoder.cc), a
-                verbatim copy of the JAX package's, used by
-                decode.decoder for alignment.
+Current components, both verbatim copies of the JAX package's:
+  viterbi.cc  — host token-passing core (ref: faster-decoder.cc), used
+                by decode.decoder for alignment.
+  tableio.cc  — ark archive scanner (ref: util/kaldi-table-inl.h
+                readers), used by io.native_io for mmap-backed
+                sequential/random-access Table readers.
 """
 
 from __future__ import annotations
@@ -66,5 +69,14 @@ def load() -> Optional[ctypes.CDLL]:
         i32, i32, ctypes.POINTER(ctypes.c_int64),
         ctypes.POINTER(ctypes.c_float),
     ]
+    u8 = ndpointer(np.uint8, flags="C_CONTIGUOUS")
+    i64 = ndpointer(np.int64, flags="C_CONTIGUOUS")
+    lib.kct_ark_index.restype = ctypes.c_int64
+    lib.kct_ark_index.argtypes = [
+        u8, ctypes.c_int64, ctypes.c_int64,
+        i64, i32, i64, i32, i32, i32,
+    ]
+    lib.kct_ark_read_ivec.restype = ctypes.c_int32
+    lib.kct_ark_read_ivec.argtypes = [u8, ctypes.c_int32, i32]
     _LIB = lib
     return _LIB

@@ -1,8 +1,9 @@
 """Deterministic synthetic speech corpora (jax-free twin of
 ``kaldi_cnn_tpu/recipes/synthetic.py``: the noisy digits corpus of the
 WSJ-style recipe, the speaker corpus of the Switchboard-style one, the
-clean corpus and the yes/no lexicon of the RM and yesno recipes; same
-seeds, bit-identical waves).
+clean corpus and the yes/no lexicon of the RM and yesno recipes, and the
+pseudo-word lexicon of the graph-scale tests; same seeds, bit-identical
+waves).
 
 Replaces the reference's downloaded corpora (egs/yesno/s5 waves etc.)
 in this offline environment: each phone gets a stable formant-like
@@ -224,6 +225,28 @@ def make_speaker_corpus(
             trans[utt] = ws
             spk_of[utt] = f"spk{s:02d}"
     return (SyntheticCorpus(lexicon, word_probs, waves, trans), spk_of)
+
+
+def large_lexicon(num_words: int = 60, seed: int = 7) -> Lexicon:
+    """Pseudo-word lexicon over a 20-phone inventory for graph-scale
+    tests (3-5 phones per word, unique pronunciations)."""
+    phones = ["AA", "AE", "AH", "AO", "AY", "EH", "EY", "IH", "IY",
+              "OW", "UW", "B", "D", "F", "K", "M", "N", "R", "S", "T"]
+    rng = np_rng(seed, "large_lexicon")
+    entries = {}
+    seen = set()
+    i = 0
+    while len(entries) < num_words:
+        n = int(rng.integers(3, 6))
+        pron = tuple(phones[int(k)]
+                     for k in rng.integers(0, len(phones), n))
+        if pron in seen:
+            continue
+        seen.add(pron)
+        entries[f"word{i:03d}"] = [(list(pron), 1.0)]
+        i += 1
+    return Lexicon(entries=entries, silence_phone="SIL",
+                   optional_silence_prob=0.5)
 
 
 def yesno_lexicon() -> Lexicon:

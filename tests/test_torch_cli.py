@@ -168,7 +168,7 @@ def test_card_verbs_without_a_card_raise(verb, tmp_path, monkeypatch):
 
 
 def test_unknown_verb_and_help(capsys):
-    assert cli.main(["lattice-best-path"]) == 2
+    assert cli.main(["no-such-verb"]) == 2
     assert cli.main([]) == 0
     assert "online2-wav-latgen" in capsys.readouterr().out
 

@@ -348,7 +348,12 @@ def test_help_lists_the_ported_verbs(capsys):
     assert cli.main(["--help"]) == 0
     listed = capsys.readouterr().out.split("verbs:")[-1]
     listed = {v.strip() for v in listed.split(",")}
-    assert set(PORTED) | {"online2-wav-latgen", "run-recipe",
-                          "compute-kaldi-pitch-feats",
-                          "process-kaldi-pitch-feats"} == listed
+    lattice = {"lattice-best-path", "lattice-copy", "lattice-mbr-decode",
+               "lattice-nbest", "lattice-prune", "lattice-push",
+               "lattice-minimize", "lattice-determinize", "lattice-scale",
+               "lattice-lmrescore", "lattice-to-post"}
+    assert set(PORTED) | lattice | {"online2-wav-latgen", "run-recipe",
+                                    "compute-kaldi-pitch-feats",
+                                    "process-kaldi-pitch-feats"} == listed
     assert set(PORTED) <= set(jcli.VERBS)
+    assert listed == set(jcli.VERBS)

@@ -926,7 +926,8 @@ def test_chip_smoke_cli_phase(cuda, tmp_path):
     """chip_smoke.py's phase 14 on the artifacts of a small wsj.run on the
     card (12 utterances, 1 epoch; the phase's own checks: the verbs'
     pipeline, the CNN's words equal to wsj.nnet_decode's, the loglikes
-    within 5e-2 of the CPU replay, kernels 2.1 and 2.2 launched)."""
+    within 5e-2 of the CPU replay, kernels 2.1 and 2.2 launched), then
+    phase 15 on its files (the lattice verbs' checks, the big graph)."""
     import importlib.util
     import os
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -941,3 +942,48 @@ def test_chip_smoke_cli_phase(cuda, tmp_path):
     launches = smoke.cli_phase(cuda, exp, str(tmp_path),
                                smoke.wsj.split_corpus(corpus)[2])
     assert min(launches["fbank_fft"], launches["conv_maxpool"]) > 0
+    # and phase 15 on its files (the lattice verbs, the big graph)
+    launches = smoke.lattice_phase(cuda, str(tmp_path),
+                                   smoke.wsj.split_corpus(corpus)[2])
+    assert min(launches["fbank_fft"], launches["conv_maxpool"]) > 0
+
+
+def test_big_graph_topk_on_card_matches_host_viterbi(cuda):
+    """``bench.py:194``'s graph (539,948 states, 1,169,894 arcs): 20 frames
+    at beam 60, max_active 16384 on the card give the host exact
+    Viterbi's words, and its cost within rel 1e-4 / abs 0.1."""
+    from kaldi_cnn_tpu_torch.decode.biggraph import (make_big_graph,
+                                                     sample_loglikes)
+    from kaldi_cnn_tpu_torch.decode.decoder import viterbi_decode
+    g = make_big_graph(num_words=90_000, num_pdfs=256, min_len=4,
+                       max_len=8, seed=3)
+    assert g.num_states >= 100_000
+    assert len(g.e_src) + len(g.n_src) >= 1_000_000
+    ll = sample_loglikes(g, 256, T=20, seed=5)
+    dec = TK.TopKDecoder(g, beam=60.0, max_active=16384, acoustic_scale=1.0,
+                         device=cuda)
+    ((tids, words, cost),) = dec.decode_batch([ll])
+    _, words_h, cost_h = viterbi_decode(g, ll, acoustic_scale=1.0,
+                                        beam=np.inf, max_active=0)
+    assert len(tids) == ll.shape[0]
+    assert cost == pytest.approx(cost_h, rel=1e-4, abs=0.1)
+    assert list(words) == list(words_h)
+
+
+@pytest.mark.parametrize("dither", [0.0, 1.0])
+def test_plp_on_card_matches_cpu(cuda, dither):
+    """PLP's framing and power spectrum on the card against the CPU, the
+    same dither noise from one CPU generator seed (cepstra 2e-3 x lifter,
+    energy 1e-3: the rule of the port-vs-JAX test)."""
+    from kaldi_cnn_tpu_torch.features.plp import PlpOptions, compute_plp
+    wave = (np_rng(3, "plp").normal(size=8000) * 1000).astype(np.float32)
+    opts = PlpOptions()
+    opts.frame_opts.samp_freq = 8000.0
+    opts.frame_opts.dither = dither
+    got, want = (compute_plp(wave, opts, torch_generator(3, "plp_dither"),
+                             device=d) for d in (cuda, "cpu"))
+    lim = 2e-3 * F.lifter_coeffs(opts.num_ceps, opts.cepstral_lifter)
+    lim[0] = 1e-3
+    assert got.shape == want.shape == (F.num_frames(8000, opts.frame_opts),
+                                       opts.num_ceps)
+    assert (np.abs(got - want).max(axis=0) <= lim).all()

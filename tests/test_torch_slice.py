@@ -139,12 +139,15 @@ def test_port_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     mods = set(out.stdout.split())
-    assert len(mods) >= 84
+    assert len(mods) >= 93
     assert {f"kaldi_cnn_tpu_torch.{m}" for m in (
         "core.mesh", "parallel", "parallel.dp", "parallel.multihost",
         "parallel.rank_check", "recipes.librispeech",
         "train.sharded_egs", "gmm.ebw", "models.utils",
-        "train.discriminative")} <= mods
+        "train.discriminative", "io.native_io", "io.compressed",
+        "io.kaldi_lattice", "lang.const_arpa", "decode.biggraph",
+        "features.plp", "features.resample", "core.jobs",
+        "core.profiling")} <= mods
 
 
 BANNED_IMPORT = re.compile(
@@ -181,7 +184,7 @@ def test_port_sources_import_no_jax():
     paths = sorted(glob.glob(os.path.join(ROOT, "kaldi_cnn_tpu_torch", "**",
                                           "*.py"), recursive=True))
     paths.append(os.path.join(ROOT, "chip_smoke.py"))
-    assert len(paths) >= 85
+    assert len(paths) >= 94
     found = {}
     for path in paths:
         with open(path) as f:
@@ -206,7 +209,7 @@ def _tiny_graph():
     "OnlineBaseFeature", "OnlineRecognizer", "StreamingDecoder",
     "swbd.run", "make_convnet_ivector", "librispeech.run",
     "compute-fbank-feats verb", "add-deltas verb", "nnet-train verb",
-    "latgen-faster verb"])
+    "latgen-faster verb", "compute_plp"])
 def test_entry_points_default_to_the_card(entry):
     """Left without ``device``, the port's entry points run on the card;
     where there is none they raise, at construction or at the first call,
@@ -225,6 +228,7 @@ def test_entry_points_default_to_the_card(entry):
     from kaldi_cnn_tpu_torch.online2 import (OnlineBaseFeature,
                                              OnlineRecognizer)
     from kaldi_cnn_tpu_torch.recipes.yesno import compute_features
+    from kaldi_cnn_tpu_torch.features.plp import compute_plp
     from kaldi_cnn_tpu_torch import cli
     wave = np.zeros(800, np.float32)
     lex = synthetic.digits_lexicon()
@@ -266,6 +270,7 @@ def test_entry_points_default_to_the_card(entry):
         "latgen-faster verb": lambda: cli.main([
             "latgen-faster", "--lang-dir=lang", "am.mdl", "HCLG.txt",
             "feats.scp", "lats.npz", "hyp.txt"]),
+        "compute_plp": lambda: compute_plp(wave),
     }
     with pytest.raises((RuntimeError, AssertionError),
                        match="CUDA|NVIDIA|cuda"):
