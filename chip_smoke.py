@@ -59,9 +59,18 @@ then runs these phases; any failure raises and the exit code is not 0.
    each lattice's one-best must equal the host ``lattice_decode``'s on
    the same loglikes (words; cost within LAT_COST_REL / LAT_COST_ABS)
    and ``TopKDecoder.decode_batch``'s best path (words); a CPU replay
-   must give the same one-best words, swept point and WERs.  Prints the
-   lattices' sizes and the seconds of the frame loop, fetch, assembly +
-   prune, determinize and the sweep.
+   must give the same one-best words, swept point and WERs.  The search
+   runs as captured CUDA graphs (no call of the eager frame loop or
+   backtrace); the same two ``decode_utterances`` calls with the eager
+   search on the card (the private eager methods) must give the same
+   lattices arc for arc, neither may overflow, and each run must
+   assemble and determinize one lattice an utterance (no padded row);
+   ``decode_batch`` captured and eager must give the same tids, words
+   and cost bits, and the device backtrace the host ``_best_path``'s on
+   the fetched histories.  Prints the lattices' sizes and, for each run,
+   the seconds of the frame loop, fetch, assembly + prune, determinize
+   (and the sweep), the graph captures, the RTF and the peak
+   ``max_memory_allocated``.
 5. Training slice: fbank volumes of the same 16 utterances on the card,
    equal alignments on the monophone graph, ``recipes.wsj.train`` at the
    recipe width for TRAIN_EPOCHS epochs (minibatch 256), then
@@ -164,9 +173,12 @@ then runs these phases; any failure raises and the exit code is not 0.
    mode-A steps, each rank holding half of a DP_ROWS minibatch, against
    the single-process steps on the whole of it, and two replicas of
    DP_STEPS steps and one average against the mean of the two
-   single-process streams: objf within OBJF_STEP_ATOL, parameters within
-   PARAM_REL, the two ranks bit-equal, the maxpool kernels launched in
-   both.  Prints each stage's seconds, training audio-s/s, the
+   single-process streams, and DP_STEPS tensor-parallel steps
+   (``make_dp_tp_step``, data 1 x model 2: each rank half of every wide
+   Affine layer's rows, the whole minibatch) against the single-process
+   steps: objf within OBJF_STEP_ATOL, parameters within PARAM_REL, the
+   two ranks bit-equal, the maxpool kernels launched in both (mode A and
+   replicas).  Prints each stage's seconds, training audio-s/s, the
    all-reduce count and dev/test WER (not asserted).
 13. MMI (run right after phase 9, on phase 8's artifacts before they
    are removed): ``train.discriminative.mmi_train_nnet`` on the card
@@ -229,10 +241,16 @@ then runs these phases; any failure raises and the exit code is not 0.
    must give the host exact Viterbi's words and cost (BIG_COST_REL /
    BIG_COST_ABS); then BIG_UTTS x BIG_FRAMES frames at the reference
    settings (beam 15, max_active 7000, lattice beam 8): the best-path and
-   lattice decodes' seconds and RTF, the lattice arcs, the overflow
-   (must drop no arc) and the peak ``torch.cuda.max_memory_allocated``;
-   the first BIG_COPY_UTTS lattices through lattice-copy (ark and back,
-   arc for arc) and lattice-determinize.  The fbank and conv+maxpool
+   lattice decodes, first with the captured search (the captures in
+   those first calls) and then eager on the card, must give the same
+   tids, words and cost bits and the same lattices arc for arc (the
+   device backtrace also the host ``_best_path``'s on the fetched
+   histories), and neither may overflow; prints each run's seconds and
+   RTF (the captured also without its captures), its frame loop / fetch
+   / assembly + prune seconds, each capture's seconds, the lattice arcs
+   and the peak ``torch.cuda.max_memory_allocated``; the first
+   BIG_COPY_UTTS lattices through lattice-copy (ark and back, arc for
+   arc) and lattice-determinize.  The fbank and conv+maxpool
    kernels must launch in the phase, which must end within
    LATTICE_PHASE_S.
 
@@ -811,25 +829,39 @@ def wsj_model(num_pdfs: int, device) -> AmNnet:
 @contextlib.contextmanager
 def lattice_probes(recipe=wsj):
     """Times the lattice path's stages (synchronising the card around
-    each), and records the loglikes decode_utterances is given and each
-    decode_batch_lattice call's (overflow, capacity).  Wraps the functions
-    where the path looks them up (in ``recipe``'s module: wsj or swbd);
+    each) and counts their calls, and records the loglikes
+    decode_utterances is given, each decode_batch_lattice call's
+    (overflow, capacity) and its decoder's graph capture seconds, and
+    the calls of the eager frame loop and backtrace.  Wraps the
+    functions where the path looks them up (in ``recipe``'s module: wsj
+    or swbd; None leaves decode_utterances and score_sweep alone);
     restores them on exit."""
     secs = dict.fromkeys(("decode_utterances", "frame loop", "fetch",
                           "assembly + prune", "determinize", "score_sweep"),
                          0.0)
     probe = {"s": secs, "loglikes": {}, "overflow": []}
+    probe["calls"] = dict.fromkeys(secs, 0)
+    probe["captures"] = {}       # id(decoder) -> its capture seconds
+    probe["eager"] = 0
     targets = [
-        (recipe, "decode_utterances", "decode_utterances",
-         lambda a, out: probe["loglikes"].update(a[1])),
         (TopKDecoder, "_decode", "frame loop", None),
         (TopKDecoder, "_fetch_lattice_run", "fetch", None),
         (TopKDecoder, "_assemble_lattice", "assembly + prune", None),
         (topk_decoder, "determinize_lattice", "determinize", None),
-        (recipe, "score_sweep", "score_sweep", None),
         (TopKDecoder, "decode_batch_lattice", None,
-         lambda a, out: probe["overflow"].append(
-             (a[0].last_overflow, a[0].A_lat)))]
+         lambda a, out: (probe["overflow"].append(
+             (a[0].last_overflow, a[0].A_lat)),
+             probe["captures"].__setitem__(id(a[0]),
+                                           a[0].capture_seconds)))]
+    if recipe is not None:
+        targets += [
+            (recipe, "decode_utterances", "decode_utterances",
+             lambda a, out: probe["loglikes"].update(a[1])),
+            (recipe, "score_sweep", "score_sweep", None)]
+    # the eager frame loop and backtrace: a captured search calls neither
+    for name in ("_run_frames_eager", "_bt_walk_eager"):
+        targets.append((TopKDecoder, name, None, lambda a, out: probe.update(
+            eager=probe["eager"] + 1)))
 
     def wrap(fn, key, after):
         @functools.wraps(fn)
@@ -840,6 +872,7 @@ def lattice_probes(recipe=wsj):
             torch.cuda.synchronize()
             if key:
                 secs[key] += time.perf_counter() - t
+                probe["calls"][key] += 1
             if after:
                 after(a, out)
             return out
@@ -854,6 +887,78 @@ def lattice_probes(recipe=wsj):
     finally:
         for owner, name, fn in saved:
             setattr(owner, name, fn)
+
+
+@contextlib.contextmanager
+def eager_search():
+    """The batch search eagerly on the card: TopKDecoder's frame loop and
+    best-path backtrace through their private eager methods instead of
+    the captured graphs (there is no public switch); restored on exit."""
+    saved = TopKDecoder._run_frames, TopKDecoder._bt_walk
+    TopKDecoder._run_frames = lambda self, *a: self._run_frames_eager(*a)
+    TopKDecoder._bt_walk = lambda self, *a: self._bt_walk_eager(*a)
+    try:
+        yield
+    finally:
+        TopKDecoder._run_frames, TopKDecoder._bt_walk = saved
+
+
+def cost_bits(c: float) -> int:
+    return int(np.float32(c).view(np.int32))
+
+
+def best_path_runs(dec, lls):
+    """``dec.decode_batch(lls)`` on the card with the captured search and
+    with the eager one, and the host ``_best_path`` on the fetched
+    histories.  Returns the seconds of each and the rows where the
+    eager search or the host walk differs from the captured (tids,
+    words, cost bits), and the captured paths."""
+    out, secs = {}, {}
+    for name in ("captured", "eager"):
+        with eager_search() if name == "eager" else contextlib.nullcontext():
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out[name] = dec.decode_batch(lls)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t
+    out["host"] = host_best_paths(dec, lls)
+    bad = {name: differing(out["captured"], out[name])
+           for name in ("eager", "host")}
+    return secs, bad, out["captured"]
+
+
+def host_best_paths(dec, lls):
+    """The host ``_best_path`` of each row on the best-path histories of
+    ``lls`` decoded on the card and fetched whole."""
+    am, lengths = dec._pad(lls)
+    lv = dec._decode(torch.as_tensor(am, device=dec.device))["lv"]
+    h = lv.cpu().numpy()
+    r = {k: h[:, i].transpose(1, 0, 2)
+         for i, k in enumerate(("fs", "fc", "bp_arc", "bp_prev"))}
+    r["fc"] = r["fc"].view(np.float32)
+    return [dec._best_path(r, am, int(n), b) for b, n in enumerate(lengths)]
+
+
+def differing(paths, others):
+    """Rows whose (tids, words, cost bits) differ."""
+    key = lambda p: (list(p[0]), list(p[1]), cost_bits(p[2]))
+    return [b for b, (x, y) in enumerate(zip(paths, others, strict=True))
+            if key(x) != key(y)]
+
+
+def search_line(name, sec, calls, caps, peak):
+    """One run's split of a lattice decode, for the log; ``caps`` are the
+    capture seconds of each decoder (the captures run inside the frame
+    loop's first calls)."""
+    cap = sum(sum(c.values()) for c in caps)
+    return (f"{name}: frame loop {sec['frame loop']:.3f} s "
+            f"({calls['frame loop']} batches; "
+            f"{sec['frame loop'] - cap:.3f} s without the captures), "
+            f"fetch {sec['fetch']:.3f}, assembly + prune "
+            f"{sec['assembly + prune']:.3f} ({calls['assembly + prune']} "
+            f"lattices), determinize {sec['determinize']:.3f} "
+            f"({calls['determinize']}); graph captures {cap:.3f} s; peak "
+            f"max_memory_allocated {peak / 2**20:.1f} MiB")
 
 
 def one_best(lats):
@@ -873,12 +978,15 @@ def lattice_slice(am, am_cpu, corpus, hclg, word_table, dec):
     dev_c, test_c = corpus.split(0.5)
     fbank_frames.launches = fbank_ops.fbank_frames_table.launches = 0
     conv2d_maxpool.launches = conv2d_maxpool_f32.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     with lattice_probes() as probe:
         t = time.perf_counter()
         res = wsj.decode_and_score(am, dev_c, test_c, hclg, word_table,
                                    seed=SEED)
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated()
     launches = {"fbank_fft": fbank_frames.launches,
                 "conv_maxpool": conv2d_maxpool.launches}
     lats, lls = res["lattices"], probe["loglikes"]
@@ -907,6 +1015,48 @@ def lattice_slice(am, am_cpu, corpus, hclg, word_table, dec):
     if any(ov != (0, 0) for ov, _ in probe["overflow"]):
         raise AssertionError(f"lattice overflow: {probe['overflow']}")
 
+    # the same two decode_utterances calls with the eager search
+    halves = [{u: lls[u] for u in c.waves} for c in (dev_c, test_c)]
+    torch.cuda.reset_peak_memory_stats()
+    with lattice_probes(None) as eprobe, eager_search():
+        t = time.perf_counter()
+        eager = {}
+        for half in halves:
+            eager.update(topk_decoder.decode_utterances(
+                hclg, half, acoustic_scale=wsj.ACOUSTIC_SCALE, beam=60.0,
+                lattice_beam=8.0, max_active=2000, device=am.nnet.device))
+        torch.cuda.synchronize()
+        eager_s = time.perf_counter() - t
+    peak_e = torch.cuda.max_memory_allocated()
+    audio_s = sum(len(v) for v in lls.values()) / 100.0
+    same_lats = lattices_equal(lats, eager)
+    n_cap = sum(len(c) for c in probe["captures"].values())
+    log(f"lattice search on the card, captured vs eager ({len(lats)} "
+        f"utterances, {audio_s:.2f} s of audio, the dev and test "
+        f"decode_utterances calls): decode_utterances "
+        f"{sec['decode_utterances']:.3f} s (RTF "
+        f"{sec['decode_utterances'] / audio_s:.4f}) vs {eager_s:.3f} s "
+        f"(RTF {eager_s / audio_s:.4f}); "
+        + search_line("captured", sec, probe["calls"],
+                      probe["captures"].values(), peak)
+        + f" ({n_cap} graphs: "
+        + "; ".join(", ".join(f"{k[1:]} {v:.3f}" for k, v in c.items())
+                    for c in probe["captures"].values())
+        + "); " + search_line("eager", eprobe["s"], eprobe["calls"], [],
+                              peak_e)
+        + f"; lattices equal arc for arc: {same_lats}; eager frame-loop "
+        f"and backtrace calls in the captured run {probe['eager']}, in "
+        f"the eager run {eprobe['eager']}; eager (overflow, A_lat) "
+        f"{sorted(set(eprobe['overflow']))}")
+    if not same_lats or probe["eager"] or not eprobe["eager"] or any(
+            ov != (0, 0) for ov, _ in eprobe["overflow"]):
+        raise AssertionError("the captured and eager lattice searches "
+                             "disagree")
+    if (probe["calls"]["assembly + prune"] != len(lats)
+            or eprobe["calls"]["assembly + prune"] != len(lats)
+            or probe["calls"]["determinize"] != len(lats)):
+        raise AssertionError("a padded row was assembled or determinized")
+
     # the host lattice decoder and the best-path search on the same
     # loglikes: K = min(2000, states) covers every state, so all three
     # are exact Viterbi
@@ -916,11 +1066,20 @@ def lattice_slice(am, am_cpu, corpus, hclg, word_table, dec):
         lattice_beam=8.0, max_active=2000) for u, ll in lls.items()})
     host_s = time.perf_counter() - t
     utts = sorted(lls)
-    torch.cuda.synchronize()
-    t = time.perf_counter()
-    paths = dec.decode_batch([lls[u] for u in utts])
-    torch.cuda.synchronize()
-    batch_s = time.perf_counter() - t
+    bsecs, bt_bad, paths = best_path_runs(dec, [lls[u] for u in utts])
+    batch_s = bsecs["captured"]
+    log(f"best path on the card ({len(utts)} utterances in one batch, "
+        f"warm graphs): captured {bsecs['captured']:.3f} s (RTF "
+        f"{bsecs['captured'] / audio_s:.4f}), eager {bsecs['eager']:.3f} s "
+        f"(RTF {bsecs['eager'] / audio_s:.4f}); rows where the eager "
+        f"search differs (tids, words, cost bits) {bt_bad['eager']}, where "
+        f"the host _best_path on the fetched histories differs from the "
+        f"device backtrace {bt_bad['host']}; graphs "
+        f"{len(dec.capture_seconds)} "
+        f"({sum(dec.capture_seconds.values()):.3f} s of captures)")
+    if bt_bad["eager"] or bt_bad["host"]:
+        raise AssertionError("the captured best path disagrees with the "
+                             "eager search or the host backtrace")
     bad_host = [u for u in utts if best[u][0] != host[u][0] or abs(
         best[u][1] - host[u][1]) > LAT_COST_ABS + LAT_COST_REL * abs(
             host[u][1])]
@@ -1262,8 +1421,9 @@ def streaming_phase(dev, exp_dir, tmp, test):
         raise AssertionError("a block graph did not run in the recognizer")
     # device time of a block: its graph replayed back to back (the carry
     # is garbage by now; reset() precedes any further use)
-    per_frame = {k: time_ms(b.graph.replay, iters=10) / k
-                 for k, b in sorted(stream._blocks.items())}
+    per_frame = {b.size: time_ms(b.graph.replay, iters=10) / b.size
+                 for b in sorted(stream._runner.blocks.values(),
+                                 key=lambda b: -b.size)}
     torch.cuda.synchronize()
     stream.reset()
     log(f"streaming block graphs: device ms a frame by CUDA events over 10 "
@@ -1704,9 +1864,11 @@ def two_rank_phase(num_pdfs):
     (``parallel/rank_check.py``): DP_STEPS mode-A steps (each rank half of
     a DP_ROWS minibatch) against the single-process steps on the whole of
     it, and two replicas (DP_STEPS steps on each half, one average)
-    against the mean of the two single-process streams.  Objf within
-    OBJF_STEP_ATOL, parameters within PARAM_REL (relative Frobenius); the
-    two ranks bit-equal."""
+    against the mean of the two single-process streams; then the two
+    ranks as the model shards of one data slot (``make_dp_tp_step``, the
+    wide Affine layers split by rows) against the single-process steps.
+    Objf within OBJF_STEP_ATOL, parameters within PARAM_REL (relative
+    Frobenius); the two ranks bit-equal."""
     cfg = ConvnetConfig(in_t=11, in_f=36, in_c=3, filt_t=4, filt_f=7,
                         num_filters=48, pool_t=2, pool_f=3, pool_c=1,
                         num_hidden_layers=2, pnorm_input_dim=800,
@@ -1728,6 +1890,22 @@ def two_rank_phase(num_pdfs):
                 or res["param_rel"] > PARAM_REL or min(l0 + l1) <= 0):
             raise AssertionError("the two ranks on the card disagree with "
                                  "world size 1")
+    res = rank_check.tp_two_ranks_vs_one(cfg, case, DP_STEPS, 0.08)
+    log(f"two ranks on the card (tensor parallel: make_dp_tp_step, data 1 "
+        f"x model 2, {res['sharded']} Affine layers split by rows; gloo, "
+        f"{DP_STEPS} steps of {DP_ROWS} rows; {res['seconds']:.1f} s with "
+        f"the spawn): ranks bit-equal {res['ranks_equal']}; against world "
+        f"size 1: objf max |diff| {res['objf_err']:.3g} (limit "
+        f"{OBJF_STEP_ATOL}), params max relative Frobenius diff "
+        f"{res['param_rel']:.3g} (limit {PARAM_REL}); elementwise against "
+        f"the JAX bar rtol {rank_check.TP_RTOL} / atol {rank_check.TP_ATOL}"
+        f": worst excess {res['param_excess']:.3g} (<= 0 within; not "
+        f"asserted)")
+    if (not res["ranks_equal"] or res["sharded"] < 2
+            or res["objf_err"] > OBJF_STEP_ATOL
+            or res["param_rel"] > PARAM_REL):
+        raise AssertionError("the tensor-parallel ranks on the card disagree "
+                             "with world size 1")
 
 
 def nnet2_chain(mfcc, ali, t2p, num_pdfs, dev):
@@ -2207,6 +2385,21 @@ def lattice_phase(dev, tmp, test):
         raise AssertionError("a lattice verb's check failed")
 
     # ---- (b) the big graph on the card ------------------------------------
+    big_graph(dev, q)
+    launches = read_launches()
+    phase_s = time.perf_counter() - t_phase
+    log(f"lattice phase: {phase_s:.1f} s (limit {LATTICE_PHASE_S}); "
+        f"launches in the phase {launches}")
+    if min(launches["fbank_fft"], launches["conv_maxpool"]) <= 0:
+        raise AssertionError(f"a kernel did not run in the lattice phase: "
+                             f"{launches}")
+    if phase_s > LATTICE_PHASE_S:
+        raise AssertionError(f"the lattice phase took {phase_s:.1f} s")
+    return launches
+
+
+def big_graph(dev, q):
+    """Phase 15 (b): the big graph on the card; its files under ``q``."""
     t = time.perf_counter()
     g = make_big_graph(**BIG_GRAPH)
     P = BIG_GRAPH["num_pdfs"]
@@ -2233,22 +2426,72 @@ def lattice_phase(dev, tmp, test):
     lls = [sample_loglikes(g, P, T=BIG_FRAMES, seed=s)
            for s in range(BIG_UTTS)]
     audio_s = BIG_UTTS * BIG_FRAMES / 100.0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    t = time.perf_counter()
-    dec = topk_decoder.TopKDecoder(g, beam=15.0, max_active=7000,
-                                   acoustic_scale=1.0, lattice_beam=8.0,
-                                   lattice_arcs_per_frame=None, device=dev)
-    torch.cuda.synchronize()
-    build_s = time.perf_counter() - t
-    t = time.perf_counter()
-    paths = dec.decode_batch(lls)
-    best_s = time.perf_counter() - t
-    t = time.perf_counter()
-    big_lats = dec.decode_batch_lattice(lls, determinize=False)
-    lat_s = time.perf_counter() - t
-    peak = torch.cuda.max_memory_allocated()
-    dropped, o_frames = dec.last_overflow
+    # eager, then captured (its captures are in its first calls), each
+    # on a fresh decoder so that each run's peak is its own
+    runs = {}
+    for name in ("eager", "captured"):
+        dec = None
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        dec = topk_decoder.TopKDecoder(g, beam=15.0, max_active=7000,
+                                       acoustic_scale=1.0, lattice_beam=8.0,
+                                       lattice_arcs_per_frame=None,
+                                       device=dev)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t
+        with (eager_search() if name == "eager"
+              else contextlib.nullcontext()), lattice_probes(None) as pr:
+            t = time.perf_counter()
+            paths = dec.decode_batch(lls)
+            torch.cuda.synchronize()
+            best_s = time.perf_counter() - t
+            best_caps = dict(dec.capture_seconds)
+            t = time.perf_counter()
+            big_lats = dec.decode_batch_lattice(lls, determinize=False)
+            torch.cuda.synchronize()
+            lat_s = time.perf_counter() - t
+        runs[name] = dict(paths=paths, lats=big_lats, best_s=best_s,
+                          lat_s=lat_s, probe=pr, overflow=dec.last_overflow,
+                          peak=torch.cuda.max_memory_allocated(),
+                          caps=dict(dec.capture_seconds),
+                          best_caps=best_caps)
+    cap_, eag = runs["captured"], runs["eager"]
+    paths, big_lats, best_s, lat_s, peak = (
+        cap_[k] for k in ("paths", "lats", "best_s", "lat_s", "peak"))
+    dropped, o_frames = cap_["overflow"]
+    bad_eager = differing(paths, eag["paths"])
+    bad_host = differing(paths, host_best_paths(dec, lls))
+    same_lats = lattices_equal(dict(enumerate(big_lats)),
+                               dict(enumerate(eag["lats"])))
+    best_cap = sum(cap_["best_caps"].values())
+    lat_cap = sum(cap_["caps"].values()) - best_cap
+    log(f"big graph search on the card, captured vs eager ({BIG_UTTS} x "
+        f"{BIG_FRAMES} frames): best path {best_s:.3f} s with "
+        f"{best_cap:.3f} s of captures (RTF {best_s / audio_s:.4f}, "
+        f"{(best_s - best_cap) / audio_s:.4f} without) vs eager "
+        f"{eag['best_s']:.3f} s (RTF {eag['best_s'] / audio_s:.4f}); "
+        f"lattice {lat_s:.3f} s with {lat_cap:.3f} s of captures (RTF "
+        f"{lat_s / audio_s:.4f}, {(lat_s - lat_cap) / audio_s:.4f} "
+        f"without) vs eager {eag['lat_s']:.3f} s (RTF "
+        f"{eag['lat_s'] / audio_s:.4f}); "
+        + search_line("captured", cap_["probe"]["s"], cap_["probe"]["calls"],
+                      [{k: v for k, v in cap_["caps"].items()
+                        if k[0] == "frames"}], cap_["peak"])
+        + "; " + search_line("eager", eag["probe"]["s"],
+                             eag["probe"]["calls"], [], eag["peak"])
+        + f"; each capture's s "
+        f"{ {str(k): round(v, 3) for k, v in cap_['caps'].items()} }; "
+        f"rows whose best path (tids, words, cost bits) differs: eager "
+        f"{bad_eager}, host _best_path on the fetched histories "
+        f"{bad_host}; lattices equal arc for arc: {same_lats}; eager "
+        f"calls in the captured run {cap_['probe']['eager']}; eager "
+        f"overflow {eag['overflow']}")
+    if (bad_eager or bad_host or not same_lats or cap_["probe"]["eager"]
+            or not eag["probe"]["eager"] or eag["overflow"] != (0, 0)):
+        raise AssertionError("the big graph's captured and eager searches "
+                             "disagree")
     agree = sum(list(shortest_path(lat, 1.0, 1.0)[1]) == list(w)
                 for lat, (_, w, _) in zip(big_lats, paths))
     big = {f"big{i:02d}": big_lats[i] for i in range(BIG_COPY_UTTS)}
@@ -2281,16 +2524,6 @@ def lattice_phase(dev, tmp, test):
             or sorted(det) != sorted(big)
             or any(l.num_arcs == 0 for l in det.values())):
         raise AssertionError("the big-graph lattice checks failed")
-    launches = read_launches()
-    phase_s = time.perf_counter() - t_phase
-    log(f"lattice phase: {phase_s:.1f} s (limit {LATTICE_PHASE_S}); "
-        f"launches in the phase {launches}")
-    if min(launches["fbank_fft"], launches["conv_maxpool"]) <= 0:
-        raise AssertionError(f"a kernel did not run in the lattice phase: "
-                             f"{launches}")
-    if phase_s > LATTICE_PHASE_S:
-        raise AssertionError(f"the lattice phase took {phase_s:.1f} s")
-    return launches
 
 
 def stream_rows(stream, rows):

@@ -4,10 +4,11 @@
 The JAX package lays a ``jax.sharding.Mesh`` over its devices and lets
 XLA insert the collectives.  Here the unit is a ``torch.distributed``
 rank (one process, one device): ``Mesh`` arranges the world's ranks as
-a ("replica", "data") grid, with one process group per replica for the
-data axis and one per data index for the replica axis, and every sum
-over minibatch rows that must span the data axis goes through
-``all_reduce`` or ``reduce_sum`` by hand.
+a ("replica", "data", "model") grid, with process groups along each
+axis, and every sum over minibatch rows that must span the data axis
+goes through ``all_reduce`` or ``reduce_sum`` by hand, as do the
+tensor-parallel layers' gathers and sums over the model axis
+(``all_gather_cols``; ``parallel/dp.py::make_dp_tp_step``).
 
 ``shard_batch`` is this rank's row slice of a global batch, and
 ``local_slice`` is the JAX package's.  ``data_sharding`` and
@@ -25,44 +26,59 @@ import torch.distributed as dist
 
 
 class Mesh:
-    """The ranks of the initialized world as a ("replica", "data") grid,
-    the only axes there are: rank = replica_index * shape["data"] +
-    data_index.  ``data_group`` joins this rank's replica (a mode-A step
-    all-reduces over it), ``replica_group`` the ranks at its data index
-    in every replica (the model average all-reduces over it),
-    ``world_group`` every rank.
-    Every rank must build it, with the same ``num_replicas``: creating a
-    process group is itself collective."""
+    """The ranks of the initialized world as a ("replica", "data",
+    "model") grid: rank = (replica_index * shape["data"] + data_index) *
+    shape["model"] + model_index.  ``data_group`` joins the ranks of this
+    replica at this model index (a mode-A step all-reduces its row sums
+    over it), ``replica_group`` the ranks at this (data, model) index in
+    every replica (the model average all-reduces over it),
+    ``model_group`` the ranks of this (replica, data) cell (a
+    tensor-parallel layer's shards; None with ``model=1``, the default,
+    which leaves the ("replica", "data") grid as it was), ``world_group``
+    every rank.  Every rank must build it, with the same ``num_replicas``
+    and ``model``: creating a process group is itself collective."""
 
-    def __init__(self, num_replicas: int = 1, device="cuda"):
+    def __init__(self, num_replicas: int = 1, device="cuda",
+                 model: int = 1):
         world, rank = dist.get_world_size(), dist.get_rank()
-        r = max(num_replicas, 1)
-        if world % r:
+        r, m = max(num_replicas, 1), max(model, 1)
+        if world % (r * m):
             raise ValueError(f"{world} ranks not divisible into {r} "
-                             "replicas")
-        d = world // r
-        self.shape = {"replica": r, "data": d}
-        self.replica_index, self.data_index = divmod(rank, d)
+                             f"replicas of {m} model shards")
+        d = world // (r * m)
+        self.shape = {"replica": r, "data": d, "model": m}
+        cell, self.model_index = divmod(rank, m)
+        self.replica_index, self.data_index = divmod(cell, d)
         self.device = torch.device(device)
         self.world_group = dist.group.WORLD
-        self.data_group = self.replica_group = None
+        self.data_group = self.replica_group = self.model_group = None
+        at = lambda i, j, k: (i * d + j) * m + k
         for i in range(r):
-            g = dist.new_group([i * d + j for j in range(d)])
-            if i == self.replica_index:
-                self.data_group = g
+            for k in range(m):
+                g = dist.new_group([at(i, j, k) for j in range(d)])
+                if (i, k) == (self.replica_index, self.model_index):
+                    self.data_group = g
         for j in range(d):
-            g = dist.new_group([i * d + j for i in range(r)])
-            if j == self.data_index:
-                self.replica_group = g
+            for k in range(m):
+                g = dist.new_group([at(i, j, k) for i in range(r)])
+                if (j, k) == (self.data_index, self.model_index):
+                    self.replica_group = g
+        if m > 1:
+            for i in range(r):
+                for j in range(d):
+                    g = dist.new_group([at(i, j, k) for k in range(m)])
+                    if (i, j) == (self.replica_index, self.data_index):
+                        self.model_group = g
 
     @property
     def size(self) -> int:
-        return self.shape["replica"] * self.shape["data"]
+        return (self.shape["replica"] * self.shape["data"]
+                * self.shape["model"])
 
 
-def make_mesh(num_replicas: int = 1, device="cuda") -> Mesh:
-    """The ("replica", "data") grid over the initialized world."""
-    return Mesh(num_replicas, device)
+def make_mesh(num_replicas: int = 1, device="cuda", model: int = 1) -> Mesh:
+    """The ("replica", "data", "model") grid over the initialized world."""
+    return Mesh(num_replicas, device, model)
 
 
 def local_slice(n: int, axis_size: int, axis_index: int) -> Tuple[int, int]:
@@ -98,6 +114,21 @@ def all_reduce(t: torch.Tensor, group=None, op=dist.ReduceOp.SUM
 
 
 all_reduce.launches = 0
+
+
+def all_gather_cols(y: torch.Tensor, width: int, offset: int, group=None
+                    ) -> torch.Tensor:
+    """The [N, width] matrix whose columns [offset, offset + y.shape[1])
+    this rank holds as ``y`` and the other ranks of ``group`` the rest:
+    each rank's columns in zeros, summed over the group in one
+    all-reduce (exact: every entry is one rank's value plus zeros; gloo
+    carries CUDA tensors through all-reduce but not all-gather).  With
+    no group, ``y`` is the whole matrix."""
+    if group is None:
+        return y
+    full = y.new_zeros((y.shape[0], width))
+    full[:, offset:offset + y.shape[1]] = y
+    return all_reduce(full, group)
 
 
 def reduce_sum(tensors: Sequence[torch.Tensor], group=None

@@ -26,14 +26,21 @@ ProcessNonemitting / PruneActiveTokens / GetRawLattice):
              transfer and become a ``Lattice`` there (assembled, pruned
              and optionally determinized).
 
-``vmap`` over utterances is an explicit leading batch dimension, and
-``lax.scan`` over frames is a Python loop of tensor ops on the device;
-``StreamingDecoder`` runs each block of frames as one CUDA graph
-replay.  ``decode_utterances`` splits a keyed utterance set over the
-ranks of a process group, where the JAX package shards the batch over
-its mesh's data axis.  The on-device best-path backtrace is not ported
-yet.  ``TopKGraph`` is a copy of the JAX package's numpy packing (the
-port imports nothing of that package).
+``vmap`` over utterances is an explicit leading batch dimension.  The
+counterpart of the JAX package's ``lax.scan`` over frames is the block
+function ``TopKDecoder._block`` (S frames of the carry), which on the
+card runs as CUDA graphs: greedy blocks from ``FRAME_BLOCKS``, each
+captured at its first use and replayed after (``_BlockRunner``), so a
+batch's frame loop is a few replays and no host sync.  Elsewhere the
+same block function runs eagerly, frame by frame.  The best path is
+walked back on the device (``_backtrace_impl``'s counterpart, in
+captured chunks of steps on the card), and only each row's arc sequence
+crosses to the host.  ``StreamingDecoder`` runs its chunks through the
+same block machinery with a carry of its own.  ``decode_utterances``
+splits a keyed utterance set over the ranks of a process group, where
+the JAX package shards the batch over its mesh's data axis.
+``TopKGraph`` is a copy of the JAX package's numpy packing (the port
+imports nothing of that package).
 """
 
 from __future__ import annotations
@@ -56,6 +63,44 @@ BIG = np.float32(1e30)
 INVALID = np.int32(2**31 - 1)
 _BIG = float(BIG)            # the same constants as torch scalars
 _INVALID = int(INVALID)
+
+# a batch's frames (and the backtrace's steps) run as greedy blocks from
+# this ladder, each block one CUDA graph on the card: decode_utterances
+# pads every batch to a multiple of 128 frames, so the 64-frame graph
+# serves all of it
+FRAME_BLOCKS = (64, 16, 4, 1)
+
+
+def _ladder(n: int, sizes) -> List[int]:
+    """n as a greedy sum of ``sizes`` (largest first; 1 must be in it)."""
+    out = []
+    while n:
+        out.append(next(s for s in sizes if s <= n))
+        n -= out[-1]
+    return out
+
+
+def _capture(body, warm, device, pool, carry=()):
+    """A CUDA graph of ``body()``.  ``warm()``, a short run of the same
+    operations (one frame, one step), goes first on a side stream, so
+    that every lazy initialisation happens outside the capture; the
+    ``carry`` tensors (which both update in place) are put back, and
+    ``body`` is captured into ``pool``.  Returns (graph, seconds)."""
+    t = time.perf_counter()
+    saved = [x.clone() for x in carry]
+    cur = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(cur)
+    with torch.cuda.stream(side):
+        warm()
+    cur.wait_stream(side)
+    for x, v in zip(carry, saved):
+        x.copy_(v)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool):
+        body()
+    torch.cuda.synchronize(device)
+    return graph, time.perf_counter() - t
 
 
 # ---------------------------------------------------------------------------
@@ -296,8 +341,11 @@ class TopKDecoder:
     Exact Viterbi whenever ``max_active`` covers all simultaneously
     alive states and the beam is generous; otherwise the usual beam
     search approximation.  Per frame the token sets of all utterances
-    advance together as [B, K] tensors on ``device``; the frame loop is a
-    Python loop.  ``decode_batch`` backtraces the best path on the host;
+    advance together as [B, K] tensors on ``device``; on the card the
+    frame loop is replays of captured CUDA graphs of ``FRAME_BLOCKS``
+    frames (``_run_frames``), which bake in the decoder's beam, acoustic
+    scale, K, eps depth and record capacity.  ``decode_batch`` walks the
+    best path back on the device and fetches only the arc sequences;
     ``decode_batch_lattice`` keeps lattice records on the device and
     builds the lattices on the host.
 
@@ -346,6 +394,7 @@ class TopKDecoder:
             "n_w": t(g.n_w, f32),
             "e_is_hub": t(g.e_is_hub, b), "n_is_hub": t(g.n_is_hub, b),
             "la_pdf": t(g.la_pdf, i64), "la_w": t(g.la_w, f32),
+            "final": t(g.final, f32),
         }
         if self.He:
             ha = g.e_hub_arcs
@@ -370,6 +419,29 @@ class TopKDecoder:
                 ha = g.ni_hub_arcs
                 self.d["ni_hub"] = (t(ha, i64), t(g.n_src[ha], i32),
                                     t(g.n_dst[ha], i32), t(g.n_w[ha], f32))
+        # on the card: the batch search's block runners (one a batch
+        # width), the best-path history the backtrace's graphs read, and
+        # the memory pool every graph of this decoder shares
+        self._runners: Dict[int, _BlockRunner] = {}
+        self._bt: Optional[_Backtrace] = None
+        self._pool = None
+
+    def _graph_pool(self):
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        return self._pool
+
+    @property
+    def capture_seconds(self) -> Dict[tuple, float]:
+        """Seconds of each CUDA graph captured for the batch search:
+        ("frames", lattice, B, S, A_lat) and ("backtrace", B, S)."""
+        out = {("frames", k[0], B, k[1], k[2]): blk.capture_s
+               for B, run in self._runners.items()
+               for k, blk in run.blocks.items()}
+        if self._bt is not None:
+            out.update({("backtrace", self._bt.B, S): s
+                        for S, (_, s) in self._bt.graphs.items()})
+        return out
 
     # -- expansion ---------------------------------------------------------
     def _expand(self, states, costs, off, dst, w, width, is_hub):
@@ -644,67 +716,128 @@ class TopKDecoder:
         bp_arc, bp_prev = self._resolve_bp(fs, fc, es, ec, e_arc, e_prev)
         return fs, fc, bp_arc, bp_prev
 
+    # -- the block function -----------------------------------------------
+    def _levels(self, S: int, B: int, lattice: bool, device
+                ) -> Dict[str, torch.Tensor]:
+        """Empty int32 level buffers of S frames: best path "lv" [S, 4,
+        B, K] (states, cost bits, bp_arc, bp_prev); lattice "fs" [S, B,
+        K], "e_rec" / "n_rec" [S, B, 3, A_lat] and "e_cnt" / "n_cnt" [S,
+        B]."""
+        i32 = dict(dtype=torch.int32, device=device)
+        K, A = self.K, self.A_lat
+        if not lattice:
+            return {"lv": torch.empty((S, 4, B, K), **i32)}
+        return {"fs": torch.empty((S, B, K), **i32),
+                "e_rec": torch.empty((S, B, 3, A), **i32),
+                "e_cnt": torch.empty((S, B), **i32),
+                "n_rec": torch.empty((S, B, 3, A), **i32),
+                "n_cnt": torch.empty((S, B), **i32)}
+
+    def _block(self, fs, fc, am, out, lattice=False):
+        """The block function: S = ``len(am) - 1`` frames of ``_frame``
+        from the carry (fs, fc) [B, K] over raw acoustic rows am [S + 1,
+        B, P] (row j + 1 is frame j's lookahead); frame j's level goes
+        into row j of each of ``out``'s buffers (``_levels``' layout).
+        Returns the new carry."""
+        for j in range(am.shape[0] - 1):
+            r = self._frame(fs, fc, am[j], am[j + 1], lattice)
+            fs, fc = r[0], r[1]
+            if lattice:
+                out["fs"][j].copy_(fs)
+                out["e_rec"][j].copy_(r[2][0])
+                out["e_cnt"][j].copy_(r[2][1])
+                out["n_rec"][j].copy_(r[3][0])
+                out["n_cnt"][j].copy_(r[3][1])
+            else:
+                lv = out["lv"][j]
+                lv[0].copy_(fs)
+                lv[1].copy_(fc.view(torch.int32))
+                lv[2].copy_(r[2])
+                lv[3].copy_(r[3])
+        return fs, fc
+
+    def _run_frames(self, fs, fc, rows, out, lattice):
+        """A batch's frames from the carry (fs, fc) over rows [T + 1, B,
+        P], levels into ``out``: on the card as replays of the captured
+        block graphs, elsewhere eagerly.  A failed capture or replay
+        raises; nothing falls back."""
+        if rows.device.type != "cuda":
+            self._run_frames_eager(fs, fc, rows, out, lattice)
+            return
+        run = self._runners.get(fs.shape[0])
+        if run is None:
+            run = self._runners[fs.shape[0]] = _BlockRunner(
+                self, fs.shape[0], FRAME_BLOCKS)
+        run.fs.copy_(fs)
+        run.fc.copy_(fc)
+        run.run(rows, out, lattice)
+
+    def _run_frames_eager(self, fs, fc, rows, out, lattice):
+        """The same frames as one eager call of the block function, on
+        any device."""
+        self._block(fs, fc, rows, out, lattice)
+
     # -- full decode -------------------------------------------------------
     @torch.no_grad()
     def _decode(self, am: torch.Tensor, lattice: bool = False):
-        """am [B, T, P] raw acoustic costs (-loglikes) on the device; level
-        0 is the start token + eps closure.  Best path: host histories
-        fs, fc, bp_arc, bp_prev [B, T+1, K].  Lattice: ``_decode_lattice``'s
-        device histories."""
+        """am [B, T, P] raw acoustic costs (-loglikes) on the device.
+        Level 0 (the start token + eps closure, with its backpointers or
+        its eps records) runs eagerly, then the T frames
+        (``_run_frames``).  Returns the device histories.  Best path:
+        "lv" [T + 1, 4, B, K] (states, cost bits, bp_arc, bp_prev), a
+        view of the buffer the backtrace's graphs read (the next
+        best-path decode overwrites it).  Lattice: fs [T + 1, B, K]; emit
+        records e_rec [T, B, 3, A_lat] (row t: arcs into level t + 1)
+        with true counts e_cnt [T, B]; eps records n_rec [T + 1, B, 3,
+        A_lat] (row t: arcs within level t) with n_cnt [T + 1, B].  A
+        record is (source slot, destination slot, arc id), -1 past the
+        count."""
         B, T, P = am.shape
-        K = self.K
-        s0 = torch.full((B, K), int(_INVALID), dtype=torch.int32,
-                        device=self.device)
+        K, dev = self.K, self.device
+        # rows [T + 1, B, P]: frame t's row and its lookahead row t + 1
+        # (the last frame is its own lookahead)
+        rows = torch.cat([am, am[:, -1:]], dim=1).transpose(0, 1).contiguous()
+        s0 = torch.full((B, K), _INVALID, dtype=torch.int32, device=dev)
         s0[:, 0] = self.g.start
-        c0 = torch.full((B, K), float(_BIG), dtype=torch.float32,
-                        device=self.device)
+        c0 = torch.full((B, K), _BIG, dtype=torch.float32, device=dev)
         c0[:, 0] = 0.0
-        fs, fc = self._eps_fixpoint(s0, c0, self._am_ext(am[:, 0]))
-        am_next = torch.cat([am[:, 1:], am[:, -1:]], dim=1)
+        fs, fc = self._eps_fixpoint(s0, c0, self._am_ext(rows[0]))
         if lattice:
-            return self._decode_lattice(am, am_next, fs, fc)
-        root = torch.full((B, K), -1, dtype=torch.int64, device=self.device)
-        levels = [(fs, fc) + self._resolve_bp(fs, fc, s0, c0, root, root)]
-        for t in range(T):
-            levels.append(self._frame(fs, fc, am[:, t], am_next[:, t]))
-            fs, fc = levels[-1][0], levels[-1][1]
-        return {k: torch.stack([lv[i] for lv in levels], dim=1).cpu().numpy()
-                for i, k in enumerate(("fs", "fc", "bp_arc", "bp_prev"))}
-
-    def _decode_lattice(self, am, am_next, fs, fc):
-        """The lattice variant's frame loop.  Its histories stay on the
-        device, preallocated: fs [T+1, B, K]; emit records e_rec [T, B, 3,
-        A_lat] (row t: arcs into level t+1) with true counts e_cnt [T, B];
-        eps records n_rec [T+1, B, 3, A_lat] (row t: arcs within level t)
-        with n_cnt [T+1, B].  A record is (source slot, destination slot,
-        arc id), -1 past the count."""
-        B, T, _ = am.shape
-        i32 = dict(dtype=torch.int32, device=self.device)
-        A = self.A_lat
-        r = {"fs": torch.empty((T + 1, B, self.K), **i32),
-             "e_rec": torch.empty((T, B, 3, A), **i32),
-             "e_cnt": torch.empty((T, B), **i32),
-             "n_rec": torch.empty((T + 1, B, 3, A), **i32),
-             "n_cnt": torch.empty((T + 1, B), **i32)}
-        r["fs"][0] = fs
-        r["n_rec"][0], r["n_cnt"][0] = self._eps_records(fs, fc)
-        for t in range(T):
-            fs, fc, e, n = self._frame(fs, fc, am[:, t], am_next[:, t],
-                                       lattice=True)
-            r["fs"][t + 1] = fs
-            r["e_rec"][t], r["e_cnt"][t] = e
-            r["n_rec"][t + 1], r["n_cnt"][t + 1] = n
+            r = self._levels(T + 1, B, True, dev)
+            r["e_rec"], r["e_cnt"] = r["e_rec"][1:], r["e_cnt"][1:]
+            r["fs"][0] = fs
+            r["n_rec"][0], r["n_cnt"][0] = self._eps_records(fs, fc)
+            out = {"fs": r["fs"][1:], "e_rec": r["e_rec"],
+                   "e_cnt": r["e_cnt"], "n_rec": r["n_rec"][1:],
+                   "n_cnt": r["n_cnt"][1:]}
+        else:
+            if self._bt is None or not self._bt.fits(B, T):
+                self._bt = None          # its graphs and buffers go first
+                self._bt = _Backtrace(self, B, T)
+            r = {"lv": self._bt.lv[:T + 1]}
+            root = torch.full((B, K), -1, dtype=torch.int64, device=dev)
+            bp_a, bp_p = self._resolve_bp(fs, fc, s0, c0, root, root)
+            lv0 = r["lv"][0]
+            lv0[0].copy_(fs)
+            lv0[1].copy_(fc.view(torch.int32))
+            lv0[2].copy_(bp_a)
+            lv0[3].copy_(bp_p)
+            out = {"lv": r["lv"][1:]}
+        self._run_frames(fs, fc, rows, out, lattice)
         return r
 
     @staticmethod
-    def _pad(loglikes: List[np.ndarray], pad_frames: int = 0):
+    def _pad(loglikes: List[np.ndarray], pad_frames: int = 0,
+             pad_rows: int = 0):
         """Host am [B, T, P] = -loglikes, zero frames padding each
         utterance to the longest one (or to ``pad_frames``), and the true
-        lengths [B]."""
-        B = len(loglikes)
+        lengths [n] of the n utterances; with ``pad_rows`` > n, rows of
+        zero acoustics pad the batch to that many rows."""
+        n = len(loglikes)
         T = max(max(x.shape[0] for x in loglikes), pad_frames)
-        am = np.zeros((B, T, loglikes[0].shape[1]), np.float32)
-        lengths = np.zeros((B,), np.int32)
+        am = np.zeros((max(n, pad_rows), T, loglikes[0].shape[1]),
+                      np.float32)
+        lengths = np.zeros((n,), np.int32)
         for i, x in enumerate(loglikes):
             am[i, :x.shape[0]] = -x
             lengths[i] = x.shape[0]
@@ -714,11 +847,156 @@ class TopKDecoder:
                      ) -> List[Tuple[np.ndarray, np.ndarray, float]]:
         """Best-path decode; per utterance (tids, word ids, total cost).
         Shorter utterances are padded to the longest; padding frames
-        carry zero acoustics and are ignored by the backtrace."""
+        carry zero acoustics and are ignored by the backtrace.  The
+        histories stay on the device, the backtrace walks them there
+        (``_backtrace``) and only each row's arc sequence, count, cost
+        and flags cross to the host, in one transfer.  A row whose walk
+        met an unresolved backpointer fetches its own history and is
+        repaired on the host (``_best_path``)."""
         am, lengths = self._pad(loglikes)
-        r = self._decode(torch.as_tensor(am, device=self.device))
-        return [self._best_path(r, am, int(lengths[b]), b)
-                for b in range(len(loglikes))]
+        lv = self._decode(torch.as_tensor(am, device=self.device))["lv"]
+        arcs, ns, costs, fails, empties = self._backtrace(
+            lv, torch.as_tensor(lengths, device=self.device))
+        out = []
+        for b in range(len(loglikes)):
+            if empties[b]:
+                out.append((np.zeros(0, np.int32), np.zeros(0, np.int32),
+                            float("inf")))
+            elif fails[b]:
+                h = lv[:, :, b].cpu().numpy()          # [T + 1, 4, K]
+                r = {k: h[None, :, i] for i, k in enumerate(
+                    ("fs", "fc", "bp_arc", "bp_prev"))}
+                r["fc"] = r["fc"].view(np.float32)
+                out.append(self._best_path(r, am[b:b + 1],
+                                           int(lengths[b]), 0))
+            else:
+                out.append(self._arcs_to_path(arcs[b], int(ns[b]),
+                                              float(costs[b])))
+        return out
+
+    # -- the best-path backtrace on the device ------------------------------
+    @staticmethod
+    def _split(lv):
+        """fs, fc, bp_arc, bp_prev [B, T + 1, K] views of a best-path
+        history lv [T + 1, 4, B, K]."""
+        return (lv[:, 0].transpose(0, 1),
+                lv[:, 1].view(torch.float32).transpose(0, 1),
+                lv[:, 2].transpose(0, 1), lv[:, 3].transpose(0, 1))
+
+    def _bt_len(self, levels: int) -> int:
+        """Steps (and arc slots) of a backtrace over ``levels`` levels."""
+        return levels * (self.eps_iters + 1) + 4
+
+    def _bt_start(self, fs, fc, lengths, L: int) -> Dict[str, torch.Tensor]:
+        """The walk's start state (``_backtrace_impl``'s per-row set-up):
+        each row's cheapest token at its true length with the final cost
+        added, or, when no final state was reached, its cheapest token;
+        the cost, the empty flag and an arc buffer of L slots."""
+        B = fs.shape[0]
+        b = torch.arange(B, device=fs.device)
+        fsT, fcT = fs[b, lengths], fc[b, lengths]
+        valid = fsT != _INVALID
+        total_f = torch.where(valid, fcT + self.d["final"][
+            torch.where(valid, fsT, 0).long()], _BIG)
+        slot_f = total_f.argmin(-1)
+        cost_f = total_f.gather(1, slot_f[:, None])[:, 0]
+        total_a = torch.where(valid, fcT, _BIG)
+        slot_a = total_a.argmin(-1)
+        cost_a = total_a.gather(1, slot_a[:, None])[:, 0]
+        use_f = cost_f < _BIG
+        empty = ~valid.any(-1)
+        return {"t": lengths.long(), "slot": torch.where(use_f, slot_f,
+                                                          slot_a),
+                "n": torch.zeros(B, dtype=torch.int64, device=fs.device),
+                "fail": torch.zeros_like(empty), "done": empty.clone(),
+                "out": torch.full((B, L), -1, dtype=torch.int32,
+                                  device=fs.device),
+                "cost": torch.where(use_f, cost_f, cost_a), "empty": empty}
+
+    def _bt_step(self, st, fs0, ba, bp) -> None:
+        """One step of every row's walk, in place (``_backtrace_impl``'s
+        loop body): the token's backpointer arc goes to the arc buffer
+        unless the walk is done (the start token at level 0) or failed
+        (an unresolved backpointer); an emitting arc steps a level back.
+        Indices are clamped into the history (the walk never leaves it:
+        level 0 holds no emitting backpointer)."""
+        B, Tp1, K = ba.shape
+        b = torch.arange(B, device=ba.device)
+        t, slot, n = st["t"], st["slot"], st["n"]
+        ti, si = t.clamp(0, Tp1 - 1), slot.clamp(0, K - 1)
+        a = ba[b, ti, si].long()
+        p = bp[b, ti, si].long()
+        is_root = (t == 0) & (a < 0) & (fs0[b, si] == self.g.start)
+        done = st["done"] | is_root
+        fail = st["fail"] | ((a < 0) & ~done)
+        act = ~done & ~fail
+        cur = st["out"].gather(1, n[:, None])
+        st["out"].scatter_(1, n[:, None], torch.where(
+            act[:, None], a[:, None].to(torch.int32), cur))
+        st["t"].sub_((act & (a < self.g.num_emitting_arcs)).long())
+        st["slot"].copy_(torch.where(act, p, slot))
+        n.add_(act.long())
+        st["done"].copy_(done)
+        st["fail"].copy_(fail)
+
+    @torch.no_grad()
+    def _backtrace_eager(self, fs, fc, ba, bp, lengths):
+        """The backtrace (counterpart of ``_backtrace_impl``) over
+        histories [B, T + 1, K] and true lengths [B], eagerly: per row the
+        arcs [L] newest first (L = (T + 1)(eps_iters + 1) + 4, -1 past
+        the count), their count, the cost, ``fail`` (an unresolved
+        backpointer, or no root within L steps: repair on the host) and
+        ``empty`` (no token survived).  Returns device tensors."""
+        L = self._bt_len(fs.shape[1])
+        st = self._bt_start(fs, fc, lengths, L)
+        for _ in range(L):
+            self._bt_step(st, fs[:, 0], ba, bp)
+        return (st["out"], st["n"], st["cost"], st["fail"] | ~st["done"],
+                st["empty"])
+
+    def _backtrace(self, lv, lengths):
+        """The backtrace of a best-path history lv [T + 1, 4, B, K] (the
+        view ``_decode`` returned) on its device, fetched to the host in
+        one transfer: (arcs [B, L], n, cost, fail, empty) as numpy.  On
+        the card its steps run as captured chunks (``_Backtrace``)."""
+        L = self._bt_len(lv.shape[0])
+        arcs, n, cost, fail, empty = self._bt_walk(lv, lengths)
+        B = arcs.shape[0]
+        flat = torch.cat([arcs[:, :L].reshape(-1), n.to(torch.int32),
+                          cost.view(torch.int32), fail.to(torch.int32),
+                          empty.to(torch.int32)]).cpu().numpy()
+        arcs, n, cost, fail, empty = np.split(
+            flat, np.cumsum([B * L, B, B, B]))
+        return (arcs.reshape(B, L), n, cost.view(np.float32),
+                fail.astype(bool), empty.astype(bool))
+
+    def _bt_walk(self, lv, lengths):
+        """The walk on the card as replays of the captured step chunks,
+        which read ``_decode``'s buffer (``lv`` must be its view),
+        elsewhere eagerly."""
+        if lv.device.type != "cuda":
+            return self._bt_walk_eager(lv, lengths)
+        if lv.data_ptr() != self._bt.lv.data_ptr():
+            raise ValueError("the captured backtrace walks the history "
+                             "of this decoder's last best-path decode")
+        return self._bt.run(lengths, lv.shape[0])
+
+    def _bt_walk_eager(self, lv, lengths):
+        return self._backtrace_eager(*self._split(lv), lengths)
+
+    def _arcs_to_path(self, arcs: np.ndarray, n: int, cost: float
+                      ) -> Tuple[np.ndarray, np.ndarray, float]:
+        """Host label mapping of a device-backtraced arc sequence
+        (given newest-first, length n)."""
+        g = self.g
+        n_e = g.num_emitting_arcs
+        fwd = arcs[:n][::-1].astype(np.int64)
+        eps = fwd >= n_e
+        ol = np.where(eps, g.n_olabel[np.where(eps, fwd - n_e, 0)],
+                      g.e_olabel[np.where(eps, 0, fwd)])
+        words = ol[ol > 0].astype(np.int32)
+        tids = g.e_ilabel[fwd[~eps]].astype(np.int32)
+        return tids, words, float(cost)
 
     def _level(self, r, t, b):
         return tuple(r[k][b, t] for k in ("fs", "fc", "bp_arc", "bp_prev"))
@@ -897,21 +1175,23 @@ class TopKDecoder:
         host already; each utterance's records are compressed on the
         device to the largest per-utterance total, and the records, their
         counts and each utterance's final-level states cross in ONE
-        transfer."""
-        B = len(lengths)
+        transfer.  Rows past ``len(lengths)`` pad the batch: they hold no
+        valid record and are not fetched."""
+        B, Bp = len(lengths), r["fs"].shape[1]
         A = int(self.A_lat)
         Ls = lengths.astype(np.int64)
         msk = np.arange(e_cnt.shape[0])[:, None] < Ls[None, :]
-        ce = int((np.minimum(e_cnt, A) * msk).sum(0).max(initial=0))
-        cn = int((np.minimum(n_cnt[1:], A) * msk).sum(0).max(initial=0)
-                 + np.minimum(n_cnt[0], A).max(initial=0))
-        L = torch.as_tensor(Ls, device=self.device)
+        ce = int((np.minimum(e_cnt[:, :B], A) * msk).sum(0).max(initial=0))
+        cn = int((np.minimum(n_cnt[1:, :B], A) * msk).sum(0).max(initial=0)
+                 + np.minimum(n_cnt[0, :B], A).max(initial=0))
+        L = torch.as_tensor(np.concatenate([Ls, np.full(Bp - B, -1)]),
+                            device=self.device)
         e_out, e_n = self._compress(r["e_rec"], r["e_cnt"], 1, L,
                                     max(ce, 1))
         n_out, n_n = self._compress(r["n_rec"], r["n_cnt"], 0, L,
                                     max(cn, 1))
-        fsT = r["fs"][L, torch.arange(B, device=self.device)]
-        parts = (e_out, e_n, n_out, n_n, fsT)
+        fsT = r["fs"][L.clamp(min=0), torch.arange(Bp, device=self.device)]
+        parts = tuple(p[:B] for p in (e_out, e_n, n_out, n_n, fsT))
         flat = torch.cat([p.reshape(-1) for p in parts]).cpu().numpy()
         e_out, e_n, n_out, n_n, fsT = (
             x.reshape(p.shape) for x, p in zip(np.split(
@@ -924,19 +1204,23 @@ class TopKDecoder:
                              determinize: bool = True,
                              auto_grow: bool = True,
                              max_grow: int = 3,
-                             pad_frames: int = 0) -> List[Lattice]:
+                             pad_frames: int = 0,
+                             pad_rows: int = 0) -> List[Lattice]:
         """Batched lattice decode.  ``determinize`` applies word-level
         lattice determinization to each assembled lattice (ref:
         GetRawLattice -> DeterminizeLatticePruned), so no duplicate word
         sequences reach rescoring.  ``auto_grow`` re-runs with doubled
         ``lattice_arcs_per_frame`` (up to ``max_grow`` doublings) when
         per-frame record buffers overflowed; any residual overflow is
-        logged, never silent."""
+        logged, never silent.  ``pad_frames`` / ``pad_rows`` pad the
+        batch to at least that many frames / rows (one set of graphs for
+        a bucket); padding rows carry zero acoustics, are searched on the
+        device and are never fetched, counted or assembled."""
         if self.A_lat <= 0:
             raise ValueError("construct the decoder with "
                              "lattice_arcs_per_frame > 0 (or None) for "
                              "lattice output")
-        am, lengths = self._pad(loglikes, pad_frames)
+        am, lengths = self._pad(loglikes, pad_frames, pad_rows)
         am_dev = torch.as_tensor(am, device=self.device)
         T = am.shape[1]
         for attempt in range(max_grow + 1):
@@ -1048,23 +1332,132 @@ class TopKDecoder:
 
 
 # ---------------------------------------------------------------------------
-# Streaming (chunked) decode on the same frame
+# The search as CUDA graphs
 # ---------------------------------------------------------------------------
 
 class _Block:
-    """One captured block size: its CUDA graph, its static device input
-    (``size + 1`` raw acoustic rows: frame j and its lookahead row j+1)
-    and output (the stacked levels, packed [size, 4, K] int32: states,
-    cost bits, bp_arc, bp_prev)."""
+    """One captured block of a runner: the CUDA graph of ``size`` frames
+    of ``TopKDecoder._block`` (best path or lattice), its static input
+    rows am [size + 1, B, P] and its output levels (``_levels``)."""
 
-    def __init__(self, size: int, num_pdfs: int, k: int, device):
+    def __init__(self, run: "_BlockRunner", lattice: bool, size: int,
+                 num_pdfs: int):
+        dec = run.dec
+        B = run.fs.shape[0]
         self.size = size
-        self.am = torch.zeros((size + 1, num_pdfs), dtype=torch.float32,
-                              device=device)
-        self.out = torch.zeros((size, 4, k), dtype=torch.int32,
-                               device=device)
-        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.am = torch.zeros((size + 1, B, num_pdfs), dtype=torch.float32,
+                              device=dec.device)
+        self.out = dec._levels(size, B, lattice, dec.device)
 
+        def body(frames=size):
+            fs, fc = dec._block(run.fs, run.fc, self.am[:frames + 1],
+                                {k: v[:frames] for k, v in self.out.items()},
+                                lattice)
+            run.fs.copy_(fs)
+            run.fc.copy_(fc)
+
+        self.graph, self.capture_s = _capture(
+            body, lambda: body(1), dec.device, dec._graph_pool(),
+            (run.fs, run.fc))
+
+
+class _BlockRunner:
+    """Frames as greedy blocks from ``sizes``, each block one CUDA graph
+    of the block function, captured at its first use under (variant,
+    size, A_lat, P) and replayed after.  A runner owns a carry (fs, fc)
+    [B, K], which every one of its graphs reads and writes: the batch
+    search keeps one runner a batch width, a ``StreamingDecoder`` one of
+    its own.  Every tensor a graph reads or writes outside its own
+    temporaries (rows in, levels out, the carry) is allocated outside
+    the captures, so the graphs of one decoder share its memory pool
+    safely in any replay order.  After each replay the block's levels
+    are copied on the device into the caller's buffers at the block's
+    offset; nothing waits for the card.  The lattice graphs bake in the
+    record capacity: when auto-grow changes it, the old ones go and the
+    blocks are captured again."""
+
+    def __init__(self, dec: TopKDecoder, batch: int, sizes):
+        self.dec, self.sizes = dec, tuple(sizes)
+        K, dev = dec.K, dec.device
+        self.fs = torch.full((batch, K), _INVALID, dtype=torch.int32,
+                             device=dev)
+        self.fc = torch.full((batch, K), _BIG, dtype=torch.float32,
+                             device=dev)
+        self.blocks: Dict[tuple, _Block] = {}
+
+    def _get(self, lattice: bool, size: int, num_pdfs: int) -> _Block:
+        a_lat = self.dec.A_lat if lattice else 0
+        key = (lattice, size, a_lat, num_pdfs)
+        blk = self.blocks.get(key)
+        if blk is None:
+            for k in [k for k in self.blocks if k[0] and k[2] != a_lat]:
+                del self.blocks[k]
+            blk = self.blocks[key] = _Block(self, lattice, size, num_pdfs)
+        return blk
+
+    def run(self, rows: torch.Tensor, out: Dict[str, torch.Tensor],
+            lattice: bool) -> None:
+        """``len(rows) - 1`` frames from the carry over rows [n + 1, B,
+        P]; level j into row j of each of ``out``'s buffers."""
+        i = 0
+        for size in _ladder(rows.shape[0] - 1, self.sizes):
+            blk = self._get(lattice, size, rows.shape[-1])
+            blk.am.copy_(rows[i:i + size + 1])
+            blk.graph.replay()
+            for k, v in blk.out.items():
+                out[k][i:i + size].copy_(v)
+            i += size
+
+
+class _Backtrace:
+    """A batch search's best-path history and the backtrace's walk state,
+    at fixed addresses, so that on the card the walk runs as captured
+    chunks of steps (greedy from FRAME_BLOCKS, one CUDA graph a chunk
+    size, in the decoder's pool): about 1,200 eager steps for a 300-frame
+    batch become a dozen replays.  The history holds up to ``cap``
+    levels (a multiple of 64) of B rows; a wider or longer batch gets a
+    new object, and the old one's graphs go with it."""
+
+    def __init__(self, dec: TopKDecoder, batch: int, frames: int):
+        self.dec, self.B = dec, batch
+        self.cap = -(-(frames + 1) // 64) * 64
+        self.lv = torch.empty((self.cap, 4, batch, dec.K), dtype=torch.int32,
+                              device=dec.device)
+        self.st: Optional[Dict[str, torch.Tensor]] = None
+        self.graphs: Dict[int, Tuple] = {}     # chunk -> (graph, capture s)
+
+    def fits(self, batch: int, frames: int) -> bool:
+        return batch == self.B and frames + 1 <= self.cap
+
+    def run(self, lengths: torch.Tensor, levels: int):
+        """The walk over the first ``levels`` levels; the same results
+        as ``TopKDecoder._backtrace_eager`` (device tensors, arcs [B,
+        L_cap])."""
+        dec = self.dec
+        fs, fc, ba, bp = dec._split(self.lv)
+        start = dec._bt_start(fs, fc, lengths, dec._bt_len(self.cap))
+        if self.st is None:
+            self.st = start
+        else:
+            for k, v in start.items():
+                self.st[k].copy_(v)
+        st = self.st
+        for size in _ladder(dec._bt_len(levels), FRAME_BLOCKS):
+            if size not in self.graphs:
+                def body(steps=size):
+                    for _ in range(steps):
+                        dec._bt_step(st, fs[:, 0], ba, bp)
+                self.graphs[size] = _capture(body, lambda: body(1),
+                                             dec.device, dec._graph_pool(),
+                                             tuple(st.values()))
+            self.graphs[size][0].replay()
+        return (st["out"], st["n"], st["cost"], st["fail"] | ~st["done"],
+                st["empty"])
+
+
+# ---------------------------------------------------------------------------
+# Streaming (chunked) decode on the same frame
+# ---------------------------------------------------------------------------
 
 class _Staging:
     """A chunk's rows and levels on their way to and from the blocks:
@@ -1095,16 +1488,16 @@ class StreamingDecoder:
     t, so one frame is held back per ``advance`` and flushed by
     ``finalize()`` using itself as lookahead.
 
-    On a CUDA device a chunk runs as greedy blocks from
-    ``CHUNK_BLOCKS``, each block size one CUDA graph of
-    ``TopKDecoder._frame`` (the best-path variant) over the block's
-    frames, captured at its first use on this decoder; the graphs share
-    one memory pool, and ``reset()`` keeps them.  A chunk costs one copy
-    of its rows from pinned host memory, then for each block a copy of
-    its rows into the graph's input buffer, one replay (which leaves the
-    carry (fs, fc) in the decoder's state buffers) and a copy of its
-    levels out, then one copy of all the levels back to pinned host
-    memory and one sync.  On the CPU the same block function runs
+    On a CUDA device a chunk runs through the batch search's block
+    machinery (``_BlockRunner``, a batch of one, with a carry of its
+    own): greedy blocks from ``CHUNK_BLOCKS``, each block size one CUDA
+    graph of ``TopKDecoder._block`` (the best-path variant), captured at
+    its first use in the decoder's memory pool; ``reset()`` keeps them.
+    A chunk costs one copy of its rows from pinned host memory, then for
+    each block a copy of its rows into the graph's input buffer, one
+    replay (which leaves the carry in the runner's buffers) and a copy
+    of its levels out, then one copy of all the levels back to pinned
+    host memory and one sync.  On the CPU the same block function runs
     eagerly, frame by frame.  One decoder is one configuration: the
     graphs bake in the decoder's beam, acoustic scale, K and eps depth.
 
@@ -1135,16 +1528,18 @@ class StreamingDecoder:
         # beam keeps parallel token families alive forever)
         self.walk_limit = (max(256, 8 * self.commit_every)
                            if walk_limit is None else int(walk_limit))
-        K, dev = decoder.K, decoder.device
-        # the carry between blocks: every graph reads and writes these
-        self._fs = torch.full((1, K), _INVALID, dtype=torch.int32,
-                              device=dev)
-        self._fc = torch.full((1, K), _BIG, dtype=torch.float32, device=dev)
-        self._blocks: Dict[int, _Block] = {}
+        # the carry between blocks: on the card, every graph of the
+        # runner reads and writes its buffers
+        self._runner = _BlockRunner(decoder, 1, self.CHUNK_BLOCKS)
+        self._fs, self._fc = self._runner.fs, self._runner.fc
         self._staging: Optional[_Staging] = None
-        self._pool = None
-        self.capture_seconds: Dict[int, float] = {}   # block size -> s
         self.reset()
+
+    @property
+    def capture_seconds(self) -> Dict[int, float]:
+        """Block size -> seconds of its graph's capture ({} on the
+        CPU)."""
+        return {b.size: b.capture_s for b in self._runner.blocks.values()}
 
     def reset(self) -> None:
         self._pending: Optional[np.ndarray] = None   # held-back raw row
@@ -1159,69 +1554,18 @@ class StreamingDecoder:
         self._since_check = 0
 
     # -- the device side ---------------------------------------------------
-    def _frames(self, fs, fc, am, out):
-        """The block function: ``out.shape[0]`` best-path frames from the
-        carry (fs, fc) [1, K] over raw acoustic rows ``am`` [size + 1, P]
-        (row j + 1 is frame j's lookahead); each level goes into ``out``.
-        Returns the new carry."""
-        for j in range(out.shape[0]):
-            fs, fc, ba, bp = self.dec._frame(fs, fc, am[j:j + 1],
-                                             am[j + 1:j + 2])
-            out[j, 0].copy_(fs[0])
-            out[j, 1].copy_(fc[0].view(torch.int32))
-            out[j, 2].copy_(ba[0])
-            out[j, 3].copy_(bp[0])
-        return fs, fc
-
-    def _graph_body(self, blk: _Block) -> None:
-        fs, fc = self._frames(self._fs, self._fc, blk.am, blk.out)
-        self._fs.copy_(fs)
-        self._fc.copy_(fc)
-
-    def _capture(self, blk: _Block) -> None:
-        """Warm the block up once on a side stream (the sort, top-K and
-        searchsorted scratch is allocated there, outside the capture),
-        put the carry back, then capture it into the shared pool."""
-        t = time.perf_counter()
-        carry = (self._fs.clone(), self._fc.clone())
-        side = torch.cuda.Stream(self.dec.device)
-        side.wait_stream(torch.cuda.current_stream(self.dec.device))
-        with torch.cuda.stream(side):
-            self._graph_body(blk)
-        torch.cuda.current_stream(self.dec.device).wait_stream(side)
-        self._fs.copy_(carry[0])
-        self._fc.copy_(carry[1])
-        if self._pool is None:
-            self._pool = torch.cuda.graph_pool_handle()
-        # sharing the pool is safe in any replay order: a graph's pool
-        # memory holds only its own temporaries; its inputs, outputs and
-        # the carry are allocated outside every capture
-        blk.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(blk.graph, pool=self._pool):
-            self._graph_body(blk)
-        torch.cuda.synchronize(self.dec.device)
-        self.capture_seconds[blk.size] = time.perf_counter() - t
-
     @torch.no_grad()
     def _run_frames(self, rows: np.ndarray) -> Tuple[np.ndarray, ...]:
         """``len(rows) - 1`` frames over raw rows [n + 1, P]; returns the
         levels (fs, fc, bp_arc, bp_prev), each [n, K] on the host."""
         n, dev, K = len(rows) - 1, self.dec.device, self.dec.K
         if dev.type != "cuda":
-            out = torch.empty((n, 4, K), dtype=torch.int32)
-            self._fs, self._fc = self._frames(
-                self._fs, self._fc, torch.as_tensor(rows, device=dev), out)
-            packed = out.numpy()
+            out = self.dec._levels(n, 1, False, dev)
+            am = torch.as_tensor(rows, device=dev)[:, None]
+            self._fs, self._fc = self.dec._block(self._fs, self._fc, am,
+                                                 out)
+            packed = out["lv"][:, :, 0].numpy()
         else:
-            sizes, left = [], n
-            while left:
-                sizes.append(next(b for b in self.CHUNK_BLOCKS if b <= left))
-                left -= sizes[-1]
-            for size in sorted(set(sizes)):
-                if size not in self._blocks:
-                    blk = self._blocks[size] = _Block(
-                        size, rows.shape[1], K, dev)
-                    self._capture(blk)
             st = self._staging
             if st is None or st.capacity < n:
                 st = self._staging = _Staging(
@@ -1229,13 +1573,8 @@ class StreamingDecoder:
                     dev)
             st.rows_host.numpy()[:n + 1] = rows
             st.rows[:n + 1].copy_(st.rows_host[:n + 1], non_blocking=True)
-            i = 0
-            for size in sizes:
-                blk = self._blocks[size]
-                blk.am.copy_(st.rows[i:i + size + 1])
-                blk.graph.replay()
-                st.out[i:i + size].copy_(blk.out)
-                i += size
+            self._runner.run(st.rows[:n + 1, None],
+                             {"lv": st.out[:n, :, None]}, False)
             st.out_host[:n].copy_(st.out[:n], non_blocking=True)
             torch.cuda.current_stream(dev).synchronize()
             packed = st.out_host[:n].numpy().copy()
@@ -1553,8 +1892,9 @@ def decode_utterances(graph: CompiledGraph,
 
     Utterances are bucketed by padded length (multiples of
     ``bucket_frames``) and decoded in batches of ``batch_size``; a short
-    last batch is padded by repeating its last utterance and the
-    duplicates are dropped.  ``lattice_arcs_per_frame=None`` derives the
+    last batch keeps that width with rows of zero acoustics (so that it
+    replays the full batches' graphs), and those rows are never fetched,
+    assembled or determinized.  ``lattice_arcs_per_frame=None`` derives the
     record capacity from ``max_active``
     (``TopKDecoder._derive_lattice_arcs``).
 
@@ -1593,10 +1933,8 @@ def decode_utterances(graph: CompiledGraph,
         for i in range(0, len(us), batch_size):
             chunk = us[i:i + batch_size]
             lls = [np.asarray(loglikes[u], np.float32) for u in chunk]
-            n_pad = batch_size - len(chunk)
-            if n_pad:
-                lls = lls + [lls[-1]] * n_pad
             lats = dec.decode_batch_lattice(lls, determinize=determinize,
-                                            pad_frames=tb)
-            out.update(zip(chunk, lats[:len(chunk)]))
+                                            pad_frames=tb,
+                                            pad_rows=batch_size)
+            out.update(zip(chunk, lats))
     return out

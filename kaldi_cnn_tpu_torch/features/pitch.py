@@ -1,9 +1,10 @@
 """Pitch extraction (Kaldi-pitch style: NCCF + Viterbi smoothing).
 
 Host numpy, the twin of ``kaldi_cnn_tpu/features/pitch.py`` (verbatim
-but for its imports), without its ``OnlinePitchExtractor``: that one
-re-runs ``raw_pitch`` over the whole stream on every chunk and is on no
-path.
+but for its imports), apart from ``OnlinePitchExtractor``: it gives the
+JAX extractor's results, but where that one re-runs ``raw_pitch`` over
+the whole stream on every chunk, this one computes the NCCF of the new
+frames only and carries the Viterbi forward pass across chunks.
 
 Clean-room equivalent of src/feat/pitch-functions.{h,cc}
 (ComputeKaldiPitch + ProcessPitch, Ghahremani et al. 2014): per-frame
@@ -28,7 +29,7 @@ consumes it).
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import numpy as np
 
@@ -196,6 +197,109 @@ def compute_and_process_pitch(wave: np.ndarray,
     (compute-kaldi-pitch-feats | process-kaldi-pitch-feats)."""
     opts = opts or PitchOptions()
     return process_pitch(raw_pitch(wave, opts), opts)
+
+
+class OnlinePitchExtractor:
+    """Chunked pitch (ref: online-feature.cc OnlinePitchFeature):
+    samples stream in via accept_waveform(); frames commit once they
+    fall ``recompute_window`` frames behind the input edge, and whenever
+    the commit point moves the whole committed prefix is re-set from the
+    newest Viterbi track (the JAX package's semantics, output for
+    output).
+
+    The work is incremental where the JAX extractor re-runs
+    ``raw_pitch`` over the whole stream on every chunk: the NCCF of a
+    frame depends on its own samples only, so each call computes it for
+    the frames the new samples complete (``nccf_frames`` over the
+    samples from the first new frame on), and the Viterbi forward pass
+    is causal, so its cost vector and backpointers carry across calls.
+    Only the backtrace runs from the end, when the commit point moves
+    and at ``input_finished``."""
+
+    def __init__(self, opts: Optional[PitchOptions] = None,
+                 recompute_window: int = 80):
+        self.opts = opts or PitchOptions()
+        self.recompute_window = int(recompute_window)
+        o = self.opts
+        self._shift = int(o.samp_freq * o.frame_shift_ms / 1000.0)
+        wlen = int(o.samp_freq * o.frame_length_ms / 1000.0)
+        self._lags = _candidate_lags(o, wlen)
+        loglag = np.log(self._lags)
+        self._pen = o.penalty_factor * (loglag[None, :]
+                                        - loglag[:, None]) ** 2
+        self._bias = o.lag_bias * (loglag - loglag[0])
+        self._tail = np.zeros(0, np.float64)   # from the next frame's start
+        self._nccf: List[np.ndarray] = []      # [n, L] a call
+        self._back: List[np.ndarray] = []      # [n, L] a call
+        self._cost: Optional[np.ndarray] = None
+        self._committed = np.zeros((0, 2), np.float32)
+
+    @property
+    def num_frames(self) -> int:
+        """Frames whose NCCF has been computed."""
+        return sum(len(x) for x in self._nccf)
+
+    def _advance(self, samples: np.ndarray) -> None:
+        """NCCF of the frames the new samples complete, then the forward
+        pass over them (raw_pitch's recursion, step for step)."""
+        self._tail = np.concatenate(
+            [self._tail, np.asarray(samples, np.float64)])
+        if not len(self._lags):
+            return
+        nccf, _ = nccf_frames(self._tail, self.opts)
+        if not len(nccf):
+            return
+        self._tail = self._tail[len(nccf) * self._shift:]
+        L = len(self._lags)
+        back = np.zeros(nccf.shape, np.int32)
+        cost = self._cost
+        for t in range(len(nccf)):
+            if cost is None:
+                cost = -(nccf[0] - self._bias)
+                continue
+            tot = cost[:, None] + self._pen
+            back[t] = np.argmin(tot, axis=0)
+            cost = tot[back[t], np.arange(L)] - (nccf[t] - self._bias)
+        self._cost = cost
+        self._nccf.append(nccf)
+        self._back.append(back)
+
+    def _raw(self) -> np.ndarray:
+        """raw_pitch of the samples so far: the backtrace from the end."""
+        T = self.num_frames
+        if T == 0:
+            return np.zeros((0, 2), np.float32)
+        nccf = np.concatenate(self._nccf)
+        back = np.concatenate(self._back)
+        path = np.zeros(T, np.int32)
+        path[-1] = int(np.argmin(self._cost))
+        for t in range(T - 1, 0, -1):
+            path[t - 1] = back[t, path[t]]
+        pitch = self.opts.samp_freq / self._lags[path]
+        pov = nccf[np.arange(T), path]
+        return np.stack([pov, pitch], axis=1).astype(np.float32)
+
+    def accept_waveform(self, samples: np.ndarray) -> None:
+        self._advance(samples)
+        commit_to = max(self.num_frames - self.recompute_window, 0)
+        if commit_to > len(self._committed):
+            self._committed = self._raw()[:commit_to]
+
+    def input_finished(self) -> np.ndarray:
+        """Returns the FULL [T, 2] raw track: the committed prefix (as it
+        was set when the commit point last moved; it can deviate from
+        the offline Viterbi path where a late observation would have
+        re-routed the track through committed frames), then the trailing
+        window freshly smoothed."""
+        raw = self._raw()
+        if len(self._committed):
+            raw = np.concatenate(
+                [self._committed, raw[len(self._committed):]])
+        return raw
+
+    @property
+    def num_frames_ready(self) -> int:
+        return len(self._committed)
 
 
 def add_pitch_features(feats: np.ndarray,

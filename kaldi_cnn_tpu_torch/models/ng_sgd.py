@@ -32,7 +32,7 @@ the same bits.  ``group=None`` is the single-process path.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -195,7 +195,8 @@ def ng_affine_apply(ng_in: OnlineNaturalGradient,
                     state_in: NGState, state_out: NGState,
                     x: torch.Tensor, d: torch.Tensor,
                     w: torch.Tensor, b: torch.Tensor, lr: float,
-                    max_change: float, group=None
+                    max_change: float, group=None,
+                    rows: Optional[Tuple[int, int]] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor, NGState, NGState]:
     """Factored NG-SGD update of an affine layer: the same as
     ``fused_ng_delta([x|1], d)`` + max-change clip + apply, with the bias
@@ -203,7 +204,10 @@ def ng_affine_apply(ng_in: OnlineNaturalGradient,
     Returns (w', b', state_in', state_out'); statistics accumulate in
     f32 whatever the stored dtype of x and d.  With a group, x and d are
     this rank's rows and the row sums and samples the group's, in one
-    all-reduce."""
+    all-reduce.  ``rows`` = (lo, hi): w and b are rows [lo, hi) of the
+    layer (a tensor-parallel shard) while d has all its columns; the
+    preconditioners and the max-change norm see the whole layer, and
+    only those rows are updated."""
     offset, n = row_span(x.shape[0], group)
     x32, d32 = x.to(torch.float32), d.to(torch.float32)
     u_i, u_o = state_in.u, state_out.u
@@ -248,8 +252,9 @@ def ng_affine_apply(ng_in: OnlineNaturalGradient,
     else:
         scale = 1.0
     step = lr * scale * gamma
-    w_new = w + step * (A * g_w + P @ u_iw + u_o.T @ q_w)
-    b_new = b + step * (A * g_b + P @ u_ib + u_o.T @ q_b)
+    r = slice(None) if rows is None else slice(*rows)
+    w_new = w + step * (A * g_w[r] + P[r] @ u_iw + u_o.T[r] @ q_w)
+    b_new = b + step * (A * g_b[r] + P[r] @ u_ib + u_o.T[r] @ q_b)
     xs = torch.cat([xs, xs.new_ones((xs.shape[0], 1))], dim=1)
     new_in = ng_in.maybe_update_from_sample(state_in, xs, x_sq / n)
     new_out = ng_out.maybe_update_from_sample(state_out, ds, d_sq / n)

@@ -19,21 +19,42 @@ sets in the JAX pytree layout (per-component dicts of tensors or
 arrays), where the JAX package stacks a leading replica axis.  Over a
 list, ``average_replicas`` and ``average_params`` are one function.
 
-Not ported: ``make_dp_tp_step`` (tensor parallelism on a "model"
-axis), ``make_replica_step`` (independent streams vmapped on one host;
-replica mode over ranks is ``parallel/multihost.py``) and
-``initialize_distributed`` (``multihost.initialize`` starts the process
-group).
+Tensor parallelism (``make_dp_tp_step``): mode A over the data axis
+plus, over the mesh's "model" axis, the wide Affine layers split by
+output rows, as the JAX package's P("model", None) sharding of w and
+P("model") of b: each rank keeps its row slice (``local_slice``) in a
+``ShardedAffineComponent``, the forward gathers the output columns over
+the model group, the input derivative is the model group's sum of the
+shards' parts, and the NG-SGD update runs on every model rank from the
+whole derivative (the output-side preconditioner needs all of its
+columns) and updates that rank's rows.  The NG states stay whole on
+every rank, as the JAX step keeps them replicated.  ``gather_params``
+gives the whole parameters back in the JAX pytree layout.
+
+``initialize_distributed`` joins a multi-process group
+(``multihost.initialize`` calls it).  Not ported: ``make_replica_step``
+(independent streams vmapped on one host; replica mode over ranks is
+``parallel/multihost.py``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
-from typing import Callable, List
+import datetime
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
+import torch.distributed as dist
+from torch import nn
 
-from kaldi_cnn_tpu_torch.core.mesh import Mesh
+from kaldi_cnn_tpu_torch.convert import params_to_numpy
+from kaldi_cnn_tpu_torch.core.mesh import (Mesh, all_gather_cols,
+                                           all_reduce, local_slice)
+from kaldi_cnn_tpu_torch.models.components import (AffineComponent,
+                                                   Component)
+from kaldi_cnn_tpu_torch.models.ng_sgd import ng_affine_apply
 from kaldi_cnn_tpu_torch.models.nnet import Nnet
 
 
@@ -57,6 +78,134 @@ def make_dp_step(net: Nnet, mesh: Mesh) -> Callable:
             group=mesh.data_group, generator=generator)
 
     return step
+
+
+class ShardedAffineComponent(Component):
+    """This rank's rows [lo, hi) of an AffineComponent (its
+    ``local_slice`` on the mesh's model axis) in a tensor-parallel
+    step.  ``w`` [hi - lo, in] and ``b`` [hi - lo] are the shard;
+    ``output_dim`` and the NG states are the whole layer's."""
+
+    trainable = True
+
+    def __init__(self, full: AffineComponent, mesh: Mesh):
+        super().__init__()
+        self.input_dim, self.output_dim = full.input_dim, full.output_dim
+        self.max_change = full.max_change
+        self.lo, self.hi = local_slice(full.output_dim, mesh.shape["model"],
+                                       mesh.model_index)
+        self.group = mesh.model_group
+        self.w = nn.Parameter(full.w.detach()[self.lo:self.hi].clone(),
+                              requires_grad=False)
+        self.b = nn.Parameter(full.b.detach()[self.lo:self.hi].clone(),
+                              requires_grad=False)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = x.to(self.w.dtype) @ self.w.T + self.b
+        return all_gather_cols(y, self.output_dim, self.lo, self.group)
+
+    def backprop(self, in_value, out_value, out_deriv, aux):
+        part = out_deriv[:, self.lo:self.hi].to(self.w.dtype) @ self.w
+        return all_reduce(part, self.group)
+
+    # the whole layer's NG states, as the unsharded component keeps them
+    init_opt = AffineComponent.init_opt
+
+    @torch.no_grad()
+    def update(self, opt, in_value, out_deriv, lr, ng_in, ng_out,
+               group=None):
+        """The whole layer's NG-SGD step from the whole derivative
+        (every model rank computes the same statistics and states);
+        this rank's rows of w and b change in place."""
+        w, b, opt_in, opt_out = ng_affine_apply(
+            ng_in, ng_out, opt["ng_in"], opt["ng_out"], in_value, out_deriv,
+            self.w, self.b, lr, self.max_change, group,
+            rows=(self.lo, self.hi))
+        self.w.copy_(w)
+        self.b.copy_(b)
+        return {"ng_in": opt_in, "ng_out": opt_out}
+
+
+def shard_model(net: Nnet, mesh: Mesh) -> Nnet:
+    """Replaces in ``net``, in place, every AffineComponent whose
+    output_dim the mesh's model axis divides by this rank's
+    ``ShardedAffineComponent`` (the layers the JAX package's
+    ``make_dp_tp_step`` shards); with a model axis of 1, none.  Load
+    whole parameters first (``convert.params_from_jax``)."""
+    m = mesh.shape["model"]
+    for i, c in enumerate(net.components):
+        if (isinstance(c, AffineComponent) and m > 1
+                and c.output_dim % m == 0):
+            net.components[i] = ShardedAffineComponent(c, mesh)
+    return net
+
+
+def gather_params(net: Nnet) -> Tuple[Dict[str, np.ndarray], ...]:
+    """The whole parameters of a sharded ``net`` in the JAX pytree layout
+    (``convert.params_to_numpy``'s): each shard's rows gathered over its
+    model group.  Every rank of a model group must call it."""
+    from kaldi_cnn_tpu_torch.convert import params_to_numpy
+    out = list(params_to_numpy(net))
+    for i, c in enumerate(net.components):
+        if isinstance(c, ShardedAffineComponent):
+            w = all_gather_cols(c.w.detach().T.contiguous(), c.output_dim,
+                                c.lo, c.group).T
+            b = all_gather_cols(c.b.detach()[None], c.output_dim, c.lo,
+                                c.group)[0]
+            out[i] = {"w": w.cpu().numpy(), "b": b.cpu().numpy()}
+    return tuple(out)
+
+
+@contextlib.contextmanager
+def _deterministic_cudnn():
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def make_dp_tp_step(net: Nnet, mesh: Mesh) -> Callable:
+    """Mode A over the mesh's data axis plus tensor parallelism of the
+    wide Affine layers over its model axis: ``net``'s layers are sharded
+    in place (``shard_model``), and the step is ``make_dp_step``'s,
+    step(opt, x, labels, lr, weights=None, generator=None) -> (opt',
+    objf), with x/labels/weights this rank's rows along the data axis
+    (the ranks of one model group hold the same rows).  Gathered back
+    (``gather_params``), the parameters are the single-process step's.
+
+    Every rank of a model group computes the layers it does not shard
+    (the conv front end) itself, so their copies stay bit-equal only if
+    the kernels are deterministic: the step runs with cuDNN's
+    deterministic algorithms (its default filter-gradient convolution on
+    the card is not, and left the copies 1.5e-8 apart in 3 steps)."""
+    step = make_dp_step(shard_model(net, mesh), mesh)
+
+    def tp_step(*args, **kwargs):
+        with _deterministic_cudnn():
+            return step(*args, **kwargs)
+
+    return tp_step
+
+
+def initialize_distributed(coordinator: Optional[str] = None,
+                           num_processes: Optional[int] = None,
+                           process_id: Optional[int] = None,
+                           device="cuda",
+                           timeout: Optional[datetime.timedelta] = None
+                           ) -> None:
+    """Multi-process group init (ref replacement for queue.pl job
+    launching; SURVEY.md §2.3): ``num_processes`` processes join at
+    ``tcp://{coordinator}``, this one as rank ``process_id``, over NCCL
+    for the card and gloo for the CPU.  No-op without a coordinator
+    (single process)."""
+    if not coordinator:
+        return
+    backend = "nccl" if torch.device(device).type == "cuda" else "gloo"
+    kw = {} if timeout is None else {"timeout": timeout}
+    dist.init_process_group(backend, init_method=f"tcp://{coordinator}",
+                            world_size=num_processes, rank=process_id, **kw)
 
 
 def _tree_map(fn, *trees):

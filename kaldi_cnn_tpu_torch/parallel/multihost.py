@@ -49,7 +49,8 @@ from kaldi_cnn_tpu_torch.core.mesh import (Mesh, all_reduce, local_slice,
 from kaldi_cnn_tpu_torch.core.rng import torch_generator
 from kaldi_cnn_tpu_torch.models.components import param_tree
 from kaldi_cnn_tpu_torch.models.nnet import Nnet
-from kaldi_cnn_tpu_torch.parallel.dp import make_dp_step
+from kaldi_cnn_tpu_torch.parallel.dp import (initialize_distributed,
+                                             make_dp_step)
 from kaldi_cnn_tpu_torch.train.egs import Egs, EgsBatcher
 from kaldi_cnn_tpu_torch.train.trainer import TrainConfig, lr_at
 
@@ -107,10 +108,8 @@ def initialize(cfg: MultihostConfig, device="cuda") -> Mesh:
                 f"not match {backend} on {device}, rank {cfg.process_id} "
                 f"of {world}")
     elif cfg.coordinator:
-        dist.init_process_group(
-            backend, init_method=f"tcp://{cfg.coordinator}",
-            world_size=world, rank=cfg.process_id,
-            timeout=COLLECTIVE_TIMEOUT)
+        initialize_distributed(cfg.coordinator, world, cfg.process_id,
+                               device, COLLECTIVE_TIMEOUT)
     elif world > 1:
         raise ValueError(f"{world} processes need a coordinator")
     else:

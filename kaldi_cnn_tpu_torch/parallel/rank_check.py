@@ -3,9 +3,11 @@ card's test (``tests/test_torch_cuda.py``) and ``chip_smoke.py`` share.
 
 Two ranks join a gloo group (on the card: NCCL refuses two ranks on one
 GPU, so gloo carries the CUDA tensors) and take ``steps`` steps of the
-convnet, either in mode A (each rank half of one minibatch) or as two
-replicas (each its own half, then one replica average).  The same steps
-in one process give what they must equal: the steps on the whole
+convnet, either in mode A (each rank half of one minibatch), as two
+replicas (each its own half, then one replica average), or as the two
+model shards of one data slot (``make_dp_tp_step``: each rank half of
+every wide Affine layer's rows, the whole minibatch).  The same steps in
+one process give what they must equal: the steps on the whole
 minibatch, or the mean of the two halves' streams.
 """
 
@@ -22,11 +24,17 @@ from kaldi_cnn_tpu_torch.core.mesh import local_slice, make_mesh, shard_batch
 from kaldi_cnn_tpu_torch.core.rng import np_rng, torch_generator
 from kaldi_cnn_tpu_torch.models.factory import ConvnetConfig, make_convnet
 from kaldi_cnn_tpu_torch.ops import maxpool as mp
-from kaldi_cnn_tpu_torch.parallel.dp import average_params, make_dp_step
+from kaldi_cnn_tpu_torch.parallel.dp import (ShardedAffineComponent,
+                                             average_params, gather_params,
+                                             make_dp_step, make_dp_tp_step)
 from kaldi_cnn_tpu_torch.parallel.multihost import (make_replica_average,
                                                     run_ranks)
 
 PADDING_ROWS = 7
+# the tensor-parallel step against world size 1: the JAX package's own
+# bar for its make_dp_tp_step (tests/test_parallel_modes.py)
+TP_OBJF_ATOL = 1e-5
+TP_RTOL, TP_ATOL = 1e-4, 1e-5
 
 
 def seeded_case(cfg: ConvnetConfig, seed: int, rows: int):
@@ -130,3 +138,56 @@ def two_ranks_vs_one(cfg: ConvnetConfig, case, steps: int, lr: float,
             "param_rel": rel, "launches": (tuple(l0), tuple(l1)),
             "seconds": seconds}
 
+
+
+def tp_rank_steps(rank, cfg, params, x, y, w, steps, lr, device):
+    """One of the two model shards of one data slot: ``steps``
+    tensor-parallel steps on the whole minibatch.  Returns (the whole
+    parameters gathered, objf per step, the number of sharded
+    layers)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = make_mesh(1, device, model=2)
+    net = _net(cfg, params, mesh.device)
+    step = make_dp_tp_step(net, mesh)
+    x, y, w = shard_batch(mesh, (x, y, w))
+    opt, objfs = net.init_opt(), []
+    for _ in range(steps):
+        opt, objf = step(opt, x, y, lr, w)
+        objfs.append(objf)
+    sharded = sum(isinstance(c, ShardedAffineComponent)
+                  for c in net.components)
+    return gather_params(net), [float(o) for o in objfs], sharded
+
+
+def tp_two_ranks_vs_one(cfg: ConvnetConfig, case, steps: int, lr: float,
+                        device="cuda", timeout_s: float = 300.0) -> Dict:
+    """Two ranks as the model shards of one data slot (data 1 x model 2)
+    against world size 1 on ``case`` (``seeded_case``'s).  Returns
+    ``ranks_equal`` (the gathered parameters and objfs bit-equal),
+    ``objf_err`` (max |objf - world size 1's|), ``param_rel`` (max over
+    tensors of ||a - b|| / ||b||), ``param_excess`` (max over elements
+    of |a - b| - (TP_ATOL + TP_RTOL |b|): <= 0 within the JAX package's
+    bar), ``sharded`` (layers split), ``params`` (rank 0's gathered, the
+    JAX layout), ``objfs`` and ``seconds``."""
+    params, x, y, w = case
+    t = time.perf_counter()
+    (p0, o0, s0), (p1, o1, _) = run_ranks(
+        tp_rank_steps, 2, cfg, params, x, y, w, steps, lr, device,
+        timeout_s=timeout_s)
+    seconds = time.perf_counter() - t
+    want, objfs = world_one(cfg, params, x, y, w, steps, lr, device)
+    same = o0 == o1 and all(np.array_equal(a[k], b[k])
+                            for a, b in zip(p0, p1) for k in a)
+    excess = max(float((np.abs(a[k] - b[k])
+                        - (TP_ATOL + TP_RTOL * np.abs(b[k]))).max())
+                 for a, b in zip(p0, want, strict=True) for k in b)
+    rel = max(float(np.linalg.norm(a[k] - b[k])
+                    / max(np.linalg.norm(b[k]), 1e-30))
+              for a, b in zip(p0, want, strict=True) for k in b)
+    return {"ranks_equal": bool(same),
+            "objf_err": max(abs(a - b) for a, b in zip(o0, objfs,
+                                                       strict=True)),
+            "param_rel": rel, "param_excess": excess, "sharded": s0,
+            "params": p0,
+            "objfs": o0, "seconds": seconds}

@@ -529,6 +529,135 @@ def test_decode_utterances_on_card_matches_cpu(cuda):
                                           getattr(want[u], k))
 
 
+def _count_eager(monkeypatch):
+    """Records each call of the batch search's eager frame loop and
+    eager backtrace walk (the captured search must make none)."""
+    calls = []
+    for name in ("_run_frames_eager", "_bt_walk_eager"):
+        fn = getattr(TK.TopKDecoder, name)
+
+        def run(self, *a, fn=fn, name=name):
+            calls.append(name)
+            return fn(self, *a)
+        monkeypatch.setattr(TK.TopKDecoder, name, run)
+    return calls
+
+
+def _eager_search(monkeypatch):
+    """The batch search through its private eager methods on the card."""
+    monkeypatch.setattr(TK.TopKDecoder, "_run_frames",
+                        lambda self, *a: self._run_frames_eager(*a))
+    monkeypatch.setattr(TK.TopKDecoder, "_bt_walk",
+                        lambda self, *a: self._bt_walk_eager(*a))
+
+
+def _host_best_paths(dec, lls, device):
+    """The host ``_best_path`` on the fetched best-path histories."""
+    am, lengths = dec._pad(lls)
+    lv = dec._decode(torch.as_tensor(am, device=device))["lv"].cpu().numpy()
+    r = {k: lv[:, i].transpose(1, 0, 2)
+         for i, k in enumerate(("fs", "fc", "bp_arc", "bp_prev"))}
+    r["fc"] = r["fc"].view(np.float32)
+    return [dec._best_path(r, am, int(n), b) for b, n in enumerate(lengths)]
+
+
+def _same_paths(a, b):
+    return all(list(ta) == list(tb) and list(wa) == list(wb)
+               and np.float32(ca).view(np.int32) == np.float32(cb).view(
+                   np.int32) for (ta, wa, ca), (tb, wb, cb) in zip(a, b))
+
+
+def _same_lattices(a, b):
+    return all(
+        (x.num_states, x.start) == (y.num_states, y.start)
+        and all(np.array_equal(getattr(x, k), getattr(y, k))
+                for k in ("state_time", "arc_src", "arc_dst", "arc_ilabel",
+                          "arc_olabel", "arc_graph", "arc_acoustic",
+                          "final_graph"))
+        for x, y in zip(a, b, strict=True))
+
+
+def test_search_graphs_match_the_eager_search_on_card(cuda, monkeypatch):
+    """decode_batch and decode_batch_lattice on the card run their frame
+    loops and the backtrace only as replays of captured graphs (no eager
+    call), at K = 64 over four utterances of 31-55 frames: the same best
+    paths (tids, words, cost bits) and lattices arc for arc as the same
+    decoder's eager search on the card; the device backtrace equals the
+    host ``_best_path`` on the fetched histories."""
+    g, lls = _digits_lattice_case()
+    dec = TK.TopKDecoder(g, beam=14.0, max_active=64, acoustic_scale=0.1,
+                         lattice_beam=7.0, lattice_arcs_per_frame=None,
+                         device=cuda)
+    eager = _count_eager(monkeypatch)
+    paths = dec.decode_batch(lls)
+    lats = dec.decode_batch_lattice(lls, determinize=False)
+    assert eager == [] and dec.last_overflow == (0, 0)
+    kinds = {(k[0], k[1]) if k[0] == "frames" else k[0]
+             for k in dec.capture_seconds}
+    assert kinds == {("frames", False), ("frames", True), "backtrace"}
+    assert _same_paths(paths, _host_best_paths(dec, lls, cuda))
+    _eager_search(monkeypatch)
+    assert _same_paths(paths, dec.decode_batch(lls))
+    assert _same_lattices(lats, dec.decode_batch_lattice(
+        lls, determinize=False))
+    assert set(eager) == {"_run_frames_eager", "_bt_walk_eager"}
+
+
+def test_lattice_graphs_recaptured_after_auto_grow(cuda):
+    """A record capacity of 8 overflows: auto-grow doubles it and the
+    lattice blocks are captured again at each new capacity (only the
+    last one's graphs remain); the lattices equal the CPU's arc for arc
+    (costs within 1e-5) with the same final capacity."""
+    g, lls = _digits_lattice_case()
+    kw = dict(beam=14.0, max_active=64, acoustic_scale=0.1,
+              lattice_beam=7.0, lattice_arcs_per_frame=8)
+    dec = TK.TopKDecoder(g, device=cuda, **kw)
+    cpu = TK.TopKDecoder(g, device="cpu", **kw)
+    got = dec.decode_batch_lattice(lls, determinize=False, max_grow=6)
+    want = cpu.decode_batch_lattice(lls, determinize=False, max_grow=6)
+    assert dec.A_lat == cpu.A_lat > 8
+    assert dec.last_overflow == cpu.last_overflow == (0, 0)
+    caps = {k[4] for k in dec.capture_seconds if k[0] == "frames"}
+    assert caps == {dec.A_lat}
+    for a, b in zip(got, want):
+        for k in ("state_time", "arc_src", "arc_dst", "arc_olabel"):
+            np.testing.assert_array_equal(getattr(a, k), getattr(b, k))
+        np.testing.assert_allclose(a.arc_acoustic, b.arc_acoustic,
+                                   rtol=0, atol=1e-5)
+
+
+def test_a_failed_capture_raises_and_does_not_fall_back(cuda, tmp_path):
+    """A host sync inside the frame (as ``.item()`` would be) breaks the
+    capture: decode_batch raises and the eager loop never runs (in a
+    process of its own, so that the broken capture cannot touch the
+    other tests)."""
+    import os
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (
+        "import test_torch_cuda as t\n"
+        "from kaldi_cnn_tpu_torch.decode import topk_decoder as TK\n"
+        "g, lls = t._digits_lattice_case()\n"
+        "frame = TK.TopKDecoder._frame\n"
+        "def synced(self, fs, fc, *a, **k):\n"
+        "    float(fc.sum())\n"
+        "    return frame(self, fs, fc, *a, **k)\n"
+        "TK.TopKDecoder._frame = synced\n"
+        "eager = []\n"
+        "TK.TopKDecoder._run_frames_eager = lambda *a: eager.append(1)\n"
+        "dec = TK.TopKDecoder(g, max_active=64, device='cuda')\n"
+        "try:\n"
+        "    dec.decode_batch(lls)\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', not eager)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(here), here]))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=tmp_path, env=env)
+    assert "raised True" in out.stdout, out.stdout + out.stderr
+
+
 # ---------------------------------------------------------------- streaming
 
 @pytest.mark.parametrize("kind,bins", [("fbank", 36), ("mfcc", 23)])
@@ -794,6 +923,22 @@ def test_two_ranks_on_the_card_match_world_size_one(cuda, replicas):
         cuda)
     assert res["ranks_equal"]
     assert min(sum(res["launches"], ())) >= 3
+    assert res["objf_err"] <= DP_OBJF_ATOL
+    assert res["param_rel"] <= DP_PARAM_REL
+
+
+def test_tensor_parallel_ranks_on_the_card_match_world_size_one(cuda):
+    """make_dp_tp_step over two gloo ranks with CUDA tensors (data 1 x
+    model 2: the three Affine layers of the Librispeech-width net split
+    by rows), 3 steps on a 256-row minibatch, against the single-process
+    steps: objf 1e-3, parameters 1e-3 relative (the two-rank bar above);
+    the ranks bit-equal."""
+    from kaldi_cnn_tpu_torch.models.factory import ConvnetConfig
+    from kaldi_cnn_tpu_torch.parallel import rank_check
+    cfg = ConvnetConfig(**LIBRI_CFG)
+    res = rank_check.tp_two_ranks_vs_one(
+        cfg, rank_check.seeded_case(cfg, 5, 256), 3, LIBRI_LR, cuda)
+    assert res["ranks_equal"] and res["sharded"] == 3
     assert res["objf_err"] <= DP_OBJF_ATOL
     assert res["param_rel"] <= DP_PARAM_REL
 

@@ -4,7 +4,11 @@ averages, the mode-A step of two gloo ranks against ``make_dp_step`` on
 the 8-device virtual mesh, and ``train_multihost`` over two ranks (mode
 A, and two replicas averaged every 2 steps) against JAX's
 ``train_multihost`` on that mesh, at PERF.md's limits: objf 1e-3,
-parameters 1e-3 relative (Frobenius, a tensor)."""
+parameters 1e-3 relative (Frobenius, a tensor); the tensor-parallel
+step of two gloo ranks (data 1 x model 2) against the single-process
+step and JAX's ``make_dp_tp_step`` on the 4 x 2 mesh at JAX's own bar
+(objf 1e-5, parameters rtol 1e-4 / atol 1e-5); and
+``initialize_distributed`` without a coordinator."""
 
 import jax
 import jax.numpy as jnp
@@ -23,7 +27,8 @@ from kaldi_cnn_tpu.parallel import multihost as jmh
 from kaldi_cnn_tpu.train.egs import Egs as JEgs
 from kaldi_cnn_tpu.train.trainer import TrainConfig as JTrainConfig
 from kaldi_cnn_tpu_torch.core.mesh import local_slice
-from kaldi_cnn_tpu_torch.parallel import dp
+from kaldi_cnn_tpu_torch.models.factory import ConvnetConfig
+from kaldi_cnn_tpu_torch.parallel import dp, rank_check
 from kaldi_cnn_tpu_torch.parallel.multihost import (MultihostConfig,
                                                     run_ranks,
                                                     shard_utterances)
@@ -132,3 +137,42 @@ def test_train_multihost_two_ranks_match_jax(replicas, average_every):
     for a, b in zip(jax.tree_util.tree_leaves((p0, o0)),
                     jax.tree_util.tree_leaves((p1, o1)), strict=True):
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+
+
+def test_dp_tp_step_two_ranks_match_single_and_jax():
+    """STEPS tensor-parallel steps over two gloo ranks, the two model
+    shards of one data slot (every Affine layer of the net splits: its
+    output dims are even), against the single-process steps on the whole
+    minibatch and against JAX's make_dp_tp_step on the 4 x 2 (data x
+    model) virtual mesh, within JAX's own bar for its step: objf 1e-5,
+    parameters rtol 1e-4 / atol 1e-5; the two ranks bit-equal."""
+    init = init_params()
+    x, y, w = minibatch()
+    res = rank_check.tp_two_ranks_vs_one(
+        ConvnetConfig(**CFG), (init, x, y, w), STEPS, LR, device="cpu",
+        timeout_s=RANK_TIMEOUT_S)
+    assert res["ranks_equal"] and res["sharded"] == 2
+    assert res["objf_err"] <= rank_check.TP_OBJF_ATOL
+    assert res["param_excess"] <= 0.0
+    jnet = j_make_convnet(JCfg(**CFG))
+    mesh = JMesh(np.array(jax.devices()[:8]).reshape(4, 2),
+                 ("data", "model"))
+    step = jdp.make_dp_tp_step(jnet, mesh)
+    params, opt, objfs = init, jnet.init_opt(), []
+    for _ in range(STEPS):
+        params, opt, objf = step(params, opt, x, y, LR, weights=w)
+        objfs.append(float(objf))
+    np.testing.assert_allclose(res["objfs"], objfs, rtol=0,
+                               atol=rank_check.TP_OBJF_ATOL)
+    for g, want in zip(res["params"], jax.device_get(params), strict=True):
+        assert sorted(g) == sorted(want)
+        for k in g:
+            np.testing.assert_allclose(g[k], np.asarray(want[k]),
+                                       rtol=rank_check.TP_RTOL,
+                                       atol=rank_check.TP_ATOL)
+
+
+def test_initialize_distributed_without_coordinator_is_a_no_op():
+    assert dp.initialize_distributed(None) is None
+    assert jdp.initialize_distributed(None) is None
+    assert not torch.distributed.is_initialized()

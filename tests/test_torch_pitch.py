@@ -33,11 +33,63 @@ def test_pitch_twins_are_verbatim(name):
         getattr(jp, name))
 
 
-def test_online_pitch_extractor_is_not_ported():
-    """It re-runs raw_pitch over the whole stream on every chunk (ROADMAP
-    3.5) and is on no path."""
-    assert hasattr(jp, "OnlinePitchExtractor")
-    assert not hasattr(tp, "OnlinePitchExtractor")
+def _stream(corpus, chunks, packages):
+    """OnlinePitchExtractors of ``packages`` over the corpus's first two
+    utterances as one 8 kHz stream, fed in ``chunks`` sizes (cycled);
+    with two, checks the committed frames after every chunk (pitch
+    equal, pov within 1e-6).  Returns the extractors."""
+    wave = np.concatenate([np.asarray(corpus.waves[u], np.float64)
+                           for u in sorted(corpus.waves)[:2]])
+    exts = [p.OnlinePitchExtractor(p.PitchOptions(samp_freq=8000.0))
+            for p in packages]
+    i, k = 0, 0
+    while i < len(wave):
+        n = chunks[k % len(chunks)]
+        for e in exts:
+            e.accept_waveform(wave[i:i + n])
+        i, k = i + n, k + 1
+        if len(exts) == 2:
+            assert exts[0].num_frames_ready == exts[1].num_frames_ready
+            _pitch_equal(exts[0]._committed, exts[1]._committed)
+    return exts
+
+
+def _pitch_equal(got, want):
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got[:, 1], want[:, 1])
+    np.testing.assert_allclose(got[:, 0], want[:, 0], rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("chunking", ["1600", "random"])
+def test_online_pitch_extractor_matches_jax(corpus, chunking):
+    """Chunks of 1600 samples, or of random sizes (1 to 4000): the JAX
+    extractor's committed frames and num_frames_ready after every chunk,
+    and its final track, frame for frame."""
+    r = np.random.default_rng(3)
+    chunks = ([1600] if chunking == "1600"
+              else r.integers(1, 4000, size=400).tolist())
+    ext, jext = _stream(corpus, chunks, (tp, jp))
+    got = ext.input_finished()
+    assert len(got) > 300
+    _pitch_equal(got, jext.input_finished())
+
+
+def test_online_pitch_extractor_nccf_work_is_linear(corpus, monkeypatch):
+    """Over a stream in 400-sample chunks, the NCCF is computed for T
+    frames in all, not for every prefix: each frame once (the JAX
+    extractor's work on the same stream is the sum of the prefixes)."""
+    frames = []
+    nccf = tp.nccf_frames
+
+    def count(wave, opts):
+        out = nccf(wave, opts)
+        frames.append(len(out[0]))
+        return out
+
+    monkeypatch.setattr(tp, "nccf_frames", count)
+    (ext,) = _stream(corpus, [400], (tp,))
+    assert sum(frames) == ext.num_frames == len(ext.input_finished())
+    assert len(frames) > 50
 
 
 def test_pitch_functions_equal_jax_at_8k(corpus):
