@@ -73,23 +73,34 @@ then runs these phases; any failure raises and the exit code is not 0.
    ``max_memory_allocated``.
 5. Training slice: fbank volumes of the same 16 utterances on the card,
    equal alignments on the monophone graph, ``recipes.wsj.train`` at the
-   recipe width for TRAIN_EPOCHS epochs (minibatch 256), then
-   ``recipes.wsj.decode`` of the trained model.  The FFT fbank, the
-   vectorised maxpool forward and the maxpool backward kernels must run
-   in the training, the wgmma conv+maxpool kernel in the decode, and the
-   trained model's valid logprob must beat the initial model's.
+   recipe width for TRAIN_EPOCHS epochs (minibatch 256; its groups of
+   steps through ``Nnet.train_steps``' CUDA graphs, no call of the
+   eager loop), then ``recipes.wsj.decode`` of the trained model.  The
+   FFT fbank, the vectorised maxpool forward and the maxpool backward
+   kernels must run in the training, the wgmma conv+maxpool kernel in
+   the decode, and the trained model's valid logprob must beat the
+   initial model's.  5b: the same training twice under deterministic
+   cuDNN, through the graphs and through the eager loop: every step's
+   objf, the pre-combine parameters and NG states, the final parameters
+   must be equal, bit for bit, and the graphed run's maxpool launches
+   less its graphs' warm-up launches must equal the eager run's.
 6. Training replay: the same training on the CPU from the same initial
    parameters and egs; per-step objf, the pre-combine parameters and the
    final valid logprob must agree within the bounds below.
-7. Train-step time: ``Nnet.train_step`` at the bench shape
-   (ConvnetConfig(), minibatch 4096), warm, with the maxpool kernels'
-   share of it.
+7. Train-step time, eager and graphed: ms a step at the bench shape
+   (ConvnetConfig(), minibatch 4096) and the recipe's (the WSJ CNN,
+   minibatch 256), in groups of 8, in the NG warm-up and the steady
+   state, the device's busy share (torch.profiler), the graphs'
+   captures, and the maxpool kernels' share of the graphed step.
 8. Recipe: ``recipes.wsj.run`` end to end on the card at the recipe's
    width (F = 64) on RECIPE_UTTS utterances with RECIPE_EPOCHS epochs
    and the matched p-norm DNN: MFCC through the fbank kernel, the GMM
    bootstrap (mono -> triphone tree) on the host, fbank volumes, CNN and
    DNN training, lattice decode of dev and test on the triphone HCLG,
-   the paired sign test.  The fbank kernel must run in the "mfcc" stage,
+   the paired sign test; then the CNN's ``wsj.fit`` again through the
+   eager loop, whose maxpool launches must equal the graphed fit's less
+   its graphs' warm-up launches.
+   The fbank kernel must run in the "mfcc" stage,
    the fbank, maxpool forward and backward and wgmma conv kernels in the
    run, and no lattice buffer may overflow; one utterance's MFCC from
    the card must agree with ``mfcc_reference`` on the CPU on the same
@@ -321,6 +332,7 @@ from kaldi_cnn_tpu_torch.models.components import (
     AffineComponent, Conv2DComponent)
 from kaldi_cnn_tpu_torch.models.factory import ConvnetConfig, make_convnet
 from kaldi_cnn_tpu_torch.models.nnet import AmNnet, Nnet
+from kaldi_cnn_tpu_torch.models.step_graphs import ng_states, with_states
 from kaldi_cnn_tpu_torch.models.utils import estimate_feature_transform
 from kaldi_cnn_tpu_torch.online2 import (OnlineCmvn, OnlineFeaturePipeline,
                                          OnlineRecognizer, StreamingSplicer)
@@ -742,25 +754,64 @@ def maxpool_case(name, shape, rows, dtype, dev):
 
 @contextlib.contextmanager
 def recorded_train_steps():
-    """Collect the objf (a device scalar) of every Nnet.train_step."""
+    """Collect the objf (a device scalar) of every step of every
+    Nnet.train_steps group (the trainer's only way to a step)."""
     objfs = []
-    step = Nnet.train_step
+    steps = Nnet.train_steps
 
     def recording(self, *args, **kwargs):
-        opt, objf = step(self, *args, **kwargs)
-        objfs.append(objf)
+        opt, objf = steps(self, *args, **kwargs)
+        objfs.extend(objf)
         return opt, objf
 
-    Nnet.train_step = recording
+    Nnet.train_steps = recording
     try:
         yield objfs
     finally:
-        Nnet.train_step = step
+        Nnet.train_steps = steps
+
+
+@contextlib.contextmanager
+def eager_training():
+    """Nnet.train_steps as its plain version, the eager loop of
+    train_step on the net's device (there is no public switch)."""
+    steps = Nnet.train_steps
+    Nnet.train_steps = Nnet._train_steps_eager
+    try:
+        yield
+    finally:
+        Nnet.train_steps = steps
+
+
+@contextlib.contextmanager
+def counted_eager_steps():
+    """Counts calls of the eager loop: a graphed run makes none."""
+    calls = []
+    eager = Nnet._train_steps_eager
+
+    def counting(self, *args, **kwargs):
+        calls.append(1)
+        return eager(self, *args, **kwargs)
+
+    Nnet._train_steps_eager = counting
+    try:
+        yield calls
+    finally:
+        Nnet._train_steps_eager = eager
+
+
+def captures(net: Nnet) -> str:
+    """The train-step graphs ``net`` captured, and their seconds."""
+    cs = net.capture_seconds
+    steps = [k for k in cs if k[0] == "step"]
+    return (f"{len(steps)} step graphs ({sum(k[4] for k in steps)} with a "
+            f"refresh), {len(cs) - len(steps)} tail graphs, "
+            f"{sum(cs.values()):.3f} s of captures")
 
 
 def train_slice(vols, ali, t2p, num_pdfs, device, ckpt_dir):
     """wsj.train on ``device``: (AmNnet, seconds, per-step objfs,
-    pre-combine params)."""
+    pre-combine params, their NG states)."""
     if device != "cpu":
         torch.cuda.synchronize()
     t = time.perf_counter()
@@ -770,10 +821,69 @@ def train_slice(vols, ali, t2p, num_pdfs, device, ckpt_dir):
     if device != "cpu":
         torch.cuda.synchronize()
     secs = time.perf_counter() - t
-    last, _, _ = load_checkpoint(
+    last, ng, _ = load_checkpoint(
         os.path.join(ckpt_dir, f"epoch{TRAIN_EPOCHS - 1}.npz"),
-        params_to_numpy(am.nnet))
-    return am, secs, torch.stack(objfs).cpu().numpy(), last
+        params_to_numpy(am.nnet), opt_to_numpy(am.nnet.init_opt()))
+    return am, secs, torch.stack(objfs).cpu().numpy(), last, ng
+
+
+def leaves(tree) -> list:
+    """The arrays of a params or NG-state tree, in order."""
+    if isinstance(tree, dict):
+        return [x for k in tree for x in leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for v in tree for x in leaves(v)]
+    return [np.asarray(tree)]
+
+
+def train_bit_check(tvols, ali, t2p, num_pdfs, dev, tmp):
+    """Phase 5b: the training slice on the card twice under deterministic
+    cuDNN, through the graphs and through the eager loop: every step's
+    objf, the pre-combine parameters and NG states, the final parameters
+    must be equal, bit for bit, and the maxpool launches of the replays
+    (the graphed run's less its warm-ups') the eager run's."""
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in ("graphed", "eager"):
+            reset_launches()
+            ctx = (eager_training() if mode == "eager"
+                   else contextlib.nullcontext())
+            with counted_eager_steps() as eager_calls, ctx:
+                am, secs, objfs, last, ng = train_slice(
+                    tvols, ali, t2p, num_pdfs, dev,
+                    os.path.join(tmp, f"bits_{mode}"))
+            runs[mode] = dict(
+                secs=secs, objfs=objfs, eager_calls=len(eager_calls),
+                pre=leaves(last) + leaves(ng),
+                final=[p.detach().cpu().numpy()
+                       for p in am.nnet.parameters()],
+                launches=(mp.maxpool3d.launches
+                          - mp.maxpool3d.warmup_launches,
+                          mp.maxpool3d_backward.launches
+                          - mp.maxpool3d_backward.warmup_launches),
+                warmups=(mp.maxpool3d.warmup_launches,
+                         mp.maxpool3d_backward.warmup_launches))
+    finally:
+        torch.backends.cudnn.deterministic = False
+    g, e = runs["graphed"], runs["eager"]
+    same = {
+        "objfs": g["objfs"].tobytes() == e["objfs"].tobytes(),
+        "pre-combine params and NG states": all(
+            a.tobytes() == b.tobytes() for a, b in zip(g["pre"], e["pre"])),
+        "final params": all(a.tobytes() == b.tobytes()
+                            for a, b in zip(g["final"], e["final"])),
+        "maxpool launches": g["launches"] == e["launches"]
+        and e["warmups"] == (0, 0)}
+    log(f"train graphed vs eager (deterministic cuDNN, {len(g['objfs'])} "
+        f"steps): bit-equal {same}; maxpool fwd/bwd launches graphed "
+        f"{g['launches']} replayed + {g['warmups']} in warm-ups, eager "
+        f"{e['launches']}; eager-loop calls in the "
+        f"graphed run {g['eager_calls']}; wsj.train {g['secs']:.3f} s "
+        f"graphed (captures included), {e['secs']:.3f} s eager")
+    if not all(same.values()) or g["eager_calls"] or not e["eager_calls"]:
+        raise AssertionError("the graphed training is not the eager "
+                             "training bit for bit")
 
 
 def valid_logprob(net: Nnet, valid) -> float:
@@ -782,30 +892,70 @@ def valid_logprob(net: Nnet, valid) -> float:
                           torch.as_tensor(valid.y, device=dev)))
 
 
-def train_step_ms(dev):
-    """Warm Nnet.train_step at the bench shape: (ms a step while the NG
-    states update every step, ms a step in the steady state that
-    updates them every 16th step)."""
-    cfg = ConvnetConfig()
-    net = make_convnet(cfg, fused=True, device=dev)
-    net.init(torch_generator(SEED, "bench_train"))
-    rng = np_rng(SEED, "bench_train")
-    x = torch.as_tensor(rng.normal(size=(BENCH_TRAIN_ROWS, cfg.input_dim))
-                        .astype(np.float32), device=dev)
-    y = torch.as_tensor(rng.integers(0, cfg.num_pdfs, BENCH_TRAIN_ROWS),
-                        device=dev)
-    opt = net.init_opt()
+def busy_ms(run) -> float:
+    """Device busy time of ``run()`` (the union of the kernels' intervals
+    in a torch.profiler trace), in ms."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        run()
+        torch.cuda.synchronize()
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    if not spans:
+        raise AssertionError("the profiler saw no kernel on the card")
+    busy, (lo, hi) = 0.0, spans[0]
+    for a, b in spans[1:]:
+        if a > hi:
+            busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    return (busy + hi - lo) / 1e3
 
-    def steps(k):
-        nonlocal opt
-        for _ in range(k):
-            opt, _ = net.train_step(opt, x, y, 0.001)
 
-    steps(2)
-    warm = time_ms(lambda: steps(1), iters=8)
-    steps(64 - opt[0]["ng_in"].t)     # past the NG warm-up
-    steady = time_ms(lambda: steps(16), iters=2) / 16
-    return warm, steady
+def train_step_ms(net, rows, dev, seed_tag):
+    """ms a step of ``net`` at ``rows`` rows, in groups of 8 on random
+    inputs from a seed, eager (the PR 14 loop) and graphed: in the NG
+    warm-up (every step refreshes its states: 8 eighs at the WSJ CNN)
+    and in the steady state (one refresh in 16 steps), after each key's
+    capture; the captures' seconds; and the device's busy share of the
+    steady steps, eager and graphed."""
+    d, k = net.input_dim, 8
+    rng = np_rng(SEED, seed_tag)
+    xs = [rng.normal(size=(rows, d)).astype(np.float32) for _ in range(k)]
+    ys = [rng.integers(0, net.output_dim, rows) for _ in range(k)]
+    ws = [np.ones(rows, np.float32) for _ in range(k)]
+    out = {}
+    for mode in ("eager", "graphed"):
+        fn = net._train_steps_eager if mode == "eager" else net.train_steps
+        opt = net.init_opt()
+
+        def group(t0):
+            nonlocal opt
+            opt = with_states(opt, [s._replace(t=t0)
+                                    for _, s in ng_states(opt)])
+            opt = fn(opt, xs, ys, 0.001, weights=ws)[0]
+
+        for phase, t0s in (("warmup", (0, 8, 16)),
+                           ("steady", (64, 72, 80, 88))):
+            for t0 in t0s[:2]:          # each key's capture
+                group(t0)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(3):
+                for t0 in t0s:
+                    group(t0)
+            torch.cuda.synchronize()
+            out[f"{mode}_{phase}_ms"] = (
+                1e3 * (time.perf_counter() - t) / (3 * k * len(t0s)))
+        busy = busy_ms(lambda: [group(t0) for t0 in (64, 72, 80, 88)])
+        out[f"{mode}_steady_busy"] = (busy / (4 * k)
+                                      / out[f"{mode}_steady_ms"])
+    out["captures"] = captures(net)
+    return out
 
 
 def wsj_model(num_pdfs: int, device) -> AmNnet:
@@ -1141,10 +1291,8 @@ def mfcc_check(corpus, dev) -> float:
 
 
 def reset_launches() -> None:
-    fbank_frames.launches = fbank_ops.fbank_frames_table.launches = 0
-    conv2d_maxpool.launches = conv2d_maxpool_f32.launches = 0
-    mp.maxpool3d.launches = mp.maxpool3d_backward.launches = 0
-    mp.maxpool3d_scalar.launches = 0
+    for fn in common.COUNTED:
+        fn.launches = fn.warmup_launches = 0
 
 
 def read_launches() -> dict:
@@ -1155,6 +1303,14 @@ def read_launches() -> dict:
             "maxpool_fwd_vec": mp.maxpool3d.launches,
             "maxpool_fwd_scalar": mp.maxpool3d_scalar.launches,
             "maxpool_bwd": mp.maxpool3d_backward.launches}
+
+
+def read_warmups() -> dict:
+    """The maxpool kernels' launches in CUDA graphs' warm-ups (real
+    launches, also in ``read_launches``; an eager run makes none)."""
+    return {"maxpool_fwd_vec": mp.maxpool3d.warmup_launches,
+            "maxpool_fwd_scalar": mp.maxpool3d_scalar.warmup_launches,
+            "maxpool_bwd": mp.maxpool3d_backward.warmup_launches}
 
 
 @contextlib.contextmanager
@@ -1180,14 +1336,67 @@ def launches_per_call(owner, name, calls):
         setattr(owner, name, fn)
 
 
+def timed_fits(owner, calls):
+    """Wraps ``owner.fit`` (``wsj.fit`` where the recipe looks it up):
+    each call appends (its arguments, its seconds, the kernels' launches
+    during it, the eager-loop calls during it, the maxpool launches in
+    graph warm-ups during it) to ``calls``."""
+    fit = owner.fit
+
+    @functools.wraps(fit)
+    def run(*a, **k):
+        before, warm = read_launches(), read_warmups()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        with counted_eager_steps() as eager:
+            out = fit(*a, **k)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        after, warm_after = read_launches(), read_warmups()
+        calls.append((a, secs, {n: after[n] - before[n] for n in after},
+                      len(eager),
+                      {n: warm_after[n] - warm[n] for n in warm}))
+        return out
+
+    return mock_attr(owner, "fit", run)
+
+
+@contextlib.contextmanager
+def mock_attr(owner, name, value):
+    old = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, old)
+
+
+def eager_refit(call):
+    """A recorded ``wsj.fit`` call again on a copy of its net (train_nnet
+    initializes it from the seed), through the eager loop: (seconds,
+    launches)."""
+    net, *rest = call[0]
+    net = copy.deepcopy(net)
+    before = read_launches()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with eager_training():
+        wsj.fit(net, *rest[:4])         # no checkpoint_dir: the run's stay
+    torch.cuda.synchronize()
+    after = read_launches()
+    return (time.perf_counter() - t,
+            {n: after[n] - before[n] for n in after})
+
+
 def recipe_phase(dev, tmp, corpus):
-    """Phase 8: wsj.run on ``corpus`` on the card, eval_dnn on; returns
-    (launches in the run, of which the "mfcc" stage's fbank launches, the
-    result)."""
-    feats = []
+    """Phase 8: wsj.run on ``corpus`` on the card, eval_dnn on; then the
+    CNN's training again through the eager loop (seconds and maxpool
+    launches against the graphed run's); returns (launches in the run, of
+    which the "mfcc" stage's fbank launches, the result)."""
+    feats, fits = [], []
     reset_launches()
     with launches_per_call(wsj, "compute_features", feats), \
-            lattice_probes() as probe:
+            timed_fits(wsj, fits), lattice_probes() as probe:
         t = time.perf_counter()
         res = wsj.run(corpus=corpus, nnet_epochs=RECIPE_EPOCHS,
                       eval_dnn=True, seed=SEED, device=dev,
@@ -1195,6 +1404,24 @@ def recipe_phase(dev, tmp, corpus):
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t
     launches = read_launches()
+    cnn = [c for c in fits if any(isinstance(m, C.Maxpooling3DComponent)
+                                  for m in c[0][0].modules())]
+    if len(cnn) != 1 or len(fits) != 2 or any(c[3] for c in fits):
+        raise AssertionError(f"the recipe's training ran other than two "
+                             f"graphed fits with one CNN: {fits}")
+    eager_s, eager_n = eager_refit(cnn[0])
+    graphed_n, warm_n = cnn[0][2], cnn[0][4]
+    mp_keys = ("maxpool_fwd_vec", "maxpool_bwd", "maxpool_fwd_scalar")
+    log(f"recipe nnet_train: CNN {cnn[0][1]:.3f} s through the graphs "
+        f"({captures(cnn[0][0][0])}; DNN "
+        f"{[c[1] for c in fits if c is not cnn[0]][0]:.3f} s), the "
+        f"same CNN fit eagerly {eager_s:.3f} s; maxpool launches graphed "
+        f"{ {k: graphed_n[k] for k in mp_keys} }, of them in the graphs' "
+        f"warm-ups {warm_n}, eager { {k: eager_n[k] for k in mp_keys} }")
+    if any(graphed_n[k] - warm_n[k] != eager_n[k] for k in mp_keys):
+        raise AssertionError("the graphed training's maxpool launches "
+                             "(less its warm-ups') differ from the eager "
+                             "training's")
     mfcc_launches = [n["fbank_fft"] for _, n, _ in feats]
     sec = probe["s"]
     K = min(2000, res["graph_states"])
@@ -1616,6 +1843,8 @@ def swbd_phase(dev, tmp):
         f"WER {res['dev_wer']:.2f}% at {res['point']}, test WER "
         f"{res['wer']:.2f}% ({res['errors']} errors / {res['words']} words; "
         f"not asserted)")
+    log(f"swbd nnet_train: {res['seconds']['nnet_train']:.3f} s "
+        f"({SWBD_EPOCHS} epochs through Nnet.train_steps' CUDA graphs)")
     if (len(per["compute_features"]) != 3 or len(per["fit"]) != 1
             or len(per["nnet_decode"]) != 2):
         raise AssertionError(f"the recipe's stages ran other than expected: "
@@ -1704,6 +1933,8 @@ def rm_phase(dev, tmp):
         f"{res['dnn_dev_wer']:.2f}% at {res['dnn_point']} test "
         f"{res['wer']:.2f}% ({res['errors']} errors / {res['words']} "
         f"words; not asserted)")
+    log(f"rm dnn_train: {res['seconds']['dnn_train']:.3f} s "
+        f"({RM_EPOCHS} epochs through Nnet.train_steps' CUDA graphs)")
     if len(mfcc) != 3 or min(mfcc) <= 0 or launches["fbank_fft"] <= 0:
         raise AssertionError(f"the fbank kernel did not run in each MFCC "
                              f"call: {mfcc}, run {launches}")
@@ -2703,11 +2934,13 @@ def main() -> int:
             lang, corpus.transcripts[u]), t2p), v.shape[0])
             for u, v in tvols.items()}
         prep_s = time.perf_counter() - t
-        am_t, train_s, objfs, last = train_slice(
-            tvols, ali, t2p, num_pdfs, dev, os.path.join(tmp, "card"))
+        with counted_eager_steps() as eager_calls:
+            am_t, train_s, objfs, last, _ = train_slice(
+                tvols, ali, t2p, num_pdfs, dev, os.path.join(tmp, "card"))
         train_launches = {"fbank_fft": fbank_frames.launches,
                           "maxpool_fwd_vec": mp.maxpool3d.launches,
                           "maxpool_bwd": mp.maxpool3d_backward.launches}
+        train_graphs = am_t.nnet.capture_seconds
         scalar_launches = mp.maxpool3d_scalar.launches
         egs_train, egs_valid = wsj.split_valid(
             wsj.make_cnn_egs(tvols, ali, t2p, wsj.CONTEXT, wsj.CONTEXT, SEED))
@@ -2720,7 +2953,9 @@ def main() -> int:
             f"{len(egs_valid)} valid egs, {TRAIN_EPOCHS} epochs, "
             f"{len(objfs)} steps of 256; fbank volumes + equal alignments "
             f"{prep_s:.3f} s; wsj.train {train_s:.3f} s "
-            f"({frames / 100.0 / train_s:.1f} audio-s/s); launches "
+            f"({frames / 100.0 / train_s:.1f} audio-s/s) through "
+            f"Nnet.train_steps' CUDA graphs ({captures(am_t.nnet)}; "
+            f"eager-loop calls {len(eager_calls)}); launches "
             f"{train_launches} (maxpool_fwd_scalar {scalar_launches}); "
             f"objf step 0 {objfs[0]:.4f} -> last "
             f"{objfs[-1]:.4f}; valid logprob {lp0:.4f} (initial) -> "
@@ -2728,6 +2963,9 @@ def main() -> int:
         if min(train_launches.values()) <= 0:
             raise AssertionError(f"a kernel did not run in the training: "
                                  f"{train_launches}")
+        if eager_calls or not train_graphs:
+            raise AssertionError("the training did not run through the "
+                                 "CUDA graphs")
         if not lp > lp0:
             raise AssertionError("training did not raise the valid logprob")
         conv2d_maxpool.launches = 0
@@ -2744,8 +2982,11 @@ def main() -> int:
         if dec_launches <= 0:
             raise AssertionError("conv_maxpool did not run in the decode")
 
+        # ---- 5b. the same training graphed and eager, bit for bit -------
+        train_bit_check(tvols, ali, t2p, num_pdfs, dev, tmp)
+
         # ---- 6. training replay on the CPU --------------------------------
-        am_c, cpu_s, objfs_c, last_c = train_slice(
+        am_c, cpu_s, objfs_c, last_c, _ = train_slice(
             tvols, ali, t2p, num_pdfs, "cpu", os.path.join(tmp, "cpu"))
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -2763,14 +3004,30 @@ def main() -> int:
         raise AssertionError("the card's training disagrees with the CPU "
                              "replay")
 
-    # ---- 7. train-step time at the bench shape ---------------------------
-    warm_ms, steady_ms = train_step_ms(dev)
+    # ---- 7. train-step time, eager and graphed ---------------------------
+    bench_net = make_convnet(ConvnetConfig(), fused=True, device=dev)
+    bench_net.init(torch_generator(SEED, "bench_train"))
+    recipe_net = make_convnet(wsj.model_config(36, num_pdfs), device=dev)
+    recipe_net.init(torch_generator(SEED, "recipe_train"))
     mp_ms = mp_bench["arg_ms"] + mp_bench["bwd_ms"]
-    log(f"train step bench (ConvnetConfig(), mb {BENCH_TRAIN_ROWS}, f32 "
-        f"storage): {warm_ms:.3f} ms a step while NG updates every step, "
-        f"{steady_ms:.3f} ms a step in the steady state; maxpool forward "
-        f"with argmax + backward {mp_ms:.4f} ms = "
-        f"{100 * mp_ms / steady_ms:.1f}% of the steady step")
+    gpu = gpu_line()
+    step_ms = {}
+    for cell, net_, rows in (("bench", bench_net, BENCH_TRAIN_ROWS),
+                             ("recipe", recipe_net, 256)):
+        r = step_ms[cell] = train_step_ms(net_, rows, dev, f"{cell}_train")
+        log(f"train step {cell} ({'ConvnetConfig(), F = 128' if cell == 'bench' else 'the WSJ CNN, F = 64'}, "
+            f"mb {rows}, f32 storage, groups of 8; {gpu}): eager "
+            f"{r['eager_warmup_ms']:.3f} ms a step in the NG warm-up, "
+            f"{r['eager_steady_ms']:.3f} ms steady (device busy "
+            f"{100 * r['eager_steady_busy']:.1f}%); graphed "
+            f"{r['graphed_warmup_ms']:.3f} ms warm-up, "
+            f"{r['graphed_steady_ms']:.3f} ms steady (device busy "
+            f"{100 * r['graphed_steady_busy']:.1f}%); {r['captures']}")
+    log(f"train step bench: maxpool forward with argmax + backward "
+        f"{mp_ms:.4f} ms = "
+        f"{100 * mp_ms / step_ms['bench']['graphed_steady_ms']:.1f}% of the "
+        f"graphed steady step")
+    del bench_net, recipe_net
 
     # ---- 8. the recipe end to end -----------------------------------------
     mfcc_check(corpus, dev)

@@ -45,13 +45,13 @@ imports nothing of that package).
 
 from __future__ import annotations
 
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as nnf
 
+from kaldi_cnn_tpu_torch.core.graphs import capture as _capture
 from kaldi_cnn_tpu_torch.core.logging import get_logger
 from kaldi_cnn_tpu_torch.decode.graph import CompiledGraph
 from kaldi_cnn_tpu_torch.decode.lattice import (Lattice, determinize_lattice,
@@ -78,29 +78,6 @@ def _ladder(n: int, sizes) -> List[int]:
         out.append(next(s for s in sizes if s <= n))
         n -= out[-1]
     return out
-
-
-def _capture(body, warm, device, pool, carry=()):
-    """A CUDA graph of ``body()``.  ``warm()``, a short run of the same
-    operations (one frame, one step), goes first on a side stream, so
-    that every lazy initialisation happens outside the capture; the
-    ``carry`` tensors (which both update in place) are put back, and
-    ``body`` is captured into ``pool``.  Returns (graph, seconds)."""
-    t = time.perf_counter()
-    saved = [x.clone() for x in carry]
-    cur = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(cur)
-    with torch.cuda.stream(side):
-        warm()
-    cur.wait_stream(side)
-    for x, v in zip(carry, saved):
-        x.copy_(v)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool):
-        body()
-    torch.cuda.synchronize(device)
-    return graph, time.perf_counter() - t
 
 
 # ---------------------------------------------------------------------------

@@ -49,6 +49,7 @@ from torch.nn import grad as conv_grad
 from kaldi_cnn_tpu_torch.core.mesh import reduce_sum, row_span, strided_rows
 from kaldi_cnn_tpu_torch.models.ng_sgd import (
     OnlineNaturalGradient, ng_affine_apply, ng_delta_from_stats)
+from kaldi_cnn_tpu_torch.ops import common
 from kaldi_cnn_tpu_torch.ops.conv import conv2d_reference, patch_indices
 from kaldi_cnn_tpu_torch.ops.maxpool import (
     MaxPool3D, maxpool3d, maxpool3d_backward)
@@ -467,26 +468,33 @@ class Conv2DComponent(Component):
                              stride=self._stride())
                    + u_i[:, -1][None, :, None, None])     # [n, Ri, ot, of]
         x32 = in_value.to(torch.float32)
-        mult = torch.as_tensor(self._patch_multiplicity, device=x32.device)
+        dev = x32.device
+        geometry = (self.in_t, self.in_f, self.in_c, self.filt_t,
+                    self.filt_f, self.stride_t, self.stride_f)
+        mult = common.device_constant(
+            ("patch_multiplicity",) + geometry,
+            lambda: self._patch_multiplicity, dev)
         u_o = state_out.u
 
         # deterministic-stride row samples on the flat patch-row space of
-        # the global batch; a rank samples the frames it holds
+        # the global batch; a rank samples the frames it holds, which are
+        # the contiguous samples [lo, hi).  The indices are made on the
+        # device (no host copy, which a CUDA graph's capture cannot hold).
         s_i = min(n_rows, u_i.shape[0])
-        rows_i = np.arange(s_i) * max(n_rows // s_i, 1)
-        n_idx, pos_idx = np.divmod(rows_i, self.num_patches)
-        mine = (n_idx >= offset) & (n_idx < offset + n)
-        pidx = torch.as_tensor(self._patch_indices()[pos_idx[mine]],
-                               device=x32.device)
+        stride = max(n_rows // s_i, 1)
+        lo = min(s_i, -(-offset * self.num_patches // stride))
+        hi = min(s_i, -(-(offset + n) * self.num_patches // stride))
+        rows_i = torch.arange(lo, hi, device=dev) * stride
+        pidx = common.device_constant(("patch_indices",) + geometry,
+                                      self._patch_indices, dev)
         patches = torch.gather(
-            x32[torch.as_tensor(n_idx[mine] - offset, device=x32.device)],
-            1, pidx)
-        if mine.all():
+            x32[rows_i // self.num_patches - offset], 1,
+            pidx[rows_i % self.num_patches])
+        if lo == 0 and hi == s_i:
             xs = patches
         else:
             xs = x32.new_zeros((s_i, self.patch_dim))
-            xs[torch.as_tensor(np.flatnonzero(mine),
-                               device=x32.device)] = patches
+            xs[lo:hi] = patches
 
         g, proj_sq_in, x_sq, m, xs, ds = reduce_sum([
             torch.cat([gw, d2.sum(dim=0)[:, None]], dim=1),

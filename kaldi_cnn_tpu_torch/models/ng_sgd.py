@@ -20,6 +20,10 @@ step for step.  Two things differ by design:
   LAPACK may pick other signs than JAX; every use of ``u`` here is
   invariant to them, so states are compared through the projector
   ``u^T diag(d) u`` and ``rho``.
+* The update is two halves around its eigh (``_gram``, ``_finish``), so
+  that ``deferred_refresh`` can hold the eigh back: torch's eigh checks
+  its result on the host, and a step captured as a CUDA graph runs it
+  between two graphs (``models/step_graphs.py``).
 
 Data parallelism (mode A): with a process ``group``, each rank holds an
 equal row slice of the global minibatch, in rank order.  Every sum over
@@ -32,7 +36,8 @@ the same bits.  ``group=None`` is the single-process path.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import contextlib
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -44,6 +49,47 @@ class NGState(NamedTuple):
     d: torch.Tensor     # [R] eigenvalues (>= rho)
     rho: torch.Tensor   # scalar, remainder eigenvalue
     t: int              # step count (host)
+
+
+class Refresh(NamedTuple):
+    """A state update held back by ``deferred_refresh``: the
+    preconditioner, the state it updates, and ``_gram``'s (m, f64 Gram,
+    finite)."""
+    ng: "OnlineNaturalGradient"
+    state: NGState
+    m: torch.Tensor
+    gram: torch.Tensor
+    finite: torch.Tensor
+
+
+# the open list of deferred_refresh, or None
+_DEFERRED: Optional[List[Refresh]] = None
+
+
+@contextlib.contextmanager
+def deferred_refresh():
+    """Within the block, every state update whose gate is open stops
+    before its eigendecomposition: it appends a ``Refresh`` to the list
+    this yields and leaves the state's tensors as they were.  The caller
+    finishes each one with ``finish_refresh``.  A step's parameter
+    updates read only the old states, so a step run this way and its
+    refreshes finished after it give the bits of the step run whole.
+    It is how a training step is cut around ``torch.linalg.eigh``, which
+    checks its result on the host and so cannot run inside a CUDA
+    graph."""
+    global _DEFERRED
+    outer, _DEFERRED = _DEFERRED, []
+    try:
+        yield _DEFERRED
+    finally:
+        _DEFERRED = outer
+
+
+def finish_refresh(r: Refresh, evals: torch.Tensor, evecs: torch.Tensor
+                   ) -> NGState:
+    """The updated state of a deferred refresh, from
+    ``torch.linalg.eigh(r.gram)``."""
+    return r.ng._finish(r.state, r.m, r.finite, evals, evecs)
 
 
 class OnlineNaturalGradient:
@@ -86,17 +132,30 @@ class OnlineNaturalGradient:
     def maybe_update_from_sample(self, state: NGState, xs: torch.Tensor,
                                  x_energy: torch.Tensor) -> NGState:
         """The gated state update from sampled rows xs [s, D] and the
-        batch's mean row energy ||X||^2 / N."""
-        if self._update_now(state.t):
-            return self._update_from_sample(state, xs, x_energy)
-        return state._replace(t=state.t + 1)
+        batch's mean row energy ||X||^2 / N.  Inside ``deferred_refresh``
+        an open gate only records the update's eigenproblem and returns
+        the old tensors with the step counted."""
+        if not self._update_now(state.t):
+            return state._replace(t=state.t + 1)
+        if _DEFERRED is not None:
+            _DEFERRED.append(
+                Refresh(self, state, *self._gram(state, xs, x_energy)))
+            return state._replace(t=state.t + 1)
+        return self._update_from_sample(state, xs, x_energy)
 
     def _update_from_sample(self, state: NGState, xs: torch.Tensor,
                             x_energy: torch.Tensor) -> NGState:
         """Track the top-R eigenbasis of (1-eta) F + eta X^T X / N."""
+        m, gram, finite = self._gram(state, xs, x_energy)
+        evals, evecs = torch.linalg.eigh(gram)            # ascending
+        return self._finish(state, m, finite, evals, evecs)
+
+    def _gram(self, state: NGState, xs: torch.Tensor,
+              x_energy: torch.Tensor):
+        """The update's first half: (m [R+s, D], the f64 Gram m m^T
+        that eigh takes, whether m m^T was finite)."""
         xs = xs.to(torch.float32)
         u, d, rho = state.u, state.d, state.rho
-        r, dim = u.shape
         s = xs.shape[0]
         xs_energy = (xs * xs).sum() / s + 1e-20
         xs = xs * torch.sqrt(x_energy / xs_energy)
@@ -107,14 +166,21 @@ class OnlineNaturalGradient:
         ])                                                # [R+s, D]
         gram = m @ m.T
         # torch's eigh raises where jnp's returns NaN: hand it a finite
-        # matrix and let the guard below keep the old state.  It runs in
-        # f64: LAPACK's f32 solver fails to converge on the near-zero,
+        # matrix and let the guard in _finish keep the old state.  It runs
+        # in f64: LAPACK's f32 solver fails to converge on the near-zero,
         # degenerate Gram of a batch whose derivative rows are mostly 0
         # (zero-weight padding), where jnp's returns garbage silently.
         finite = torch.isfinite(gram).all()
         gram = torch.where(finite, gram, torch.eye(
             gram.shape[0], device=gram.device))
-        evals, evecs = torch.linalg.eigh(gram.double())   # ascending
+        return m, gram.double(), finite
+
+    def _finish(self, state: NGState, m: torch.Tensor, finite: torch.Tensor,
+                evals: torch.Tensor, evecs: torch.Tensor) -> NGState:
+        """The update's second half, from eigh's (ascending) f64
+        eigenvalues and eigenvectors of ``_gram``'s matrix."""
+        u, d, rho = state.u, state.d, state.rho
+        r, dim = u.shape
         evals, evecs = evals.float(), evecs.float()
         evals = torch.clamp_min(evals.flip(0), 0.0)
         evecs = evecs.flip(1)

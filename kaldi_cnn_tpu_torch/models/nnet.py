@@ -15,8 +15,11 @@ nnet-compute-discriminative.cc, am-nnet.cc, decodable-am-nnet.cc).
 The backprop is the components' own, by hand, under ``torch.no_grad``;
 the parameters live in the modules and each step updates them in place.
 The train step's objf comes back as a device scalar, so a training loop
-need not wait for the card at every step.  Given a process ``group``, it
-is the data-parallel (mode A) step: ``x`` is this rank's row slice of
+need not wait for the card at every step.  ``train_steps`` runs K steps
+in order (the JAX package's ``lax.scan`` of ``train_step``): on the card
+as replays of CUDA graphs captured once per shape
+(``models/step_graphs.py``), on the CPU as K eager steps.  Given a
+process ``group``, the train step is the data-parallel (mode A) step: ``x`` is this rank's row slice of
 the global minibatch, the objective's sums and every update's row sums
 span the group, and each rank computes the single-process step of the
 global minibatch.  A ``generator`` (``torch.Generator`` on the rows'
@@ -35,9 +38,10 @@ from torch import nn
 
 from kaldi_cnn_tpu_torch.core.mesh import reduce_sum
 from kaldi_cnn_tpu_torch.models.components import (
-    Conv2DComponent, IdentityComponent, Maxpooling3DComponent,
-    SliceParallelComponent)
+    Conv2DComponent, DropoutComponent, IdentityComponent,
+    Maxpooling3DComponent, SliceParallelComponent)
 from kaldi_cnn_tpu_torch.models.ng_sgd import OnlineNaturalGradient
+from kaldi_cnn_tpu_torch.models.step_graphs import StepGraphs
 from kaldi_cnn_tpu_torch.ops.common import round_up
 from kaldi_cnn_tpu_torch.ops.conv import conv2d_maxpool
 
@@ -78,6 +82,13 @@ def _storage_dtype(dt) -> torch.dtype:
                      "'float32'/'f32', or 'bfloat16'/'bf16'")
 
 
+def _group_lrs(lrs, k_steps: int) -> np.ndarray:
+    """One float32 learning rate a step, from K of them or one for all."""
+    if isinstance(lrs, torch.Tensor):
+        lrs = lrs.cpu().numpy()
+    return np.broadcast_to(np.asarray(lrs, np.float32), (k_steps,))
+
+
 def objf_from_output(out: torch.Tensor, labels: torch.Tensor,
                      weights: Optional[torch.Tensor] = None
                      ) -> torch.Tensor:
@@ -106,6 +117,8 @@ class Nnet(nn.Module):
         # dtype the TRAIN step stores activations and derivatives in
         # between components; cross-row reductions accumulate in f32
         self.train_storage_dtype = train_storage_dtype
+        # train_steps' CUDA graphs, made at its first call on the card
+        self._step_graphs: Optional[StepGraphs] = None
 
     @property
     def input_dim(self) -> int:
@@ -239,6 +252,67 @@ class Nnet(nn.Module):
             1, labels.long()[:, None], (weights / wsum / picked)[:, None])
         return self._backward_update(opt, acts, auxs, out_deriv, lr,
                                      sd, group), objf
+
+    def train_steps(self, opt, xs, labels, lrs, weights=None,
+                    generators: Optional[Sequence[torch.Generator]] = None):
+        """K minibatch updates in order, the semantics of K
+        ``train_step`` calls (the JAX package's ``train_steps``, K steps
+        under one jit through ``lax.scan``).  xs [K, N, D] f32, labels
+        [K, N] int, lrs [K] (or one lr for all), weights [K, N] or None
+        for ones: arrays, tensors, or sequences of K per-step arrays;
+        ``generators``: K generators on the net's device, one a step, for
+        the Dropout components.  Returns (opt', objf per step [K] as a
+        device tensor).
+
+        On a CUDA net each step is a replay of a CUDA graph captured once
+        per shape, slot in the group and NG gates
+        (``models/step_graphs.py``): the inputs cross in one copy, and
+        the NG states are copied into the net's fixed storage and the
+        returned ones out of it, so that any earlier ``opt`` may be
+        handed in again, as on the CPU.  A capture or replay that fails
+        raises.  On the CPU it is the eager loop of
+        ``train_step``."""
+        if self.device.type != "cuda":
+            return self._train_steps_eager(opt, xs, labels, lrs, weights,
+                                           generators)
+        lrs = _group_lrs(lrs, len(xs))
+        if weights is None:
+            weights = np.ones((len(xs), len(labels[0])), np.float32)
+        if self._step_graphs is None:
+            self._step_graphs = StepGraphs(self)
+        return self._step_graphs.run(
+            opt, xs, labels, lrs, weights, generators,
+            _storage_dtype(self.train_storage_dtype))
+
+    def _train_steps_eager(self, opt, xs, labels, lrs, weights=None,
+                           generators=None):
+        """``train_steps`` as K eager ``train_step`` calls on the net's
+        device (the plain version of the graphs)."""
+        dev = self.device
+        lrs = _group_lrs(lrs, len(xs))
+        objfs = []
+        for k in range(len(xs)):
+            opt, objf = self.train_step(
+                opt, torch.as_tensor(xs[k], device=dev),
+                torch.as_tensor(labels[k], device=dev), float(lrs[k]),
+                weights=(None if weights is None
+                         else torch.as_tensor(weights[k], device=dev)),
+                generator=None if generators is None else generators[k])
+            objfs.append(objf)
+        return opt, torch.stack(objfs)
+
+    @property
+    def capture_seconds(self) -> Dict[tuple, float]:
+        """Seconds of each train-step graph's capture on the card:
+        ("step", K, rows, slot k, whether it refreshes) and ("tail",
+        rows)."""
+        sg = getattr(self, "_step_graphs", None)
+        return {} if sg is None else sg.capture_seconds
+
+    def draws_masks(self) -> bool:
+        """Whether a train step with a generator draws Dropout masks."""
+        return any(isinstance(m, DropoutComponent) and m.proportion > 0
+                   for m in self.modules())
 
     @torch.no_grad()
     def discriminative_step(self, opt, x: torch.Tensor,

@@ -12,6 +12,13 @@ plain C interface.  At first use they are compiled by ``nvcc`` for
 ``sm_90a``, one process per source in parallel, and linked into
 ``kaldi_cnn_tpu_torch/_build/libkcnn_cuda.so`` (rebuilt when a source is
 newer), which is bound with ``ctypes``.
+
+Each kernel wrapper counts its launches in its ``launches`` attribute
+and is registered in ``COUNTED`` (``counted``), so that a CUDA graph
+can carry the launches it captured into the counts at every replay
+(``core/graphs.py``).  ``device_constant`` keeps a layer geometry's
+host-made constants (index tables) on the device, made once: a
+host-to-device copy cannot run inside a CUDA graph's capture.
 """
 
 from __future__ import annotations
@@ -21,8 +28,9 @@ import os
 import shutil
 import subprocess
 import threading
-from typing import Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 _HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -62,6 +70,49 @@ SIGNATURES = {
 
 _LIB: Optional[ctypes.CDLL] = None
 _LOCK = threading.Lock()
+
+
+# every kernel wrapper with a launch count, in registration order
+COUNTED: List[Callable] = []
+_CONSTANTS: Dict[tuple, torch.Tensor] = {}
+
+
+def counted(fn: Callable) -> Callable:
+    """Registers the kernel wrapper ``fn``, whose ``launches`` (set to 0
+    here) it increases by one at each launch of its kernel;
+    ``warmup_launches`` counts those of them made in a CUDA graph's
+    warm-up (``core/graphs.py``)."""
+    fn.launches = 0
+    fn.warmup_launches = 0
+    COUNTED.append(fn)
+    return fn
+
+
+def launch_counts() -> Tuple[int, ...]:
+    """Every registered wrapper's count, in ``COUNTED``'s order."""
+    return tuple(fn.launches for fn in COUNTED)
+
+
+def restore_launch_counts(counts: Tuple[int, ...]) -> None:
+    """Puts back counts that ``launch_counts`` read."""
+    for fn, n in zip(COUNTED, counts):
+        fn.launches = n
+
+
+def device_constant(key: tuple, make: Callable[[], np.ndarray],
+                    device) -> torch.Tensor:
+    """``torch.as_tensor(make(), device=device)``, made at the first
+    call for (``key``, device) and kept: a device tensor that a CUDA
+    graph may read, where a fresh host-to-device copy would break the
+    capture.  ``key`` must determine ``make()``'s value, and holds a
+    layer's geometry only (never a batch's row count), so that the
+    table stays as small as the set of layers."""
+    device = torch.device(device)
+    full = key + (device,)
+    t = _CONSTANTS.get(full)
+    if t is None:
+        t = _CONSTANTS[full] = torch.as_tensor(make(), device=device)
+    return t
 
 
 def round_up(x: int, m: int) -> int:

@@ -61,9 +61,10 @@ def conv2d_reference(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     """Plain Conv2D: [N, in_dim] -> [N, out_t * out_f * F] in
     (ot, of, filter) order, as im2col gather + one matmul + bias."""
     n = x.shape[0]
-    idx = torch.as_tensor(patch_indices(
-        conv.in_t, conv.in_f, conv.in_c, conv.filt_t, conv.filt_f,
-        conv.stride_t, conv.stride_f), device=x.device)
+    geometry = (conv.in_t, conv.in_f, conv.in_c, conv.filt_t, conv.filt_f,
+                conv.stride_t, conv.stride_f)
+    idx = common.device_constant(("patch_indices",) + geometry,
+                                 lambda: patch_indices(*geometry), x.device)
     if bf16:
         x, w = round_bf16(x), round_bf16(w)
     patches = x[:, idx]                               # [N, P, K]
@@ -145,5 +146,5 @@ def conv2d_maxpool(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     return out
 
 
-conv2d_maxpool.launches = 0
-conv2d_maxpool_f32.launches = 0
+common.counted(conv2d_maxpool)
+common.counted(conv2d_maxpool_f32)

@@ -198,8 +198,8 @@ def fbank_frames(frames: torch.Tensor, opts: F.FbankOptions
     return out, energy
 
 
-fbank_frames.launches = 0
-fbank_frames_table.launches = 0
+common.counted(fbank_frames)
+common.counted(fbank_frames_table)
 
 
 def _finish(out, energy, opts: F.FbankOptions) -> torch.Tensor:

@@ -167,8 +167,8 @@ def maxpool3d(x: torch.Tensor, pool, with_argmax: bool = False):
     return res
 
 
-maxpool3d.launches = 0
-maxpool3d_scalar.launches = 0
+common.counted(maxpool3d)
+common.counted(maxpool3d_scalar)
 
 
 def maxpool3d_backward(out_deriv: torch.Tensor, argmax: torch.Tensor,
@@ -194,7 +194,7 @@ def maxpool3d_backward(out_deriv: torch.Tensor, argmax: torch.Tensor,
     return dx
 
 
-maxpool3d_backward.launches = 0
+common.counted(maxpool3d_backward)
 
 
 class MaxPool3D(torch.autograd.Function):

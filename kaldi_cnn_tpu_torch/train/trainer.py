@@ -8,12 +8,16 @@ semantics in one process:
   - final per-component model combination over the last iterates
     (ref: nnet-combine-fast), kept only when it helps
 
-One ``Nnet.train_step`` per minibatch on the net's device, with a
-generator on that device from (seed, "train_step", step) for the
-Dropout components (the JAX package's ``stage_key`` there); the JAX
-package's scanned multi-step dispatch (``scan_steps``) and its TPU
-matmul-precision scope have no counterpart here.  The objf values stay
-on the device until the epoch ends.
+Minibatches go in groups of ``TrainConfig.scan_steps`` through
+``Nnet.train_steps``, as the JAX package's loop sends them through its
+scanned multi-step jit: on the card a group is replays of CUDA graphs
+captured once per shape, on the CPU K eager steps.  A trailing partial
+group goes step by step (on the card, one-step graphs), so a run needs
+one group shape.  Each step keeps its own learning rate and its
+generator on the net's device from (seed, "train_step", step) for the
+Dropout components (the JAX package's ``stage_key`` there).  The objf
+values stay on the device until the epoch ends.  The JAX package's TPU
+matmul-precision scope has no counterpart here.
 """
 
 from __future__ import annotations
@@ -48,6 +52,11 @@ class TrainConfig:
     valid_minibatches: int = 10
     checkpoint_dir: str = ""
     seed: int = 0
+    # run this many sequential steps per dispatch through
+    # Nnet.train_steps (the same math as one step at a time); on the
+    # card a dispatch is a few CUDA graph replays in place of hundreds of
+    # eager launches a step.  1 sends every step alone.
+    scan_steps: int = 8
 
 
 def lr_at(cfg: TrainConfig, frac_done: float) -> float:
@@ -184,23 +193,41 @@ def train_nnet(net: Nnet, egs_train: Optional[Egs], egs_valid: Egs,
     it = 0
     history: List[Params] = []
     timer = Timer()
+    k_scan = max(cfg.scan_steps, 1)
     for epoch in range(cfg.num_epochs):
         timer.reset()
         it0 = it
         objfs: List[torch.Tensor] = []
         frame_counts: List[float] = []
-        for x, y, w in batcher.epoch(epoch):
-            lr = lr_at(cfg, it / max(total_iters - 1, 1))
-            opt, objf = net.train_step(
-                opt, torch.as_tensor(x, device=dev),
-                torch.as_tensor(y, device=dev), lr,
-                weights=torch.as_tensor(w, device=dev),
-                generator=torch_generator(cfg.seed, "train_step", it, dev))
-            objfs.append(objf)
-            frame_counts.append(float(w.sum()))
-            it += 1
+        pending: List[Tuple] = []
+
+        def flush():
+            """The pending minibatches as one group, or one by one when
+            they are fewer than a group (the JAX loop's ``flush``)."""
+            nonlocal opt, it
+            groups = ([pending] if len(pending) >= k_scan
+                      else [[b] for b in pending])
+            for grp in groups:
+                k = len(grp)
+                lrs = [lr_at(cfg, (it + j) / max(total_iters - 1, 1))
+                       for j in range(k)]
+                gens = [torch_generator(cfg.seed, "train_step", it + j, dev)
+                        for j in range(k)]
+                opt, objf_k = net.train_steps(
+                    opt, [b[0] for b in grp], [b[1] for b in grp], lrs,
+                    weights=[b[2] for b in grp], generators=gens)
+                objfs.append(objf_k)
+                frame_counts.extend(float(b[2].sum()) for b in grp)
+                it += k
+            pending.clear()
+
+        for batch in batcher.epoch(epoch):
+            pending.append(batch)
+            if len(pending) >= k_scan:
+                flush()
+        flush()
         # one transfer for the epoch's objf scalars
-        objf_host = torch.stack(objfs).cpu().numpy() if objfs else []
+        objf_host = torch.cat(objfs).cpu().numpy() if objfs else []
         train_prob = (sum(float(o) * n for o, n in zip(objf_host,
                                                         frame_counts))
                       / max(sum(frame_counts), 1))

@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
 """Time the port's bench train step in several checkouts on one GPU.
 
-    python3 scripts/train_step_bench.py ROOT [ROOT ...]
+    python3 scripts/train_step_bench.py [--rows N] ROOT [ROOT ...]
 
 Each ROOT is a checkout of the repository (for example one unpacked with
 ``git archive <commit> | tar -x -C ROOT``).  For each ROOT in the order
 given, a fresh process imports ``kaldi_cnn_tpu_torch`` from that ROOT,
 builds its CUDA kernels, and times ``Nnet.train_step`` at
-``ConvnetConfig()`` with minibatch 4096 on random inputs from a seed:
+``ConvnetConfig()`` with minibatch ``--rows`` (4096 by default; at 256
+the eager step is host-bound) on random inputs from a seed:
 the ms a step while the natural-gradient states update every step (the
 warm-up) and in the steady state that updates them every 16th step, by
 CUDA events, ``REPEATS`` times.  Give a ROOT twice (A B B A) to see the
@@ -28,9 +29,9 @@ SEED = 37
 REPEATS = 5
 
 
-def bench_here() -> dict:
-    """The bench in this process, with ``kaldi_cnn_tpu_torch`` imported
-    from the first entry of sys.path."""
+def bench_here(rows: int = ROWS) -> dict:
+    """The bench in this process at minibatch ``rows``, with
+    ``kaldi_cnn_tpu_torch`` imported from the first entry of sys.path."""
     import numpy as np
     import torch
     from kaldi_cnn_tpu_torch.core.rng import np_rng, torch_generator
@@ -43,9 +44,9 @@ def bench_here() -> dict:
     net = make_convnet(cfg, fused=True, device=dev)
     net.init(torch_generator(SEED, "bench_train"))
     rng = np_rng(SEED, "bench_train")
-    x = torch.as_tensor(rng.normal(size=(ROWS, cfg.input_dim))
+    x = torch.as_tensor(rng.normal(size=(rows, cfg.input_dim))
                         .astype(np.float32), device=dev)
-    y = torch.as_tensor(rng.integers(0, cfg.num_pdfs, ROWS), device=dev)
+    y = torch.as_tensor(rng.integers(0, cfg.num_pdfs, rows), device=dev)
     opt = net.init_opt()
 
     def steps(k):
@@ -74,11 +75,14 @@ def bench_here() -> dict:
 
 
 def main(argv) -> int:
+    rows = ROWS
+    if len(argv) >= 2 and argv[0] == "--rows":
+        rows, argv = int(argv[1]), argv[2:]
     if len(argv) >= 2 and argv[0] == "--one":
         root = os.path.abspath(argv[1])
         sys.path.insert(0, root)
-        out = bench_here()
-        out["root"] = argv[1]
+        out = bench_here(rows)
+        out["root"], out["rows"] = argv[1], rows
         print(json.dumps(out), flush=True)
         return 0
     if not argv:
@@ -92,8 +96,8 @@ def main(argv) -> int:
     medians = {}
     for root in argv:
         proc = subprocess.run(
-            [sys.executable, os.path.abspath(__file__), "--one",
-             os.path.abspath(root)],
+            [sys.executable, os.path.abspath(__file__), "--rows", str(rows),
+             "--one", os.path.abspath(root)],
             cwd=root, capture_output=True, text=True, timeout=900,
             env=dict(os.environ, PYTHONPATH=os.path.abspath(root)))
         if proc.returncode != 0:

@@ -858,6 +858,239 @@ def test_wsj_discriminative_step_on_card_matches_cpu(cuda):
             < 1e-3, k
 
 
+# ------------------------------------------------ training as CUDA graphs
+
+@pytest.fixture
+def deterministic_cudnn(cuda):
+    """cuDNN's deterministic algorithms (its default filter gradient is
+    not deterministic), restored after the test."""
+    torch.backends.cudnn.deterministic = True
+    yield cuda
+    torch.backends.cudnn.deterministic = False
+
+
+def _wsj_net(cuda, num_pdfs=200):
+    from kaldi_cnn_tpu_torch.models.factory import make_convnet
+    from kaldi_cnn_tpu_torch.recipes import wsj
+    net = make_convnet(wsj.model_config(36, num_pdfs), device=cuda)
+    gen = torch_generator(6, "wsj train graphs")
+    net.init(gen)
+    with torch.no_grad():
+        out = net.components[-2]
+        out.w.copy_(torch.randn(out.w.shape, generator=gen)
+                    / out.input_dim ** 0.5)
+    return net
+
+
+def _steps(net, groups, rows=256, seed=8, eager=False, generators=None):
+    """Train ``net`` from its fresh NG states over groups of sizes
+    ``groups`` on seeded rows (the last rows of each step at weight 0);
+    (opt, objfs [sum(groups)], maxpool (fwd vec, bwd) launches of the
+    steps, the same launched in graph warm-ups)."""
+    r = np_rng(seed, "train graphs")
+    n = sum(groups)
+    xs = r.normal(size=(n, rows, net.input_dim)).astype(np.float32)
+    ys = r.integers(0, net.output_dim, (n, rows)).astype(np.int32)
+    ws = np.ones((n, rows), np.float32)
+    ws[:, -9:] = 0.0
+    fn = net._train_steps_eager if eager else net.train_steps
+    def counts():
+        return np.array([mp.maxpool3d.launches,
+                         mp.maxpool3d_backward.launches,
+                         mp.maxpool3d.warmup_launches,
+                         mp.maxpool3d_backward.warmup_launches])
+
+    before = counts()
+    opt, objfs, i = net.init_opt(), [], 0
+    for k in groups:
+        gens = None if generators is None else generators[i:i + k]
+        opt, o = fn(opt, xs[i:i + k], ys[i:i + k],
+                    0.08 * 0.97 ** np.arange(i, i + k), weights=ws[i:i + k],
+                    generators=gens)
+        objfs.append(o)
+        i += k
+    torch.cuda.synchronize()
+    n = counts() - before
+    return (opt, torch.cat(objfs), tuple(int(v) for v in n[:2] - n[2:]),
+            tuple(int(v) for v in n[2:]))
+
+
+def _same_training(a, b, opt_a, opt_b, objf_a, objf_b):
+    from kaldi_cnn_tpu_torch.models.step_graphs import ng_states
+    assert torch.equal(objf_a, objf_b)
+    for (k, x), (_, y) in zip(a.named_parameters(), b.named_parameters()):
+        assert torch.equal(x, y), k
+    for (_, x), (_, y) in zip(ng_states(opt_a), ng_states(opt_b)):
+        assert x.t == y.t
+        assert (torch.equal(x.u, y.u) and torch.equal(x.d, y.d)
+                and torch.equal(x.rho, y.rho))
+
+
+def test_train_steps_graphs_match_eager_bit_for_bit(deterministic_cudnn):
+    """The WSJ CNN (F = 64) at the recipe's 256 rows: 8 groups of 8 in the
+    NG warm-up (every step cut around its 8 eighs), a group of 8 that
+    refreshes at its first step only (t = 64), and two one-step groups
+    without a refresh, through the graphs and through the eager loop
+    under deterministic cuDNN: objfs, parameters and NG states equal bit
+    for bit, the maxpool launches equal (one forward and one backward a
+    step), and every graph captured once."""
+    import copy
+    net = _wsj_net(deterministic_cudnn)
+    ref = copy.deepcopy(net)
+    groups = [8] * 9 + [1, 1]
+    opt_g, objf_g, n_g, w_g = _steps(net, groups)
+    opt_e, objf_e, n_e, w_e = _steps(ref, groups, eager=True)
+    _same_training(net, ref, opt_g, opt_e, objf_g, objf_e)
+    assert n_g == n_e == (74, 74)
+    assert w_e == (0, 0) and w_g[0] == w_g[1] > 0
+    # a graph a (K, slot, refresh) and one tail: the warm-up groups
+    # capture the 8 refreshing slots, the group at t = 64 reuses slot
+    # 0's and captures 1-7 without a refresh, then one one-step graph
+    assert set(net.capture_seconds) == (
+        {("step", 8, 256, k, True) for k in range(8)}
+        | {("step", 8, 256, k, False) for k in range(1, 8)}
+        | {("step", 1, 256, 0, False), ("tail", 256)})
+
+
+def test_train_steps_on_card_launch_the_maxpool_kernels_as_eager(
+        deterministic_cudnn):
+    """The Switchboard net (the pool inside SliceParallel(pool, Identity))
+    through the graphs: each replayed group adds one vector forward and
+    one backward launch a step to the counts, as the eager loop launches,
+    none of the scalar forward, and the training is the eager one bit for
+    bit; a copy of the net leaves the graphs behind and captures its
+    own."""
+    import copy
+    net, _ = _swbd_nets(deterministic_cudnn)
+    ref = copy.deepcopy(net)
+    scalar = mp.maxpool3d_scalar.launches
+    opt_g, objf_g, n_g, w_g = _steps(net, [4, 4, 1], rows=128)
+    opt_e, objf_e, n_e, w_e = _steps(ref, [4, 4, 1], rows=128, eager=True)
+    assert n_g == n_e == (9, 9)
+    assert w_e == (0, 0) and w_g[0] == w_g[1] > 0
+    assert mp.maxpool3d_scalar.launches == scalar
+    _same_training(net, ref, opt_g, opt_e, objf_g, objf_e)
+    assert net._step_graphs is not None
+    twin = copy.deepcopy(net)
+    assert twin._step_graphs is None
+    _, objf_t, _, _ = _steps(twin, [4], rows=128)
+    _, objf_n, _, _ = _steps(net, [4], rows=128)
+    assert torch.equal(objf_t, objf_n)
+
+
+def test_train_steps_dropout_on_card_replays_the_eager_masks(cuda):
+    """A net with Dropout: each step's generator state goes into the
+    graphs' registered generators before a replay, so the graphed group
+    draws the eager steps' masks: objfs and parameters equal bit for
+    bit, and the callers' generators end where the eager steps leave
+    theirs."""
+    import copy
+    from kaldi_cnn_tpu_torch.models import components as C
+    from kaldi_cnn_tpu_torch.models.nnet import Nnet
+    net = Nnet([C.AffineComponent(40, 256, device=cuda),
+                C.RectifiedLinearComponent(256), C.DropoutComponent(256, 0.3),
+                C.AffineComponent(256, 50, device=cuda),
+                C.SoftmaxComponent(50)])
+    net.init(torch_generator(2, "dropout graphs"))
+    ref = copy.deepcopy(net)
+    gens = [torch_generator(9, "train_step", i, cuda) for i in range(9)]
+    gens_e = [torch_generator(9, "train_step", i, cuda) for i in range(9)]
+    opt_g, objf_g, _, _ = _steps(net, [4, 4, 1], rows=128, generators=gens)
+    opt_e, objf_e, _, _ = _steps(ref, [4, 4, 1], rows=128, eager=True,
+                                 generators=gens_e)
+    _same_training(net, ref, opt_g, opt_e, objf_g, objf_e)
+    assert all(torch.equal(a.get_state(), b.get_state())
+               for a, b in zip(gens, gens_e))
+
+
+def test_train_steps_on_card_hands_back_states_a_later_group_leaves_alone(
+        deterministic_cudnn):
+    """The NG states that a graphed group returns are the caller's: a
+    later group changes none of their tensors, and a group run again
+    from an earlier ``opt`` (a retry) gives that group's first result
+    bit for bit, as on the CPU."""
+    from kaldi_cnn_tpu_torch.models.step_graphs import ng_states
+    net = _wsj_net(deterministic_cudnn)
+    r = np_rng(5, "train graphs again")
+    xs = r.normal(size=(3, 4, 128, net.input_dim)).astype(np.float32)
+    ys = r.integers(0, net.output_dim, (3, 4, 128)).astype(np.int32)
+    lrs = np.full(4, 0.05, np.float32)
+    opt1, _ = net.train_steps(net.init_opt(), xs[0], ys[0], lrs)
+    kept = [x.clone() for _, s in ng_states(opt1) for x in s[:3]]
+    params = [p.detach().clone() for p in net.parameters()]
+    opt2, objf2 = net.train_steps(opt1, xs[1], ys[1], lrs)
+    net.train_steps(opt2, xs[2], ys[2], lrs)
+    assert all(torch.equal(a, b) for a, b in zip(
+        kept, [x for _, s in ng_states(opt1) for x in s[:3]]))
+    with torch.no_grad():
+        for p, v in zip(net.parameters(), params):
+            p.copy_(v)
+    opt2b, objf2b = net.train_steps(opt1, xs[1], ys[1], lrs)
+    assert torch.equal(objf2, objf2b)
+    for (_, a), (_, b) in zip(ng_states(opt2), ng_states(opt2b)):
+        assert a.t == b.t and torch.equal(a.u, b.u) and \
+            torch.equal(a.d, b.d) and torch.equal(a.rho, b.rho)
+
+
+def test_eigh_breaks_a_capture_so_refreshes_run_between_graphs(cuda,
+                                                              tmp_path):
+    """torch.linalg.eigh checks its result on the host, so a CUDA graph
+    cannot hold it: its capture fails (in a process of its own).  This is
+    why a refreshing train step is cut around its eighs; if a torch
+    version captures eigh, the cut can go."""
+    import subprocess
+    import sys
+    code = (
+        "import torch\n"
+        "a = torch.eye(40, dtype=torch.float64, device='cuda') * 2\n"
+        "torch.linalg.eigh(a)\n"
+        "g = torch.cuda.CUDAGraph()\n"
+        "try:\n"
+        "    with torch.cuda.graph(g):\n"
+        "        torch.linalg.eigh(a)\n"
+        "    print('captured')\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', type(e).__name__)\n")
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=tmp_path)
+    assert "raised" in out.stdout, out.stdout + out.stderr
+
+
+def test_a_failed_train_capture_raises_and_does_not_fall_back(cuda,
+                                                             tmp_path):
+    """A host sync inside the step (as ``.item()`` would be) breaks the
+    capture: train_steps raises and the eager loop never runs (in a
+    process of its own, so that the broken capture cannot touch the
+    other tests)."""
+    import os
+    import subprocess
+    import sys
+    here = os.path.dirname(os.path.abspath(__file__))
+    code = (
+        "import numpy as np\n"
+        "from kaldi_cnn_tpu_torch.models import components as C\n"
+        "from kaldi_cnn_tpu_torch.models.nnet import Nnet\n"
+        "step = Nnet.train_step\n"
+        "def synced(self, opt, x, *a, **k):\n"
+        "    float(x.sum())\n"
+        "    return step(self, opt, x, *a, **k)\n"
+        "Nnet.train_step = synced\n"
+        "eager = []\n"
+        "Nnet._train_steps_eager = lambda *a, **k: eager.append(1)\n"
+        "net = Nnet([C.AffineComponent(8, 16, device='cuda'),\n"
+        "            C.SoftmaxComponent(16)])\n"
+        "try:\n"
+        "    net.train_steps(net.init_opt(), np.zeros((2, 4, 8), 'f4'),\n"
+        "                    np.zeros((2, 4), 'i4'), 0.1)\n"
+        "except RuntimeError as e:\n"
+        "    print('raised', not eager, type(e).__name__)\n")
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [os.path.dirname(here), here]))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, timeout=300, cwd=tmp_path, env=env)
+    assert "raised True" in out.stdout, out.stdout + out.stderr
+
+
 @pytest.mark.parametrize("rows", [1, 300, 4097])
 def test_rm_dnn_loglikes_on_card_match_cpu(cuda, rows):
     """The RM recipe's p-norm DNN (180-dim rows: 20-dim fMLLR features
