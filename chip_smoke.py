@@ -171,14 +171,25 @@ then runs these phases; any failure raises and the exit code is not 0.
    epochs) as a process group of one over NCCL: the MFCC GMM bootstrap
    (fbank kernel), the fbank volumes (fbank kernel), ``train_multihost``
    (maxpool forward and backward kernels, every sum over rows through
-   an all-reduce) and the dev and test lattice decodes (wgmma
-   conv+maxpool kernel) must each launch their kernels, at least one
-   all-reduce must reach the NCCL group, no lattice buffer may
-   overflow, and the result must carry the JAX recipe's keys and more
-   than 10 test words.  Then the test set's rows, with the card's
-   trained parameters, through the plain versions on the CPU: loglikes
-   within LOGLIKE_ATOL, and ``decode_utterances`` on the CPU of the
-   card's loglikes gives the card's one-best words.  Last, two ranks on
+   an all-reduce; each step a replay of the dp step's CUDA graph, the
+   all-reduces inside it, with no call of the eager loop) and the dev
+   and test lattice decodes (wgmma conv+maxpool kernel) must each
+   launch their kernels (the training's counts from the replays'
+   captures), at least one all-reduce must reach the NCCL group, no
+   lattice buffer may overflow, and the result must carry the JAX
+   recipe's keys and more than 10 test words.  Then the test set's
+   rows, with the card's trained parameters, through the plain versions
+   on the CPU: loglikes within LOGLIKE_ATOL, and ``decode_utterances``
+   on the CPU of the card's loglikes gives the card's one-best words.
+   Then (12b) ``train_multihost`` at the recipe's net width over an
+   NCCL group of one, NCCL_STEPS steps of DP_ROWS rows (the NG warm-up's
+   64 refreshing steps, then refreshes every 16th), through the graphs
+   and through the eager loop under deterministic cuDNN
+   (``parallel/rank_check.py::nccl_graphs_vs_eager``): objfs, parameters
+   and NG states bit-equal, the all-reduces and maxpool launches of the
+   replays equal to the eager run's; prints ms a step of both in the
+   warm-up and after it, with the card's name and power limit.  Last,
+   two ranks on
    the one card over gloo with CUDA tensors (NCCL refuses two ranks on
    one GPU), at the recipe's net width and the run's pdfs: DP_STEPS
    mode-A steps, each rank holding half of a DP_ROWS minibatch, against
@@ -411,6 +422,10 @@ LIBRI_KEYS = {"wer", "errors", "words", "sub", "ins", "del", "missing_utts",
 # two ranks on one GPU): mode-A steps, and replica steps with one average
 DP_STEPS = 4
 DP_ROWS = 256
+# train_multihost through the dp step's graphs against the eager loop
+# over an NCCL group of one (phase 12b): the NG warm-up's 64 steps, then
+# 48 with a refresh every 16th (3)
+NCCL_STEPS = 112
 # MMI (phase 13) on phase 8's trained CNN: mmi_train_nnet over the first
 # MMI_UTTS training utterances for MMI_ITERS iterations at the JAX
 # function's learning rate, and an nnet2 chain (.mdl) at the MFCC width
@@ -1988,11 +2003,12 @@ def librispeech_phase(dev, tmp):
     calls = {k: [] for k in ("compute_features", "compute_fbank_volumes",
                              "train_multihost", "nnet_decode")}
     reset_launches()
-    reduces = mesh_ops.all_reduce.launches
     with contextlib.ExitStack() as stack:
         for name, c in calls.items():
             stack.enter_context(launches_per_call(librispeech, name, c))
         probe = stack.enter_context(lattice_probes(librispeech))
+        eager_calls = stack.enter_context(counted_eager_steps())
+        step_objfs = stack.enter_context(recorded_train_steps())
         t = time.perf_counter()
         res = librispeech.run(num_utts=LIBRI_UTTS, nnet_epochs=LIBRI_EPOCHS,
                               device=dev,
@@ -2000,8 +2016,11 @@ def librispeech_phase(dev, tmp):
         torch.cuda.synchronize()
         total_s = time.perf_counter() - t
     launches = read_launches()
-    reduces = mesh_ops.all_reduce.launches - reduces
+    reduces = mesh_ops.all_reduce.launches
+    warm_reduces = mesh_ops.all_reduce.warmup_launches
     per = {k: [n for _, n, _ in c] for k, c in calls.items()}
+    train_net = calls["train_multihost"][0][0][0]
+    train_s = res["seconds"]["nnet_train"]
 
     def col(stage, kernel):
         return [n[kernel] for n in per[stage]]
@@ -2012,8 +2031,14 @@ def librispeech_phase(dev, tmp):
         f"8 egs shards; {res['num_devices']} rank over {res['backend']}) "
         f"{total_s:.3f} s; stage seconds "
         + ", ".join(f"{k} {v:.3f}" for k, v in res["seconds"].items())
-        + f"; training {res['train_audio_ss']:.1f} audio-s/s; all-reduces "
-        f"{reduces}; launches: bootstrap MFCC fbank_fft "
+        + f"; training {res['train_audio_ss']:.1f} audio-s/s, "
+        f"{len(step_objfs)} steps in {train_s:.3f} s "
+        f"({1e3 * train_s / max(len(step_objfs), 1):.3f} ms a step, "
+        f"captures included) through the dp step's CUDA graphs "
+        f"({captures(train_net)}; eager-loop calls {len(eager_calls)}); "
+        f"all-reduces {reduces} ({warm_reduces} in graph warm-ups, the "
+        f"rest eager or replayed from captures); launches: bootstrap MFCC "
+        f"fbank_fft "
         f"{col('compute_features', 'fbank_fft')}, fbank volumes fbank_fft "
         f"{col('compute_fbank_volumes', 'fbank_fft')}, nnet_train "
         f"maxpool_fwd_vec {col('train_multihost', 'maxpool_fwd_vec')} "
@@ -2046,6 +2071,9 @@ def librispeech_phase(dev, tmp):
         raise AssertionError(f"the run did not go through an NCCL group: "
                              f"{res['backend']}, {res['num_devices']} "
                              f"ranks, {reduces} all-reduces")
+    if eager_calls or not train_net.capture_seconds:
+        raise AssertionError("train_multihost did not run through the dp "
+                             "step's CUDA graphs")
     if not probe["overflow"] or any(ov != (0, 0)
                                     for ov, _ in probe["overflow"]):
         raise AssertionError(f"lattice overflow: {probe['overflow']}")
@@ -2089,6 +2117,52 @@ def librispeech_phase(dev, tmp):
     return launches, res
 
 
+def libri_cfg(num_pdfs: int) -> ConvnetConfig:
+    """The Librispeech recipe's net (recipes/librispeech.py)."""
+    return ConvnetConfig(in_t=11, in_f=36, in_c=3, filt_t=4, filt_f=7,
+                         num_filters=48, pool_t=2, pool_f=3, pool_c=1,
+                         num_hidden_layers=2, pnorm_input_dim=800,
+                         pnorm_output_dim=160, num_pdfs=num_pdfs)
+
+
+def nccl_graph_phase(num_pdfs):
+    """Phase 12b: ``train_multihost`` over an NCCL group of one at the
+    recipe's width and the phase-12 tree's pdfs, NCCL_STEPS steps of
+    DP_ROWS rows, through the dp step's graphs and through the eager
+    loop under deterministic cuDNN: objfs, parameters and NG states
+    bit-equal; the replays' all-reduces and maxpool launches equal the
+    eager run's; no eager-loop call in the graphed run.  Prints ms a
+    step of both in the NG warm-up and after it."""
+    t = time.perf_counter()
+    r = rank_check.nccl_graphs_vs_eager(libri_cfg(num_pdfs), NCCL_STEPS,
+                                        DP_ROWS, 0.08, SEED)
+    g, e = r["graphed"], r["eager"]
+    caps = g["captures"]
+    log(f"librispeech dp step graphed vs eager (train_multihost, mode A "
+        f"over NCCL at world size 1, deterministic cuDNN, {r['steps']} "
+        f"steps of {r['rows']} rows at the recipe's width, {num_pdfs} pdfs; "
+        f"{r['refreshes'][0]} refreshing steps, {r['refreshes'][1]} after "
+        f"the NG warm-up; {gpu_line()}; {time.perf_counter() - t:.1f} s): "
+        f"bit-equal {r['same']}; ms a step graphed {g['ms_warmup']:.3f} in "
+        f"the warm-up, {g['ms_steady']:.3f} after it, eager "
+        f"{e['ms_warmup']:.3f} / {e['ms_steady']:.3f} (captures "
+        f"excluded); train_multihost {g['seconds']:.3f} s graphed, "
+        f"{e['seconds']:.3f} s eager; {len(caps)} graphs captured in "
+        f"{sum(caps.values()):.3f} s; all-reduces {g['all_reduces']} "
+        f"replayed or eager + {g['warmup']['all_reduces']} in warm-ups, "
+        f"eager {e['all_reduces']}; maxpool fwd/bwd {g['maxpool']} + "
+        f"{g['warmup']['maxpool']} in warm-ups, eager {e['maxpool']}; "
+        f"eager-loop calls graphed {g['eager_calls']}, eager "
+        f"{e['eager_calls']}; objf {r['objf'][0]:.4f} -> {r['objf'][1]:.4f}")
+    if (not all(r["same"].values()) or g["all_reduces"] != e["all_reduces"]
+            or g["maxpool"] != e["maxpool"] or g["eager_calls"]
+            or e["eager_calls"] != r["steps"] or not caps
+            or r["refreshes"][1] < 3 or min(e["maxpool"]) <= 0):
+        raise AssertionError("train_multihost through the graphs is not the "
+                             "eager training bit for bit")
+    return r
+
+
 def two_rank_phase(num_pdfs):
     """Two gloo ranks with CUDA tensors on the one card, at the Librispeech
     recipe's net width and the phase-12 tree's pdfs
@@ -2100,10 +2174,7 @@ def two_rank_phase(num_pdfs):
     wide Affine layers split by rows) against the single-process steps.
     Objf within OBJF_STEP_ATOL, parameters within PARAM_REL (relative
     Frobenius); the two ranks bit-equal."""
-    cfg = ConvnetConfig(in_t=11, in_f=36, in_c=3, filt_t=4, filt_f=7,
-                        num_filters=48, pool_t=2, pool_f=3, pool_c=1,
-                        num_hidden_layers=2, pnorm_input_dim=800,
-                        pnorm_output_dim=160, num_pdfs=num_pdfs)
+    cfg = libri_cfg(num_pdfs)
     case = rank_check.seeded_case(cfg, SEED, DP_ROWS)
     for replicas in (1, 2):
         res = rank_check.two_ranks_vs_one(cfg, case, DP_STEPS, 0.08,
@@ -3071,6 +3142,7 @@ def main() -> int:
         # ---- 12. the Librispeech recipe, then two ranks on the card ----
         t = time.perf_counter()
         libri_launches, libri = librispeech_phase(dev, tmp)
+        nccl_graph_phase(libri["tree_leaves"])
         two_rank_phase(libri["tree_leaves"])
         log(f"librispeech phase: {time.perf_counter() - t:.1f} s")
     finally:

@@ -17,11 +17,17 @@ launches plus, for each replay, the launches its capture recorded (not
 a count read from the device).
 
 A capture that fails raises (torch's own error, with the graph's
-capture ended); the callers do not fall back to eager work.
+capture ended); the callers do not fall back to eager work.  Python's
+garbage collector is held off during a capture: a collection there
+could free an old graph (a net, a decoder and its graphs left in a
+reference cycle), and destroying a graph is a call that a capture
+forbids, so the capture would fail (torch no longer collects before a
+capture by default).
 """
 
 from __future__ import annotations
 
+import gc
 import time
 from typing import Callable, Sequence, Tuple
 
@@ -62,19 +68,29 @@ def warm_up(work: Callable[[], None], device,
 
 
 def capture_only(body: Callable[[], None], device, pool,
-                 generators: Sequence[torch.Generator] = ()
-                 ) -> CountedGraph:
+                 generators: Sequence[torch.Generator] = (),
+                 capture_error_mode: str = "global") -> CountedGraph:
     """A ``CountedGraph`` of ``body()`` captured into ``pool``, without a
     warm-up; the counts that the capture made are taken back and kept
     with the graph, for its replays.  The CUDA
     ``generators`` that ``body`` draws from are registered with the
-    graph: a replay draws from each generator's state at that time."""
+    graph: a replay draws from each generator's state at that time.
+    ``capture_error_mode`` is ``torch.cuda.graph``'s: "thread_local"
+    lets other threads make calls that a capture forbids (an NCCL
+    watchdog's event queries) while this one still may not."""
     counts = common.launch_counts()
     graph = CountedGraph()
     for g in generators:
         graph.register_generator_state(g)
-    with torch.cuda.graph(graph, pool=pool):
-        body()
+    collecting = gc.isenabled()
+    gc.disable()        # a collection could destroy an old graph mid-capture
+    try:
+        with torch.cuda.graph(graph, pool=pool,
+                              capture_error_mode=capture_error_mode):
+            body()
+    finally:
+        if collecting:
+            gc.enable()
     after = common.launch_counts()
     common.restore_launch_counts(counts)
     graph.launches = tuple((fn, b - a) for fn, a, b in

@@ -14,6 +14,14 @@ tensor-parallel layers' gathers and sums over the model axis
 ``local_slice`` is the JAX package's.  ``data_sharding`` and
 ``replicated`` name XLA shardings and have no PyTorch counterpart: they
 are left out.
+
+A mode-A step over an NCCL group runs inside a CUDA graph
+(``models/step_graphs.py``), so what it calls here does no host-to-device
+copy and no host read of a device value: ``strided_rows`` takes its
+share of the sample by slicing.  ``all_reduce`` counts the collectives
+it issues in ``all_reduce.launches``, registered with the kernels'
+counts (``ops/common.py``), so that a graph's replay adds the
+all-reduces its capture issued.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from kaldi_cnn_tpu_torch.ops import common
 
 
 class Mesh:
@@ -101,19 +111,18 @@ def shard_batch(mesh: Mesh, batch: Sequence[np.ndarray]) -> List[np.ndarray]:
     return out
 
 
+@common.counted
 def all_reduce(t: torch.Tensor, group=None, op=dist.ReduceOp.SUM
                ) -> torch.Tensor:
     """``t`` reduced in place over ``group``; with no group, ``t``
     unchanged.  Counts the collectives it issues in
-    ``all_reduce.launches``."""
+    ``all_reduce.launches`` (a CUDA graph's replay adds those it
+    captured, ``core/graphs.py``)."""
     if group is None:
         return t
     dist.all_reduce(t, op=op, group=group)
     all_reduce.launches += 1
     return t
-
-
-all_reduce.launches = 0
 
 
 def all_gather_cols(y: torch.Tensor, width: int, offset: int, group=None
@@ -167,12 +176,13 @@ def strided_rows(x: torch.Tensor, n: int, count: int, offset: int,
     step = max(n // s, 1)
     if group is None:
         return x[::step][:s]
-    rows = np.arange(s) * step
-    mine = (rows >= offset) & (rows < offset + x.shape[0])
-    out = x.new_zeros((len(rows),) + tuple(x.shape[1:]))
-    if mine.any():
-        out[torch.as_tensor(np.flatnonzero(mine), device=x.device)] = x[
-            torch.as_tensor(rows[mine] - offset, device=x.device)]
+    # the sampled rows i * step in [offset, offset + len(x)) are the
+    # samples i in [lo, hi): one strided slice of x, no index tensor
+    lo = min(s, -(-offset // step))
+    hi = min(s, -(-(offset + x.shape[0]) // step))
+    out = x.new_zeros((s,) + tuple(x.shape[1:]))
+    if hi > lo:
+        out[lo:hi] = x[lo * step - offset::step][:hi - lo]
     return out
 
 

@@ -402,8 +402,36 @@ def determinize_lattice(lat: Lattice, lm_scale: float = 1.0,
             tie += 1
             heapq.heappush(heap, (ng + float(bwd[d]), tie, ng, d, nw,
                                   arcs + (a,)))
+    if not best_by_words and np.isfinite(bwd[lat.start]):
+        # the pop budget ran out before any word sequence reached a final
+        # state (a large, flat lattice): the raw lattice's best path,
+        # which the backward costs give exactly
+        best_by_words = _best_path_by_words(lat, w, fin, bwd, arc_by_src)
     # rebuild a union-of-paths lattice (prefix-shared)
     return _paths_to_lattice(lat, best_by_words)
+
+
+def _best_path_by_words(lat: Lattice, w: np.ndarray, fin: np.ndarray,
+                        bwd: np.ndarray, arc_by_src: Dict[int, List[int]]
+                        ) -> Dict[Tuple, Tuple[float, Tuple[int, ...]]]:
+    """{words: (cost, arcs)} of the lattice's best path, walked forward
+    from the start along the arcs that attain the backward costs ``bwd``
+    (the first such arc on a tie), stopping where the final cost does."""
+    s, g = lat.start, 0.0
+    words: Tuple[int, ...] = ()
+    arcs: Tuple[int, ...] = ()
+    for _ in range(lat.num_arcs + 1):
+        out = arc_by_src.get(int(s), ())
+        via = [float(w[a]) + float(bwd[lat.arc_dst[a]]) for a in out]
+        if not via or fin[s] <= min(via):
+            return {words: (g + float(fin[s]), arcs)}
+        a = out[int(np.argmin(via))]
+        g += float(w[a])
+        if lat.arc_olabel[a] > 0:
+            words = words + (int(lat.arc_olabel[a]),)
+        arcs = arcs + (a,)
+        s = int(lat.arc_dst[a])
+    raise RuntimeError("best-path walk did not end: the lattice has a cycle")
 
 
 def _paths_to_lattice(lat: Lattice,

@@ -41,7 +41,8 @@ from kaldi_cnn_tpu_torch.models.components import (
     Conv2DComponent, DropoutComponent, IdentityComponent,
     Maxpooling3DComponent, SliceParallelComponent)
 from kaldi_cnn_tpu_torch.models.ng_sgd import OnlineNaturalGradient
-from kaldi_cnn_tpu_torch.models.step_graphs import StepGraphs
+from kaldi_cnn_tpu_torch.models.step_graphs import (StepGraphs,
+                                                   replays_collectives)
 from kaldi_cnn_tpu_torch.ops.common import round_up
 from kaldi_cnn_tpu_torch.ops.conv import conv2d_maxpool
 
@@ -254,27 +255,32 @@ class Nnet(nn.Module):
                                      sd, group), objf
 
     def train_steps(self, opt, xs, labels, lrs, weights=None,
-                    generators: Optional[Sequence[torch.Generator]] = None):
+                    generators: Optional[Sequence[torch.Generator]] = None,
+                    group=None):
         """K minibatch updates in order, the semantics of K
         ``train_step`` calls (the JAX package's ``train_steps``, K steps
         under one jit through ``lax.scan``).  xs [K, N, D] f32, labels
         [K, N] int, lrs [K] (or one lr for all), weights [K, N] or None
         for ones: arrays, tensors, or sequences of K per-step arrays;
         ``generators``: K generators on the net's device, one a step, for
-        the Dropout components.  Returns (opt', objf per step [K] as a
-        device tensor).
+        the Dropout components; ``group``: the process group of a mode-A
+        data-parallel step (``train_step``'s).  Returns (opt', objf per
+        step [K] as a device tensor).
 
         On a CUDA net each step is a replay of a CUDA graph captured once
         per shape, slot in the group and NG gates
         (``models/step_graphs.py``): the inputs cross in one copy, and
         the NG states are copied into the net's fixed storage and the
         returned ones out of it, so that any earlier ``opt`` may be
-        handed in again, as on the CPU.  A capture or replay that fails
-        raises.  On the CPU it is the eager loop of
-        ``train_step``."""
-        if self.device.type != "cuda":
+        handed in again, as on the CPU.  A group's all-reduces are
+        captured in the graphs when it is an NCCL group; over a gloo
+        group, whose collectives run on the host and cannot be captured,
+        the steps run eagerly (``step_graphs.replays_collectives``).  A
+        capture or replay that fails raises.  On the CPU it is the eager
+        loop of ``train_step``."""
+        if self.device.type != "cuda" or not replays_collectives(group):
             return self._train_steps_eager(opt, xs, labels, lrs, weights,
-                                           generators)
+                                           generators, group)
         lrs = _group_lrs(lrs, len(xs))
         if weights is None:
             weights = np.ones((len(xs), len(labels[0])), np.float32)
@@ -282,10 +288,10 @@ class Nnet(nn.Module):
             self._step_graphs = StepGraphs(self)
         return self._step_graphs.run(
             opt, xs, labels, lrs, weights, generators,
-            _storage_dtype(self.train_storage_dtype))
+            _storage_dtype(self.train_storage_dtype), group)
 
     def _train_steps_eager(self, opt, xs, labels, lrs, weights=None,
-                           generators=None):
+                           generators=None, group=None):
         """``train_steps`` as K eager ``train_step`` calls on the net's
         device (the plain version of the graphs)."""
         dev = self.device
@@ -297,6 +303,7 @@ class Nnet(nn.Module):
                 torch.as_tensor(labels[k], device=dev), float(lrs[k]),
                 weights=(None if weights is None
                          else torch.as_tensor(weights[k], device=dev)),
+                group=group,
                 generator=None if generators is None else generators[k])
             objfs.append(objf)
         return opt, torch.stack(objfs)

@@ -44,6 +44,21 @@ refresh the net's slots lack) runs once on a side stream, and the
 parameters and states are put back, so that lazy initialisations and
 the slots' buffers happen outside the capture.  A failed capture or
 replay raises; nothing falls back to the eager steps.
+
+A mode-A data-parallel step (``parallel.dp.make_dp_step``, one step a
+call) replays these graphs too when its process group is an NCCL group
+(``replays_collectives``): the step's all-reduces (``core/mesh.py``:
+one for the objective, one for each NG-SGD update's sums) are captured
+in its graph and replayed on the group's communicator, which the
+warm-up step creates (NCCL makes it at a group's first collective).
+The group is part of every step graph's key (backend, size, this rank's
+index), and every rank captures the same collectives in the same
+order, since the gates are the same on every rank.  Such a graph is
+captured in "thread_local" mode: the NCCL watchdog thread queries the
+events of earlier collectives while this thread captures, which the
+default mode would count against the capture.  A gloo group's
+collectives run on the host and cannot be captured, so a step over one
+runs eagerly (``Nnet.train_steps`` dispatches by the group's backend).
 """
 
 from __future__ import annotations
@@ -53,6 +68,7 @@ from typing import Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kaldi_cnn_tpu_torch.core import graphs
 from kaldi_cnn_tpu_torch.models.ng_sgd import (NGState, Refresh,
@@ -102,6 +118,22 @@ def _store(dst: NGState, src: NGState) -> None:
     for a, b in zip(dst[:3], src[:3]):
         if a is not b:
             a.copy_(b)
+
+
+def replays_collectives(group) -> bool:
+    """Whether a step over process ``group`` (None: no group) can run as
+    a CUDA graph: with no group, or over NCCL, whose collectives are
+    kernels on the card.  A gloo group's run on the host."""
+    return group is None or dist.get_backend(group) == "nccl"
+
+
+def _group_key(group) -> Optional[tuple]:
+    """(backend, size, this rank's index, the group) of a process group,
+    or None."""
+    if group is None:
+        return None
+    return (dist.get_backend(group), dist.get_world_size(group),
+            dist.get_rank(group), group)
 
 
 def _host(v):
@@ -189,17 +221,19 @@ class _Slot:
 class Plan:
     """A group's steps on tensors at fixed addresses, on any device:
     ``inputs`` (x [K, N, D], y, w, lr), the NG states' ``storage``, each
-    state's ``slots`` (by its index in ``storage``) and, for a net that
-    draws masks, one generator a step.  A step runs whole, its
+    state's ``slots`` (by its index in ``storage``), for a net that
+    draws masks one generator a step, and the process ``group`` of a
+    data-parallel step (None: none).  A step runs whole, its
     refreshes held back (``step``); then the eighs and the ``tail`` of
     the states it refreshed.  ``run_eager`` runs a group so; the card
     captures ``step`` and ``tail`` as graphs."""
 
     def __init__(self, net, inputs: Dict[str, torch.Tensor],
                  storage: Sequence[NGState], slots: Dict[int, _Slot],
-                 gens: Optional[Sequence[torch.Generator]] = None):
+                 gens: Optional[Sequence[torch.Generator]] = None,
+                 group=None):
         self.net, self.inputs, self.storage = net, inputs, storage
-        self.slots, self.gens = slots, gens
+        self.slots, self.gens, self.group = slots, gens, group
         self.objf = torch.zeros(inputs["lr"].shape[0],
                                 device=inputs["x"].device)
         self.index = {id(s.u): i for i, s in enumerate(storage)}
@@ -218,6 +252,7 @@ class Plan:
         with deferred_refresh() as pending:
             new_opt, objf = self.net.train_step(
                 opt, st["x"][k], st["y"][k], st["lr"][k], weights=st["w"][k],
+                group=self.group,
                 generator=None if self.gens is None else self.gens[k])
         self.objf[k].copy_(objf)
         for (_, dst), (_, src) in zip(ng_states(opt), ng_states(new_opt)):
@@ -255,20 +290,20 @@ class _Group(Plan):
     that step's graphs)."""
 
     def __init__(self, sg: "StepGraphs", k: int, n: int, d: int,
-                 draws: bool):
+                 draws: bool, group=None):
         self.staging = _Staging(k, n, d, sg.device)
         gens = ([torch.Generator(device=sg.device) for _ in range(k)]
                 if draws else None)
         super().__init__(sg.net, self.staging.dev, sg.storage,
-                         sg.slots.setdefault(n, {}), gens)
+                         sg.slots.setdefault(n, {}), gens, group)
 
 
 class StepGraphs:
     """A net's graphed train steps: the NG states' fixed storage, the
     slots, the groups (staging and plan) by (K, rows, width, whether
-    masks are drawn), the graphs, and the memory pool they share.  A deep
-    copy or a pickle of the net gets none of it (a copy captures its
-    own)."""
+    masks are drawn, process group), the graphs, and the memory pool
+    they share.  A deep copy or a pickle of the net gets none of it (a
+    copy captures its own)."""
 
     def __init__(self, net):
         self.net = net
@@ -328,18 +363,20 @@ class StepGraphs:
                        carry)
         self.warmed.add(shape)
 
-    def _graph(self, key: tuple, body, drawn=()) -> graphs.CountedGraph:
+    def _graph(self, key: tuple, body, drawn=(),
+               mode: str = "global") -> graphs.CountedGraph:
         g = self.graphs.get(key)
         if g is None:
             t = time.perf_counter()
             g = self.graphs[key] = graphs.capture_only(
-                body, self.device, self.pool, drawn)
+                body, self.device, self.pool, drawn, mode)
             self.capture_s[key] = time.perf_counter() - t
         return g
 
     def run(self, opt, xs, labels, lrs, weights, generators,
-            store_dtype) -> Tuple:
-        """``Nnet.train_steps`` on the card (lrs a float32 array [K])."""
+            store_dtype, group=None) -> Tuple:
+        """``Nnet.train_steps`` on the card (lrs a float32 array [K]),
+        each step over process ``group`` (an NCCL group, or None)."""
         net = self.net
         sides = ng_states(opt)
         self._bind([s for _, s in sides])
@@ -347,11 +384,13 @@ class StepGraphs:
         d = net.input_dim
         ts = [s.t for _, s in sides]
         draws = generators is not None and net.draws_masks()
-        gkey = (k_steps, n, d, draws)
-        group = self.groups.get(gkey)
-        if group is None:
-            group = self.groups[gkey] = _Group(self, k_steps, n, d, draws)
-        group.staging.load(xs, labels, lrs, weights)
+        gkey = (k_steps, n, d, draws, _group_key(group))
+        plan = self.groups.get(gkey)
+        if plan is None:
+            plan = self.groups[gkey] = _Group(self, k_steps, n, d, draws,
+                                              group)
+        mode = "global" if group is None else "thread_local"
+        plan.staging.load(xs, labels, lrs, weights)
         shape = (n, d, store_dtype, torch.backends.cudnn.deterministic,
                  torch.backends.cudnn.benchmark,
                  torch.backends.cudnn.allow_tf32,
@@ -363,37 +402,40 @@ class StepGraphs:
                           for (side, _), t in zip(sides, ts))
             skey = ("step", gkey, k, gates) + shape
             if skey not in self.graphs:
-                self._warm(group, k, opt, shape, gates)
+                self._warm(plan, k, opt, shape, gates)
 
                 def body(k=k, skey=skey):
-                    self.refreshed[skey] = group.step(k, group.opt(opt, k))
+                    self.refreshed[skey] = plan.step(k, plan.opt(opt, k))
 
                 self._graph(skey, body,
-                            [] if group.gens is None else [group.gens[k]])
+                            [] if plan.gens is None else [plan.gens[k]],
+                            mode)
             if draws:       # after any warm-up, which draws from it too
-                group.gens[k].set_state(generators[k].get_state())
+                plan.gens[k].set_state(generators[k].get_state())
             self.graphs[skey].replay()
             if draws:
-                generators[k].set_state(group.gens[k].get_state())
+                generators[k].set_state(plan.gens[k].get_state())
             if any(gates):
                 refreshed = self.refreshed[skey]
-                group.eighs(refreshed)
+                plan.eighs(refreshed)
                 self._graph(("tail", n, gates) + shape,
-                            lambda: group.tail(refreshed)).replay()
+                            lambda: plan.tail(refreshed)).replay()
         out = with_states(opt, [NGState(s.u.clone(), s.d.clone(),
                                         s.rho.clone(), t + k_steps)
                                 for s, t in zip(self.storage, ts)])
-        return out, group.objf.clone()
+        return out, plan.objf.clone()
 
     @property
     def capture_seconds(self) -> Dict[tuple, float]:
         """Seconds of each graph's capture: ("step", K, rows, slot k,
-        refreshes) and ("tail", rows)."""
+        refreshes) and ("tail", rows); a data-parallel step's key ends
+        with its group's (backend, size, rank)."""
         out = {}
         for key, v in self.capture_s.items():
             if key[0] == "step":
-                out[("step", key[1][0], key[1][1], key[2],
-                     any(key[3]))] = v
+                pg = key[1][4]
+                out[("step", key[1][0], key[1][1], key[2], any(key[3]))
+                    + (() if pg is None else (pg[:3],))] = v
             else:
                 out[("tail", key[1])] = v
         return out

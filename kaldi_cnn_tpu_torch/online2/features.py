@@ -18,7 +18,9 @@ comes from an explicit ``torch.Generator`` (stage ``("online_dither",
 0)`` unless one is given), drawn piece by piece.  ``OnlineCmvnOptions``,
 ``OnlineCmvn`` and ``StreamingSplicer`` are host numpy, verbatim;
 ``OnlineFeaturePipeline`` passes ``device`` (and the generator) to its
-base feature and takes the deltas with the port's ``compute_deltas``.
+base feature, and serves CMVN + deltas incrementally: each call costs
+the frames new since the last one and the range asked for, where the
+JAX package's recomputes the whole stream (ROADMAP 3.26).
 """
 
 from __future__ import annotations
@@ -155,6 +157,14 @@ class OnlineFeaturePipeline:
         self.cmvn = cmvn or OnlineCmvn()
         self.deltas_order = deltas_order
         self.delta_window = delta_window
+        # get_frames' state: the base frames taken so far (and how many of
+        # the base feature's pieces), their CMVN-normalized rows and the
+        # running sums of the raw ones
+        self._raw = np.zeros((0, 1), np.float32)
+        self._pieces = 0
+        self._normed = np.zeros((0, 1), np.float32)
+        self._csum = np.zeros((0, 1), np.float32)
+        self.frames_normalized = 0
 
     @property
     def right_context(self) -> int:
@@ -173,14 +183,113 @@ class OnlineFeaturePipeline:
         return max(0, n - self.right_context)
 
     def get_frames(self, begin: int, end: int) -> np.ndarray:
+        """Rows [begin, end) of CMVN + deltas over every base frame
+        ready, as ``OnlineCmvn.apply`` and the deltas over the whole
+        stream give them, at a cost bounded by the range and the frames
+        new since the last call (ROADMAP 3.26; the JAX package
+        recomputes the whole stream on every call).  The CMVN is causal,
+        so each frame is normalized once, from running sums
+        (``frames_normalized`` counts them); a frozen mean applies to
+        every frame, so a frozen pipeline subtracts it from the range's
+        raw frames.  The deltas of the range are taken over it and
+        ``right_context`` frames on either side (``_deltas``), the
+        stream's first and last frames replicated as over the whole
+        stream."""
         n_base = self.base.num_frames_ready()
-        raw = self.base.get_frames(0, n_base)
-        normed = self.cmvn.apply(raw)
-        if self.deltas_order:
-            normed = F.compute_deltas(
-                torch.from_numpy(normed), self.deltas_order,
-                self.delta_window).numpy()
-        return normed[begin:end]
+        self._take_base(n_base)
+        b, e, _ = slice(begin, end).indices(n_base)
+        e = max(b, e)
+        ctx = self.right_context
+        lo, hi = max(0, b - ctx), min(n_base, e + ctx)
+        frozen = self.cmvn._frozen
+        if frozen is not None:
+            normed = self._raw[lo:hi].copy()
+            normed -= frozen
+        else:
+            self._normalize(n_base)
+            normed = self._normed[lo:hi]
+        if not self.deltas_order:
+            return normed[b - lo:e - lo].copy()
+        return _deltas(normed, self.deltas_order,
+                       self.delta_window)[b - lo:e - lo]
+
+    def _take_base(self, n_base: int) -> None:
+        """The base frames not yet taken into ``_raw`` (the base feature's
+        pieces, each read once)."""
+        if n_base <= len(self._raw):
+            return
+        new = self.base._feats[self._pieces:]
+        self._pieces = len(self.base._feats)
+        rows = np.concatenate(new).astype(np.float32)
+        self._raw = _grown(self._raw, rows)
+
+    def _normalize(self, n: int) -> None:
+        """``OnlineCmvn.apply``'s loop for frames [len(_normed), n), from
+        the running cumulative sums (the same sequential float32 sums as
+        its ``np.cumsum`` over the whole stream)."""
+        t0 = len(self._normed)
+        if n <= t0:
+            return
+        opts, gstats = self.cmvn.opts, self.cmvn.global_stats
+        x = self._raw[t0:n]
+        sums = (np.cumsum(np.concatenate([self._csum[t0 - 1:t0], x]),
+                          axis=0)[1:] if t0 else np.cumsum(x, axis=0))
+        csum = _grown(self._csum, sums)
+        out = x.copy()
+        for i, t in enumerate(range(t0, n)):
+            lo = max(0, t + 1 - opts.cmn_window)
+            cnt = t + 1 - lo
+            s = csum[t] - (csum[lo - 1] if lo > 0 else 0.0)
+            if cnt < opts.min_window and gstats is not None:
+                gn = gstats[0, -1]
+                gs = gstats[0, :-1]
+                need = opts.min_window - cnt
+                w = min(need, gn)
+                mean = (s + gs / max(gn, 1e-8) * w) / (cnt + w)
+            else:
+                mean = s / cnt
+            out[i] -= mean
+        self._csum = csum
+        self._normed = _grown(self._normed, out)
+        self.frames_normalized += n - t0
+
+
+def _deltas(feats: np.ndarray, order: int, window: int) -> np.ndarray:
+    """``compute_deltas`` (regression over [-window, window], the edge
+    frames replicated) as elementwise float32 sums in a fixed order, so
+    that a row's value does not depend on how many rows are around it:
+    the pipeline takes the deltas of a range, and ``compute_deltas``'
+    einsum rounds a row otherwise in another length of input (within
+    1e-7 of it on N(0, 1) rows)."""
+    T = feats.shape[0]
+    denom = sum(i * i for i in range(1, window + 1)) * 2
+    offsets = np.arange(-window, window + 1)
+    scales = (offsets / denom).astype(np.float32)
+    idx = np.clip(np.arange(T)[:, None] + offsets[None, :], 0, T - 1)
+    outs = [np.asarray(feats, np.float32)]
+    cur = outs[0]
+    for _ in range(order):
+        nxt = np.zeros_like(cur)
+        for j in range(len(offsets)):
+            nxt += scales[j] * cur[idx[:, j]]
+        outs.append(nxt)
+        cur = nxt
+    return np.concatenate(outs, axis=1)
+
+
+def _grown(buf: np.ndarray, rows: np.ndarray) -> np.ndarray:
+    """``buf`` (rows kept in a larger store) with ``rows`` appended: the
+    store doubles when full, so appending T rows in pieces copies O(T)."""
+    n = len(buf)
+    store = getattr(buf, "base", None)
+    if (store is None or store.shape[1:] != rows.shape[1:]
+            or len(store) < n + len(rows) or store[:n].ctypes.data
+            != buf.ctypes.data):
+        store = np.empty((max(2 * (n + len(rows)), 64),) + rows.shape[1:],
+                         np.float32)
+        store[:n] = buf
+    store[n:n + len(rows)] = rows
+    return store[:n + len(rows)]
 
 
 class StreamingSplicer:

@@ -11,7 +11,11 @@ objective's, and each NG-SGD update's gradient, norms, projections and
 row sample: ``models/ng_sgd.py``).  Every rank then computes the
 single-device step of the global minibatch, so parameters and NG states
 stay bit-equal across ranks: an all-reduce hands every rank the same
-bits.
+bits.  On the card over an NCCL group, the step is a replay of a CUDA
+graph with its all-reduces inside (``Nnet.train_steps`` at K = 1,
+``models/step_graphs.py``), the counterpart of the JAX package's jit;
+over a gloo group, whose collectives run on the host and cannot be
+captured, and on the CPU, it is ``Nnet.train_step`` run eagerly.
 
 Model averaging (nnet-am-average): ``stack_replicas``,
 ``average_replicas`` and ``average_params`` work on lists of parameter
@@ -56,9 +60,10 @@ from kaldi_cnn_tpu_torch.models.components import (AffineComponent,
                                                    Component)
 from kaldi_cnn_tpu_torch.models.ng_sgd import ng_affine_apply
 from kaldi_cnn_tpu_torch.models.nnet import Nnet
+from kaldi_cnn_tpu_torch.models.step_graphs import replays_collectives
 
 
-def make_dp_step(net: Nnet, mesh: Mesh) -> Callable:
+def make_dp_step(net: Nnet, mesh: Mesh, eager: bool = False) -> Callable:
     """Returns step(opt, x, labels, lr, weights=None, generator=None) ->
     (opt', objf): x/labels/weights are THIS rank's rows of the global
     minibatch (host arrays or tensors; ``core.mesh.shard_batch`` cuts
@@ -66,16 +71,30 @@ def make_dp_step(net: Nnet, mesh: Mesh) -> Callable:
     global minibatch's, a device scalar.  Every rank of the replica
     passes the same ``generator`` (Dropout draws the global minibatch's
     mask from it).  The mesh's data group is one replica, so the same
-    step serves each replica's stream in replica mode."""
-    dev = mesh.device
+    step serves each replica's stream in replica mode.
+
+    On a CUDA net over an NCCL data group the step replays a CUDA graph
+    (``net.train_steps`` with one step, whose ``StepGraphs`` the net
+    keeps; the learning rate goes in as float32, as there); otherwise,
+    and always with ``eager``, it runs ``net.train_step`` eagerly."""
+    dev, group = mesh.device, mesh.data_group
+    graphed = (not eager and net.device.type == "cuda"
+               and replays_collectives(group))
 
     def step(opt, x, labels, lr: float, weights=None, generator=None):
+        if graphed:
+            opt, objf = net.train_steps(
+                opt, [x], [labels], [lr],
+                weights=None if weights is None else [weights],
+                generators=None if generator is None else [generator],
+                group=group)
+            return opt, objf[0]
         return net.train_step(
             opt, torch.as_tensor(x, device=dev),
             torch.as_tensor(labels, device=dev), lr,
             None if weights is None else torch.as_tensor(weights,
                                                          device=dev),
-            group=mesh.data_group, generator=generator)
+            group=group, generator=generator)
 
     return step
 
@@ -179,8 +198,10 @@ def make_dp_tp_step(net: Nnet, mesh: Mesh) -> Callable:
     (the conv front end) itself, so their copies stay bit-equal only if
     the kernels are deterministic: the step runs with cuDNN's
     deterministic algorithms (its default filter-gradient convolution on
-    the card is not, and left the copies 1.5e-8 apart in 3 steps)."""
-    step = make_dp_step(shard_model(net, mesh), mesh)
+    the card is not, and left the copies 1.5e-8 apart in 3 steps).  It
+    runs eagerly: its layers gather over the model group, which a step
+    graph's key does not hold, and it runs over gloo on one card."""
+    step = make_dp_step(shard_model(net, mesh), mesh, eager=True)
 
     def tp_step(*args, **kwargs):
         with _deterministic_cudnn():

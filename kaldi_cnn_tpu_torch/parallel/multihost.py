@@ -52,7 +52,8 @@ from kaldi_cnn_tpu_torch.models.nnet import Nnet
 from kaldi_cnn_tpu_torch.parallel.dp import (initialize_distributed,
                                              make_dp_step)
 from kaldi_cnn_tpu_torch.train.egs import Egs, EgsBatcher
-from kaldi_cnn_tpu_torch.train.trainer import TrainConfig, lr_at
+from kaldi_cnn_tpu_torch.train.trainer import (TrainConfig, lr_at,
+                                               matmul_precision_scope)
 
 logger = get_logger(__name__)
 
@@ -184,10 +185,19 @@ def train_multihost(
     steps an epoch that any rank's batcher has.
 
     The per-step objf stays on the device and is read once an epoch.
-    Returns (params in the JAX pytree layout, replica 0's NG states)."""
+    ``cfg.matmul_precision`` is in force for the whole training
+    (``trainer.matmul_precision_scope``).  Returns (params in the JAX
+    pytree layout, replica 0's NG states)."""
     cfg = cfg or TrainConfig()
     mh = mh or MultihostConfig()
     mesh = mesh or initialize(mh, net.device)
+    with matmul_precision_scope(cfg):
+        return _train_multihost(net, egs_train, cfg, mh, mesh, metrics,
+                                batcher, local_batches)
+
+
+def _train_multihost(net, egs_train, cfg, mh, mesh, metrics, batcher,
+                     local_batches):
     r = mesh.shape["replica"]
     _check_replicas(r, mh.average_every)
     replica_mode = r > 1
@@ -225,6 +235,9 @@ def train_multihost(
             objfs.append(objf)
             frames.append(float(w.sum()))
             it += 1
+            # the average runs between steps, eagerly (on the card, between
+            # graph replays): it writes the parameters in place, so the
+            # step graphs' addresses hold
             if replica_mode and it % mh.average_every == 0:
                 average(net)
         # one read an epoch: the frame-weighted objf over every rank
@@ -244,6 +257,8 @@ def train_multihost(
                           audio_seconds_per_sec=audio_ss)
     if replica_mode:
         average(net)
+        # in place, into the states the last step handed back (copies of
+        # the step graphs' storage on the card)
         opt = _broadcast_opt(opt, mesh.data_index, mesh.replica_group)
     params = tuple(param_tree(c, lambda _, t: t.detach().clone())
                    for c in net.components)

@@ -1,5 +1,8 @@
-"""Two ranks against world size 1: the data-parallel check that the
-card's test (``tests/test_torch_cuda.py``) and ``chip_smoke.py`` share.
+"""Data-parallel checks that the card's tests
+(``tests/test_torch_cuda.py``) and ``chip_smoke.py`` share: two ranks
+against world size 1, and ``train_multihost`` over an NCCL group of one
+through the step's CUDA graphs against the same training run eagerly
+(``nccl_graphs_vs_eager``).
 
 Two ranks join a gloo group (on the card: NCCL refuses two ranks on one
 GPU, so gloo carries the CUDA tensors) and take ``steps`` steps of the
@@ -13,22 +16,32 @@ minibatch, or the mean of the two halves' streams.
 
 from __future__ import annotations
 
+import contextlib
 import time
 from typing import Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from kaldi_cnn_tpu_torch.convert import params_from_jax, params_to_numpy
+from kaldi_cnn_tpu_torch.core import mesh as mesh_ops
 from kaldi_cnn_tpu_torch.core.mesh import local_slice, make_mesh, shard_batch
 from kaldi_cnn_tpu_torch.core.rng import np_rng, torch_generator
 from kaldi_cnn_tpu_torch.models.factory import ConvnetConfig, make_convnet
+from kaldi_cnn_tpu_torch.models.nnet import Nnet
+from kaldi_cnn_tpu_torch.models.step_graphs import ng_states
 from kaldi_cnn_tpu_torch.ops import maxpool as mp
 from kaldi_cnn_tpu_torch.parallel.dp import (ShardedAffineComponent,
                                              average_params, gather_params,
                                              make_dp_step, make_dp_tp_step)
-from kaldi_cnn_tpu_torch.parallel.multihost import (make_replica_average,
-                                                    run_ranks)
+from kaldi_cnn_tpu_torch.parallel.multihost import (MultihostConfig,
+                                                    initialize,
+                                                    make_replica_average,
+                                                    run_ranks,
+                                                    train_multihost)
+from kaldi_cnn_tpu_torch.train.egs import Egs
+from kaldi_cnn_tpu_torch.train.trainer import TrainConfig
 
 PADDING_ROWS = 7
 # the tensor-parallel step against world size 1: the JAX package's own
@@ -191,3 +204,155 @@ def tp_two_ranks_vs_one(cfg: ConvnetConfig, case, steps: int, lr: float,
             "param_rel": rel, "param_excess": excess, "sharded": s0,
             "params": p0,
             "objfs": o0, "seconds": seconds}
+
+
+@contextlib.contextmanager
+def counted_eager_calls(swap: bool):
+    """Counts the calls of ``Nnet._train_steps_eager``, the eager loop of
+    ``train_step``; with ``swap``, ``Nnet.train_steps`` is that loop (the
+    graphs' reference; there is no public switch).  Yields the list
+    that counts them."""
+    steps, eager = Nnet.train_steps, Nnet._train_steps_eager
+    calls = []
+
+    def counting(self, *args, **kwargs):
+        calls.append(1)
+        return eager(self, *args, **kwargs)
+
+    Nnet._train_steps_eager = counting
+    if swap:
+        Nnet.train_steps = counting
+    try:
+        yield calls
+    finally:
+        Nnet.train_steps, Nnet._train_steps_eager = steps, eager
+
+
+@contextlib.contextmanager
+def timed_steps(marks):
+    """Wraps ``Nnet.train_steps``: records each call's objf, and the card
+    synchronized and the clock and the net's capture seconds read at the
+    call of each step count in ``marks`` (the first NG state's ``t``);
+    yields (objfs, {mark: (seconds, capture seconds)})."""
+    steps = Nnet.train_steps
+    objfs, at = [], {}
+
+    def recording(self, opt, *args, **kwargs):
+        t = ng_states(opt)[0][1].t
+        if t in marks:
+            torch.cuda.synchronize()
+            at[t] = (time.perf_counter(),
+                     sum(self.capture_seconds.values()))
+        out = steps(self, opt, *args, **kwargs)
+        objfs.append(out[1])
+        return out
+
+    Nnet.train_steps = recording
+    try:
+        yield objfs, at
+    finally:
+        Nnet.train_steps = steps
+
+
+def _counts():
+    return np.array([mesh_ops.all_reduce.launches,
+                     mesh_ops.all_reduce.warmup_launches,
+                     mp.maxpool3d.launches, mp.maxpool3d.warmup_launches,
+                     mp.maxpool3d_backward.launches,
+                     mp.maxpool3d_backward.warmup_launches])
+
+
+def nccl_graphs_vs_eager(cfg: ConvnetConfig, steps: int = 112,
+                         rows: int = 256, lr: float = 0.08, seed: int = 5,
+                         device="cuda") -> Dict:
+    """``train_multihost`` (mode A) over an NCCL process group of this
+    process alone, twice on the same seeded rows under deterministic
+    cuDNN: through the dp step's CUDA graphs, and with the steps run
+    eagerly.  ``steps`` minibatches of ``rows`` rows in
+    two epochs; the net's NG warm-up refreshes every step below 64, then
+    every ``update_period``-th.  Starts (and then ends) the group unless
+    one is initialized.  The eager run counts every step in the eager
+    loop (``counted_eager_calls``), the graphed run none.
+
+    Returns ``same`` ({what: bit-equal?} for the objfs, parameters and
+    NG states), ``refreshes`` (steps whose NG states refresh, and of
+    them after the warm-up), per run (``graphed`` / ``eager``): seconds
+    of ``train_multihost``, ``ms_warmup`` / ``ms_steady`` (ms a step
+    over steps [0, 64) and [64, steps), the captures taken out),
+    ``all_reduces`` and ``maxpool`` ((forward, backward)) counted in the
+    run less those of graph warm-ups, ``warmup`` (the warm-ups'
+    all-reduces and maxpool launches), ``eager_calls``; and the graphed
+    net's ``captures`` ({key: seconds})."""
+    warm = 64
+    half = steps // 2
+    r = np_rng(seed, "nccl graphs")
+    net0 = make_convnet(cfg, device="cpu")
+    n = half * rows                      # a batch a step in each epoch
+    x = r.normal(size=(n, net0.input_dim)).astype(np.float32)
+    y = r.integers(0, cfg.num_pdfs, n).astype(np.int32)
+    w = np.ones(n, np.float32)
+    w[rows - 9:rows] = 0.0               # 9 rows of zero weight
+    valid = Egs(x[:rows], y[:rows], w[:rows])
+    tcfg = TrainConfig(num_epochs=2, minibatch_size=rows,
+                       initial_learning_rate=lr,
+                       final_learning_rate=lr / 10, seed=seed)
+    own = not dist.is_initialized()
+    mesh = initialize(MultihostConfig(), device)
+    if dist.get_backend(mesh.data_group) != "nccl":
+        raise ValueError("the data group is not an NCCL group")
+    runs = {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in ("graphed", "eager"):
+            net = make_convnet(cfg, fused=True, device=mesh.device)
+            before = _counts()
+            with counted_eager_calls(mode == "eager") as eager_calls, \
+                    timed_steps({0, warm}) as (objfs, at):
+                params, opt = train_multihost(net, Egs(x, y, w), valid,
+                                              tcfg, mesh=mesh)
+                torch.cuda.synchronize()
+                end = (time.perf_counter(),
+                       sum(net.capture_seconds.values()))
+            c = _counts() - before
+            (t0, c0), (t1, c1) = at[0], at[warm]
+            runs[mode] = {
+                "seconds": end[0] - t0,
+                "ms_warmup": 1e3 * (t1 - t0 - (c1 - c0)) / warm,
+                "ms_steady": 1e3 * (end[0] - t1 - (end[1] - c1))
+                / (steps - warm),
+                "all_reduces": int(c[0] - c[1]),
+                "maxpool": (int(c[2] - c[3]), int(c[4] - c[5])),
+                "warmup": {"all_reduces": int(c[1]),
+                           "maxpool": (int(c[3]), int(c[5]))},
+                "eager_calls": len(eager_calls),
+                "objfs": torch.cat([o.reshape(-1) for o in objfs]).cpu(),
+                "params": [t.cpu() for d in params for t in d.values()],
+                "states": [(s.t, s.u.cpu(), s.d.cpu(), s.rho.cpu())
+                           for _, s in ng_states(opt)],
+                "captures": net.capture_seconds,
+                "graphs": 0 if net._step_graphs is None
+                else len(net._step_graphs.graphs)}
+    finally:
+        torch.backends.cudnn.deterministic = saved
+        if own:
+            dist.destroy_process_group()
+    g, e = runs["graphed"], runs["eager"]
+    same = {
+        "objfs": torch.equal(g["objfs"], e["objfs"]),
+        "parameters": all(torch.equal(a, b)
+                          for a, b in zip(g["params"], e["params"])),
+        "NG states": all(a[0] == b[0] and all(torch.equal(u, v) for u, v
+                                                in zip(a[1:], b[1:]))
+                         for a, b in zip(g["states"], e["states"]))}
+    period = net0.ng_in.update_period
+    refresh = [t for t in range(steps) if t < warm or t % period == 0]
+    return {"same": same, "steps": steps, "rows": rows,
+            "refreshes": (len(refresh), sum(t >= warm for t in refresh)),
+            "graphed": {k: v for k, v in g.items()
+                        if k not in ("objfs", "params", "states")},
+            "eager": {k: v for k, v in e.items()
+                      if k not in ("objfs", "params", "states",
+                                   "captures")},
+            "objf": (float(g["objfs"][0]), float(g["objfs"][-1]))}
+

@@ -15,22 +15,30 @@ captured once per shape, on the CPU K eager steps.  A trailing partial
 group goes step by step (on the card, one-step graphs), so a run needs
 one group shape.  Each step keeps its own learning rate and its
 generator on the net's device from (seed, "train_step", step) for the
-Dropout components (the JAX package's ``stage_key`` there).  The objf
-values stay on the device until the epoch ends.  The JAX package's TPU
-matmul-precision scope has no counterpart here.
+Dropout components (the JAX package's ``stage_key`` there).  A custom
+``step_fn`` (``parallel.dp.make_dp_step``'s signature) takes the
+minibatches one at a time, as the JAX loop does.  The objf values stay
+on the device until the epoch ends.
+
+``TrainConfig.matmul_precision`` is the JAX package's field: None leaves
+the process's float32 matmul and cuDNN settings as they stand (JAX's "no
+override" off the TPU); a JAX precision name sets torch's for the
+duration of ``train_nnet`` (and of ``multihost.train_multihost``) and
+puts them back on every exit (``matmul_precision_scope``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
 from torch.func import functional_call
 
 from kaldi_cnn_tpu_torch.core.config import configclass
-from kaldi_cnn_tpu_torch.core.logging import Timer, get_logger
+from kaldi_cnn_tpu_torch.core.logging import MetricsWriter, Timer, get_logger
 from kaldi_cnn_tpu_torch.core.rng import torch_generator
 from kaldi_cnn_tpu_torch.models.components import param_tree
 from kaldi_cnn_tpu_torch.models.nnet import Nnet, objf_from_output
@@ -52,11 +60,49 @@ class TrainConfig:
     valid_minibatches: int = 10
     checkpoint_dir: str = ""
     seed: int = 0
+    # None = the process's float32 matmul / cuDNN settings as they stand;
+    # "float32", "tensorfloat32" or "bfloat16" sets them for the training
+    # (MATMUL_PRECISIONS)
+    matmul_precision: Optional[str] = None
     # run this many sequential steps per dispatch through
     # Nnet.train_steps (the same math as one step at a time); on the
     # card a dispatch is a few CUDA graph replays in place of hundreds of
     # eager launches a step.  1 sends every step alone.
     scan_steps: int = 8
+
+
+# JAX precision name -> (torch.set_float32_matmul_precision's level, TF32
+# for cuDNN's float32 convolutions, which have no bfloat16 pass)
+MATMUL_PRECISIONS = {"float32": ("highest", False),
+                     "tensorfloat32": ("high", True),
+                     "bfloat16": ("medium", True)}
+
+
+@contextlib.contextmanager
+def matmul_precision_scope(cfg: TrainConfig):
+    """``cfg.matmul_precision`` in force inside the block (the JAX
+    package's ``_matmul_precision_scope``): nothing with None; else the
+    float32 matmul precision (which sets
+    ``torch.backends.cuda.matmul.allow_tf32`` with it) and
+    ``torch.backends.cudnn.allow_tf32``, both put back on any exit.  An
+    unknown name raises ValueError."""
+    prec = cfg.matmul_precision
+    if prec is None:
+        yield
+        return
+    if prec not in MATMUL_PRECISIONS:
+        raise ValueError(f"matmul_precision {prec!r}: expected None or one "
+                         f"of {sorted(MATMUL_PRECISIONS)}")
+    level, cudnn_tf32 = MATMUL_PRECISIONS[prec]
+    saved = (torch.get_float32_matmul_precision(),
+             torch.backends.cudnn.allow_tf32)
+    torch.set_float32_matmul_precision(level)
+    torch.backends.cudnn.allow_tf32 = cudnn_tf32
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(saved[0])
+        torch.backends.cudnn.allow_tf32 = saved[1]
 
 
 def lr_at(cfg: TrainConfig, frac_done: float) -> float:
@@ -177,14 +223,31 @@ def combine_models(net: Nnet, param_list: List[Params], egs_valid: Egs,
 
 
 def train_nnet(net: Nnet, egs_train: Optional[Egs], egs_valid: Egs,
-               cfg: Optional[TrainConfig] = None, batcher=None) -> Tuple:
+               cfg: Optional[TrainConfig] = None,
+               step_fn: Optional[Callable] = None,
+               metrics: Optional[MetricsWriter] = None,
+               frames_per_second: float = 100.0, batcher=None) -> Tuple:
     """Initializes ``net`` from ``cfg.seed``, trains it on its device and
-    leaves the final parameters in it.  ``batcher`` overrides the
-    in-memory ``EgsBatcher``, e.g. a ``train.sharded_egs``
-    ``StreamingEgsBatcher`` over shards on disk (then ``egs_train`` may
-    be None).  Returns (final params in the JAX pytree layout, opt
-    state)."""
+    leaves the final parameters in it.  ``step_fn(opt, x, labels, lr,
+    weights=None, generator=None) -> (opt', objf)`` replaces the grouped
+    ``Nnet.train_steps`` and takes one minibatch at a time (e.g.
+    ``parallel.dp.make_dp_step``'s step); ``metrics`` gets a
+    "train_epoch" record an epoch (train and valid logprob,
+    audio-s/s); ``frames_per_second`` converts frames to audio seconds
+    in that rate.  ``batcher`` overrides the in-memory ``EgsBatcher``,
+    e.g. a ``train.sharded_egs`` ``StreamingEgsBatcher`` over shards on
+    disk (then ``egs_train`` may be None).  Returns (final params in the
+    JAX pytree layout, opt state)."""
     cfg = cfg or TrainConfig()
+    with matmul_precision_scope(cfg):
+        return _train_nnet(net, egs_train, egs_valid, cfg, step_fn, metrics,
+                           frames_per_second, batcher)
+
+
+def _train_nnet(net: Nnet, egs_train: Optional[Egs], egs_valid: Egs,
+                cfg: TrainConfig, step_fn: Optional[Callable],
+                metrics: Optional[MetricsWriter], frames_per_second: float,
+                batcher) -> Tuple:
     net.init(torch_generator(cfg.seed, "init"))
     opt = net.init_opt()
     batcher = batcher or EgsBatcher(egs_train, cfg.minibatch_size, cfg.seed)
@@ -193,7 +256,7 @@ def train_nnet(net: Nnet, egs_train: Optional[Egs], egs_valid: Egs,
     it = 0
     history: List[Params] = []
     timer = Timer()
-    k_scan = max(cfg.scan_steps, 1)
+    k_scan = max(cfg.scan_steps, 1) if step_fn is None else 1
     for epoch in range(cfg.num_epochs):
         timer.reset()
         it0 = it
@@ -213,9 +276,15 @@ def train_nnet(net: Nnet, egs_train: Optional[Egs], egs_valid: Egs,
                        for j in range(k)]
                 gens = [torch_generator(cfg.seed, "train_step", it + j, dev)
                         for j in range(k)]
-                opt, objf_k = net.train_steps(
-                    opt, [b[0] for b in grp], [b[1] for b in grp], lrs,
-                    weights=[b[2] for b in grp], generators=gens)
+                if step_fn is not None:
+                    (x, y, w), = grp
+                    opt, objf = step_fn(opt, x, y, lrs[0], weights=w,
+                                        generator=gens[0])
+                    objf_k = objf.reshape(1)
+                else:
+                    opt, objf_k = net.train_steps(
+                        opt, [b[0] for b in grp], [b[1] for b in grp], lrs,
+                        weights=[b[2] for b in grp], generators=gens)
                 objfs.append(objf_k)
                 frame_counts.extend(float(b[2].sum()) for b in grp)
                 it += k
@@ -233,11 +302,17 @@ def train_nnet(net: Nnet, egs_train: Optional[Egs], egs_valid: Egs,
                       / max(sum(frame_counts), 1))
         valid_prob = _valid_objf(net, egs_valid, cfg)
         elapsed = max(timer.elapsed(), 1e-9)
-        audio_ss = (it - it0) * cfg.minibatch_size / 100.0 / elapsed
+        audio_ss = ((it - it0) * cfg.minibatch_size / frames_per_second
+                    / elapsed)
         logger.info(
             "epoch %d: train logprob %.4f valid %.4f lr %.4g "
             "(%.0f audio-s/s)", epoch, train_prob, valid_prob,
             lr_at(cfg, it / max(total_iters - 1, 1)), audio_ss)
+        if metrics:
+            metrics.write("train_epoch", epoch=epoch,
+                          train_logprob=train_prob,
+                          valid_logprob=valid_prob,
+                          audio_seconds_per_sec=audio_ss)
         history.append(_params(net))
         if len(history) > cfg.combine_num_models:
             history.pop(0)

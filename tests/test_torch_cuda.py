@@ -6,6 +6,8 @@ the suite's conftest:
     python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -1056,6 +1058,35 @@ def test_eigh_breaks_a_capture_so_refreshes_run_between_graphs(cuda,
     assert "raised" in out.stdout, out.stdout + out.stderr
 
 
+def test_a_collection_during_a_capture_destroys_no_graph(cuda):
+    """An old graph left in a reference cycle is not destroyed inside a
+    later capture, however much the captured code allocates: the
+    collector is held off during a capture (destroying a graph is a call
+    that a capture forbids, and it broke a capture in the full card
+    suite, where earlier tests' nets and their graphs are such cycles)."""
+    import gc
+    from kaldi_cnn_tpu_torch.core import graphs
+    pool = torch.cuda.graph_pool_handle()
+    x = torch.zeros(4, device=cuda)
+    old = graphs.capture_only(lambda: x.add_(1), cuda, pool)
+    old.replay()
+    cycle = [old]
+    cycle.append(cycle)
+    del old, cycle                  # garbage only a collection frees
+    kept = []
+
+    def body():
+        kept.extend([] for _ in range(50000))   # many collections' worth
+        x.add_(1)
+
+    graph = graphs.capture_only(body, cuda, pool)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert x.tolist() == [2.0] * 4
+    assert gc.isenabled()
+    gc.collect()
+
+
 def test_a_failed_train_capture_raises_and_does_not_fall_back(cuda,
                                                              tmp_path):
     """A host sync inside the step (as ``.item()`` would be) breaks the
@@ -1174,6 +1205,146 @@ def test_tensor_parallel_ranks_on_the_card_match_world_size_one(cuda):
     assert res["ranks_equal"] and res["sharded"] == 3
     assert res["objf_err"] <= DP_OBJF_ATOL
     assert res["param_rel"] <= DP_PARAM_REL
+
+
+# ---- train_multihost's dp step as CUDA graphs over NCCL -------------------
+
+@contextlib.contextmanager
+def _world_of_one(backend):
+    """A process group of this process alone over ``backend``, its mesh
+    on the card, ended afterwards."""
+    import torch.distributed as dist
+    from kaldi_cnn_tpu_torch.core.mesh import make_mesh
+    dist.init_process_group(backend, store=dist.HashStore(), world_size=1,
+                            rank=0)
+    try:
+        yield make_mesh(1, "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _libri_case(cuda, rows=256, seed=5):
+    from kaldi_cnn_tpu_torch.models.factory import (ConvnetConfig,
+                                                    make_convnet)
+    net = make_convnet(ConvnetConfig(**LIBRI_CFG), fused=True, device=cuda)
+    net.init(torch_generator(seed, "dp graphs"))
+    r = np_rng(seed, "dp graphs rows")
+    x = r.normal(size=(rows, net.input_dim)).astype(np.float32)
+    y = r.integers(0, net.output_dim, rows).astype(np.int32)
+    return net, x, y, np.ones(rows, np.float32)
+
+
+def test_train_multihost_graphs_over_nccl_match_eager_bit_for_bit(
+        deterministic_cudnn):
+    """train_multihost over an NCCL group of one at the Librispeech net's
+    width, 112 steps of 256 rows (the NG warm-up's 64, then 3 refreshes
+    in 48), through the dp step's graphs and eagerly: objfs, parameters
+    and NG states bit for bit; the replays' all-reduces (5 a step) and
+    maxpool launches equal the eager run's; no eager-loop call in the
+    graphed run, every step in the eager one."""
+    from kaldi_cnn_tpu_torch.models.factory import ConvnetConfig
+    from kaldi_cnn_tpu_torch.parallel import rank_check
+    r = rank_check.nccl_graphs_vs_eager(ConvnetConfig(**LIBRI_CFG), 112,
+                                        256, LIBRI_LR, 5)
+    g, e = r["graphed"], r["eager"]
+    assert all(r["same"].values()), r["same"]
+    assert r["refreshes"] == (67, 3)
+    assert g["all_reduces"] == e["all_reduces"] == 5 * 112 + 2
+    assert g["maxpool"] == e["maxpool"] == (112, 112)
+    assert g["warmup"]["all_reduces"] > 0 and e["warmup"]["all_reduces"] == 0
+    assert g["eager_calls"] == 0 and e["eager_calls"] == 112
+    # a graph a gate vector at K = 1 (all states refresh together): the
+    # refreshing step, the plain step, and one tail
+    assert g["graphs"] == 3
+
+
+def test_dp_step_over_gloo_on_the_card_captures_nothing(cuda):
+    """A gloo group's collectives run on the host: the dp step of a CUDA
+    net over one runs eagerly and captures no graph, and
+    ``Nnet.train_steps`` given the group does the same."""
+    from kaldi_cnn_tpu_torch.parallel.dp import make_dp_step
+    net, x, y, w = _libri_case(cuda, rows=64)
+    with _world_of_one("gloo") as mesh:
+        step = make_dp_step(net, mesh)
+        opt = net.init_opt()
+        for _ in range(3):
+            opt, objf = step(opt, x, y, LIBRI_LR, w)
+        opt, _ = net.train_steps(opt, [x], [y], [LIBRI_LR], weights=[w],
+                                 group=mesh.data_group)
+        torch.cuda.synchronize()
+    assert torch.isfinite(objf)
+    assert net._step_graphs is None
+
+
+def test_dp_step_replays_add_their_captured_all_reduces(cuda):
+    """Under NCCL each replay of the dp step's graph adds the all-reduces
+    its capture issued: N replays add N times the captured count (5 at
+    the Librispeech net: the objective and 4 NG-SGD updates)."""
+    from kaldi_cnn_tpu_torch.core import mesh as mesh_ops
+    from kaldi_cnn_tpu_torch.models.step_graphs import ng_states, with_states
+    from kaldi_cnn_tpu_torch.parallel.dp import make_dp_step
+    net, x, y, w = _libri_case(cuda)
+    with _world_of_one("nccl") as mesh:
+        step = make_dp_step(net, mesh)
+        # past the NG warm-up, between refreshes: the plain step's graph
+        opt = with_states(net.init_opt(), [s._replace(t=65) for _, s in
+                                           ng_states(net.init_opt())])
+        opt, _ = step(opt, x, y, LIBRI_LR, w)         # warm-up + capture
+        (graph,) = net._step_graphs.graphs.values()
+        captured = dict((fn.__name__, n) for fn, n in graph.launches)
+        before = mesh_ops.all_reduce.launches
+        for _ in range(10):
+            opt, objf = step(opt, x, y, LIBRI_LR, w)
+        torch.cuda.synchronize()
+        assert len(net._step_graphs.graphs) == 1
+    assert captured["all_reduce"] == 5
+    assert mesh_ops.all_reduce.launches - before == 10 * 5
+    assert torch.isfinite(objf)
+
+
+def test_step_graphs_are_not_replayed_under_another_precision(cuda):
+    """train_nnet twice on one CUDA net, at matmul_precision "float32"
+    and then "tensorfloat32": the second captures graphs of its own (the
+    flags are in every graph's key), and every replay runs under the
+    flags its graph was captured with; the flags are back afterwards."""
+    from kaldi_cnn_tpu_torch.core import graphs
+    from kaldi_cnn_tpu_torch.train.egs import Egs
+    from kaldi_cnn_tpu_torch.train.trainer import TrainConfig, train_nnet
+    net, _, _, _ = _libri_case(cuda)
+    r = np_rng(7, "precision graphs")
+    n = 8 * 128
+    x = r.normal(size=(n, net.input_dim)).astype(np.float32)
+    y = r.integers(0, net.output_dim, n).astype(np.int32)
+    egs = Egs(x, y, np.ones(n, np.float32))
+    flags = lambda: (torch.backends.cudnn.allow_tf32,
+                     torch.backends.cuda.matmul.allow_tf32,
+                     torch.get_float32_matmul_precision())
+    replayed = []
+    replay = graphs.CountedGraph.replay
+
+    def checking(self):
+        key = next(k for k, g in net._step_graphs.graphs.items()
+                   if g is self)
+        replayed.append((key[-3:], flags()))
+        replay(self)
+
+    before = flags()
+    counts = []
+    try:
+        graphs.CountedGraph.replay = checking
+        for prec in ("float32", "tensorfloat32"):
+            train_nnet(net, egs, Egs(x[:128], y[:128], egs.weights[:128]),
+                       TrainConfig(num_epochs=1, minibatch_size=128,
+                                   combine_num_models=1,
+                                   matmul_precision=prec))
+            counts.append(len(net._step_graphs.graphs))
+    finally:
+        graphs.CountedGraph.replay = replay
+    assert flags() == before
+    assert counts[1] == 2 * counts[0] > 0
+    assert {f for f, _ in replayed} == {(False, False, "highest"),
+                                         (True, True, "high")}
+    assert all(f == now for f, now in replayed)
 
 
 # ---- the command-line verbs -----------------------------------------------

@@ -170,10 +170,10 @@ def test_online_cmvn_bit_equal():
 
 
 def test_pipeline_matches_jax_on_the_same_base_frames():
-    """Given the same base frames, the pipeline's CMVN (verbatim) equals
-    the JAX package's bit for bit; its deltas (the port's compute_deltas,
-    where the JAX package's is an XLA einsum) agree within DELTA_ATOL:
-    the two sum the five window terms in other orders."""
+    """Given the same base frames, the pipeline's CMVN equals the JAX
+    package's bit for bit; its deltas (fixed-order float32 sums, where
+    the JAX package's are an XLA einsum) agree within DELTA_ATOL: the
+    two sum the five window terms in other orders."""
     rng = np.random.default_rng(8)
     feats = [rng.normal(size=(n, 13)).astype(np.float32)
              for n in (7, 1, 19, 12)]
@@ -188,6 +188,60 @@ def test_pipeline_matches_jax_on_the_same_base_frames():
     assert got.shape == want.shape == (32, 39) and got.dtype == np.float32
     np.testing.assert_array_equal(got[:, :13], want[:, :13])
     np.testing.assert_allclose(got, want, rtol=0, atol=DELTA_ATOL)
+
+
+@pytest.mark.parametrize("cmvn", ["default", "global_stats", "freeze"])
+def test_pipeline_is_incremental_and_equals_the_recomputation(cmvn):
+    """ROADMAP 3.26: after every piece of a stream, the port's pipeline
+    (which normalizes each frame once and takes the deltas of the range
+    asked for) gives the JAX pipeline's whole-stream recomputation on the
+    same base frames: CMVN bit for bit, deltas within DELTA_ATOL; the
+    frames it normalized over the stream number T; a freeze() mid-stream
+    (the mean then applies to every frame) is followed."""
+    rng = np.random.default_rng(9)
+    pieces = [rng.normal(size=(n, 13)).astype(np.float32) + 2
+              for n in (9, 1, 4, 17, 30, 25)]
+    stats = np.concatenate([np.full((2, 13), 40.0), [[50.0], [0.0]]],
+                           axis=1)
+
+    def make(m):
+        if cmvn == "global_stats":
+            return m.OnlineCmvn(m.OnlineCmvnOptions(cmn_window=30,
+                                                    min_window=20),
+                                global_stats=stats)
+        return m.OnlineCmvn(m.OnlineCmvnOptions(cmn_window=40))
+
+    port = tfeat.OnlineFeaturePipeline("mfcc", cmvn=make(tfeat), device="cpu")
+    ref = jfeat.OnlineFeaturePipeline("mfcc", cmvn=make(jfeat))
+    served = 0
+    for i, f in enumerate(pieces):
+        for p in (port, ref):
+            p.base._feats.append(f)
+            p.base._done += len(f)
+            if cmvn == "freeze" and i == 3:
+                p.cmvn.freeze(pieces[0][0])
+        n = port.num_frames_ready()
+        total = port.base.num_frames_ready()
+        # JAX's get_frames(begin, end) is its whole-stream recomputation
+        # sliced: one call a piece serves every range
+        whole = ref.get_frames(0, total)
+        for begin, end in ((served, n), (0, total), (max(total - 3, 0),
+                                                      total + 4)):
+            got, want = port.get_frames(begin, end), whole[begin:end]
+            assert got.shape == want.shape and got.dtype == np.float32
+            np.testing.assert_array_equal(got[:, :13], want[:, :13])
+            np.testing.assert_allclose(got, want, rtol=0, atol=DELTA_ATOL)
+        served = n
+    if cmvn != "freeze":
+        assert port.frames_normalized == sum(len(f) for f in pieces)
+    # the range deltas are the whole stream's, bit for bit
+    whole = tfeat.OnlineFeaturePipeline("mfcc", cmvn=make(tfeat),
+                                        device="cpu")
+    whole.base._feats, whole.base._done = [np.concatenate(pieces)], total
+    if cmvn == "freeze":
+        whole.cmvn.freeze(pieces[0][0])
+    np.testing.assert_array_equal(port.get_frames(0, total),
+                                  whole.get_frames(0, total))
 
 
 def test_streaming_splicer_bit_equal():

@@ -32,6 +32,7 @@ from kaldi_cnn_tpu_torch.parallel import dp, rank_check
 from kaldi_cnn_tpu_torch.parallel.multihost import (MultihostConfig,
                                                     run_ranks,
                                                     shard_utterances)
+from rank_jobs import run_jobs
 from test_torch_ranks import (CFG, DIM, LR, RANK_TIMEOUT_S, STEPS,
                               init_params, minibatch, mode_a_rank,
                               multihost_rank)
@@ -88,14 +89,53 @@ def test_averages_match_jax():
         np.testing.assert_allclose(g, np.asarray(w), rtol=1e-6, atol=1e-7)
 
 
-def test_mode_a_two_ranks_match_jax_dp_step():
+# train_multihost over two ranks: (replicas, average_every)
+MULTIHOST_CASES = [(1, 0), (2, 2)]
+
+
+def _multihost_data():
+    """(x, y, w, TrainConfig kwargs): 2 epochs of 4 minibatches of 64
+    rows around 20 class centres."""
+    r = np.random.default_rng(11)
+    centers = r.normal(size=(CFG["num_pdfs"], DIM)).astype(np.float32)
+    y = r.integers(0, CFG["num_pdfs"], 200).astype(np.int32)
+    x = (centers[y] + r.normal(size=(200, DIM))).astype(np.float32)
+    w = np.ones(200, np.float32)
+    tcfg = dict(num_epochs=2, minibatch_size=64, initial_learning_rate=0.05,
+                final_learning_rate=0.01, seed=4)
+    return x, y, w, tcfg
+
+
+def _jax_init():
+    """The JAX net's init at train_multihost's (seed 4, "init") key."""
+    return jax.device_get(j_make_convnet(JCfg(**CFG)).init(
+        jax.random.PRNGKey(int(stage_key(4, "init")[1]))))
+
+
+@pytest.fixture(scope="module")
+def rank_runs():
+    """The ranks' side of the mode-A and train_multihost tests, run in
+    one spawn of two gloo ranks: {"mode_a": each rank's (params, NG
+    states, objfs), (replicas, average_every): each rank's (params, NG
+    states)}."""
+    mx, my, mw, tcfg = _multihost_data()
+    jobs = [(mode_a_rank, (init_params(), *minibatch(), STEPS))] + [
+        (multihost_rank, (_jax_init(), mx, my, mw, tcfg,
+                          dict(num_replicas=r, average_every=a)))
+        for r, a in MULTIHOST_CASES]
+    r0, r1 = run_ranks(run_jobs, 2, jobs, timeout_s=2 * RANK_TIMEOUT_S)
+    return {"mode_a": (r0[0], r1[0]),
+            **{case: (r0[i], r1[i])
+               for i, case in enumerate(MULTIHOST_CASES, 1)}}
+
+
+def test_mode_a_two_ranks_match_jax_dp_step(rank_runs):
     """Three mode-A steps: two gloo ranks each holding half of the
     minibatch against JAX's make_dp_step sharding it over 8 virtual
     devices, from the same initial weights."""
     init = init_params()
     x, y, w = minibatch()
-    ranks = run_ranks(mode_a_rank, 2, init, x, y, w, STEPS,
-                      timeout_s=RANK_TIMEOUT_S)
+    ranks = rank_runs["mode_a"]
     jnet = j_make_convnet(JCfg(**CFG))
     step = jdp.make_dp_step(jnet, j_make_mesh())
     params, opt, objfs = init, jnet.init_opt(), []
@@ -107,20 +147,15 @@ def test_mode_a_two_ranks_match_jax_dp_step():
         assert_params_rel(p, params)
 
 
-@pytest.mark.parametrize("replicas,average_every", [(1, 0), (2, 2)])
-def test_train_multihost_two_ranks_match_jax(replicas, average_every):
+@pytest.mark.parametrize("replicas,average_every", MULTIHOST_CASES)
+def test_train_multihost_two_ranks_match_jax(rank_runs, replicas,
+                                             average_every):
     """train_multihost for 2 epochs of 4 minibatches of 64 rows: two
     ranks in mode A (one replica), or two replicas of one rank averaged
     every 2 steps, against JAX's train_multihost on the 8-device mesh
     laid out as (replicas, 8 / replicas), the port's init replaced by
     the JAX init."""
-    r = np.random.default_rng(11)
-    centers = r.normal(size=(CFG["num_pdfs"], DIM)).astype(np.float32)
-    y = r.integers(0, CFG["num_pdfs"], 200).astype(np.int32)
-    x = (centers[y] + r.normal(size=(200, DIM))).astype(np.float32)
-    w = np.ones(200, np.float32)
-    tcfg = dict(num_epochs=2, minibatch_size=64, initial_learning_rate=0.05,
-                final_learning_rate=0.01, seed=4)
+    x, y, w, tcfg = _multihost_data()
     mh = dict(num_replicas=replicas, average_every=average_every)
     jnet = j_make_convnet(JCfg(**CFG))
     mesh = JMesh(np.array(jax.devices()[:8]).reshape(replicas, -1),
@@ -128,10 +163,7 @@ def test_train_multihost_two_ranks_match_jax(replicas, average_every):
     jparams, _ = jmh.train_multihost(
         jnet, JEgs(x, y, w), JEgs(x, y, w), JTrainConfig(**tcfg),
         jmh.MultihostConfig(**mh), mesh=mesh)
-    jinit = jax.device_get(jnet.init(jax.random.PRNGKey(
-        int(stage_key(4, "init")[1]))))
-    (p0, o0), (p1, o1) = run_ranks(multihost_rank, 2, jinit, x, y, w, tcfg,
-                                   mh, timeout_s=RANK_TIMEOUT_S)
+    (p0, o0), (p1, o1) = rank_runs[(replicas, average_every)]
     for p in (p0, p1):
         assert_params_rel(p, jparams)
     for a, b in zip(jax.tree_util.tree_leaves((p0, o0)),

@@ -19,7 +19,7 @@ from kaldi_cnn_tpu.decode.decoder import lattice_decode as j_lattice_decode
 from kaldi_cnn_tpu.decode.graph import CompiledGraph as JGraph
 from kaldi_cnn_tpu.decode.lattice import shortest_path as j_shortest_path
 from kaldi_cnn_tpu.decode.topk_decoder import (
-    decode_utterances as j_decode_utterances)
+    TpuTopKDecoder, decode_utterances as j_decode_utterances)
 from kaldi_cnn_tpu.features import functional as JF
 from kaldi_cnn_tpu.gmm import train as jtrain
 from kaldi_cnn_tpu.lang import arpa as jarpa
@@ -401,12 +401,26 @@ def test_slice_decodes_like_jax(chain, egs, dev_decode):
                                    atol=LOGLIKE_ATOL)
     kw = dict(acoustic_scale=0.1, beam=60.0, lattice_beam=8.0,
               max_active=2000, lattice_arcs_per_frame=None, batch_size=1)
-    jlats = j_decode_utterances(chain["j"]["hclg"], jlls, **kw)
+    # one JAX decoder for the decode and any raw-lattice decode below, so
+    # that its jit compiles once
+    jdec = TpuTopKDecoder(chain["j"]["hclg"], beam=60.0, max_active=2000,
+                          acoustic_scale=0.1, lattice_beam=8.0,
+                          lattice_arcs_per_frame=None)
+    jlats = j_decode_utterances(chain["j"]["hclg"], jlls, decoder=jdec, **kw)
     lats = rm.decode_utterances(chain["t"]["hclg"], lls, device="cpu", **kw)
     assert sorted(lats) == sorted(jlats) == utts
+    raw = {}
     for u in utts:
         _, w, c = shortest_path(lats[u], 1.0, 0.1)
         _, jw, jc = j_shortest_path(jlats[u], 1.0, 0.1)
+        if jlats[u].num_arcs == 0 and lats[u].num_arcs > 0:
+            # ROADMAP 3.24: JAX's determinization ran out of pops and
+            # gave an empty lattice; the port's gives the best path of
+            # the raw lattice, JAX's raw lattice here
+            raw.update(j_decode_utterances(chain["j"]["hclg"],
+                                           {u: jlls[u]}, determinize=False,
+                                           decoder=jdec, **kw))
+            _, jw, jc = j_shortest_path(raw[u], 1.0, 0.1)
         assert list(w) == list(jw), u
         assert c == pytest.approx(jc, rel=LAT_COST_REL, abs=LAT_COST_ABS)
 

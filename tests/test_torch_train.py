@@ -235,9 +235,14 @@ def test_checkpoints_load_both_ways(tmp_path):
     jnet.train_step(jp, jo, jnp.asarray(x), jnp.asarray(y), 0.05)
 
 
-def test_train_nnet_matches_jax(monkeypatch):
-    """Two epochs of train_nnet on a small conv net, the port's init
-    replaced by the JAX init: final params within rtol 2e-3."""
+@pytest.fixture(scope="module")
+def jax_train_nnet():
+    """The JAX package's train_nnet, 2 epochs on a small conv net at
+    matmul_precision "float32" (on the CPU its default arithmetic), with
+    its metrics records: (net config, egs arrays, TrainConfig kwargs,
+    params, opt, the JAX init the port takes, the records)."""
+    import io
+    from kaldi_cnn_tpu.core.logging import MetricsWriter as JWriter
     cfg = dict(CFG, num_hidden_layers=1)
     r = np.random.default_rng(11)
     centers = r.normal(size=(20, 144)).astype(np.float32)
@@ -247,11 +252,21 @@ def test_train_nnet_matches_jax(monkeypatch):
     kw = dict(num_epochs=2, minibatch_size=64, initial_learning_rate=0.05,
               final_learning_rate=0.01, combine_num_models=2, seed=4)
     jnet = j_make_convnet(JCfg(**cfg))
+    out = io.StringIO()
     jparams, jopt = j_train_nnet(jnet, JEgs(x[100:], y[100:], w[100:]),
                                  JEgs(x[:100], y[:100], w[:100]),
-                                 JTrainConfig(**kw))
+                                 JTrainConfig(matmul_precision="float32",
+                                              **kw),
+                                 metrics=JWriter(stream=out))
     jinit = jax.device_get(jnet.init(jax.random.PRNGKey(
         int(stage_key(4, "init")[1]))))
+    return cfg, (x, y, w), kw, jparams, jopt, jinit, _records(out)
+
+
+def test_train_nnet_matches_jax(monkeypatch, jax_train_nnet):
+    """Two epochs of train_nnet on a small conv net, the port's init
+    replaced by the JAX init: final params within rtol 2e-3."""
+    cfg, (x, y, w), kw, jparams, jopt, jinit, _ = jax_train_nnet
     tnet = make_convnet(ConvnetConfig(**cfg), fused=False, device="cpu")
     monkeypatch.setattr(tnet, "init",
                         lambda gen: params_from_jax(tnet, jinit))
@@ -265,6 +280,192 @@ def test_train_nnet_matches_jax(monkeypatch):
     _assert_params_close(tnet, jparams, 2e-3, atol=2e-4)
     assert [o["ng_in"].t for o in topt if o] == \
         [int(o["ng_in"].t) for o in jopt if o]
+
+
+# -------------------------------- TrainConfig.matmul_precision, step_fn=
+
+def _flags():
+    return (torch.get_float32_matmul_precision(),
+            torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+
+
+def _small_run(n=320, seed=11):
+    """(train egs, valid egs, TrainConfig kwargs) of a short training:
+    1 epoch of 4 minibatches of 64 rows."""
+    r = np.random.default_rng(seed)
+    centers = r.normal(size=(20, 144)).astype(np.float32)
+    y = r.integers(0, 20, n).astype(np.int32)
+    x = (centers[y] + r.normal(size=(n, 144))).astype(np.float32)
+    w = np.ones(n, np.float32)
+    kw = dict(num_epochs=1, minibatch_size=64, initial_learning_rate=0.05,
+              final_learning_rate=0.01, combine_num_models=2, seed=4)
+    return (x[64:], y[64:], w[64:]), (x[:64], y[:64], w[:64]), kw
+
+
+def _small_net():
+    return make_convnet(ConvnetConfig(**dict(CFG, num_hidden_layers=1)),
+                        fused=False, device="cpu")
+
+
+@pytest.fixture(scope="module")
+def world_of_one():
+    """A gloo process group of this process alone (and its mesh)."""
+    from kaldi_cnn_tpu_torch.parallel.multihost import (MultihostConfig,
+                                                        initialize)
+    mesh = initialize(MultihostConfig(), "cpu")
+    yield mesh
+    torch.distributed.destroy_process_group()
+
+
+def test_matmul_precision_none_keeps_the_flags_and_the_bits(monkeypatch):
+    """None leaves the process's flags as they stand, inside the training
+    and after it, and trains the bits of the float32 path (on the CPU,
+    "float32" is the default state)."""
+    tr, va, kw = _small_run()
+    seen = []
+    steps = Nnet.train_steps
+    monkeypatch.setattr(Nnet, "train_steps", lambda self, *a, **k: (
+        seen.append(_flags()), steps(self, *a, **k))[1])
+    before = _flags()
+    runs = {}
+    for prec in (None, "float32"):
+        net = _small_net()
+        runs[prec], _ = train_nnet(net, Egs(*tr), Egs(*va),
+                                   TrainConfig(matmul_precision=prec, **kw))
+        assert _flags() == before
+    assert seen[0] == before
+    for a, b in zip(runs[None], runs["float32"]):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+
+
+@pytest.mark.parametrize("entry", ["train_nnet", "train_multihost"])
+@pytest.mark.parametrize("prec,want", [
+    ("float32", ("highest", False, False)),
+    ("tensorfloat32", ("high", True, True)),
+    ("bfloat16", ("medium", True, True))])
+def test_matmul_precision_sets_and_restores_the_flags(
+        world_of_one, monkeypatch, entry, prec, want):
+    """A JAX precision name is in force inside ``train_nnet`` and
+    ``train_multihost`` (world size 1 over gloo) and the flags are put
+    back after a normal return and after an exception."""
+    from kaldi_cnn_tpu_torch.parallel.multihost import train_multihost
+    tr, va, kw = _small_run(n=192)
+    cfg = TrainConfig(matmul_precision=prec, **kw)
+    seen = []
+    step, steps = Nnet.train_step, Nnet.train_steps
+
+    def record(fn):
+        return lambda self, *a, **k: (seen.append(_flags()),
+                                      fn(self, *a, **k))[1]
+
+    monkeypatch.setattr(Nnet, "train_step", record(step))
+    monkeypatch.setattr(Nnet, "train_steps", record(steps))
+
+    def run():
+        net = _small_net()
+        if entry == "train_nnet":
+            return train_nnet(net, Egs(*tr), Egs(*va), cfg)
+        return train_multihost(net, Egs(*tr), Egs(*va), cfg,
+                               mesh=world_of_one)
+
+    before = _flags()
+    run()
+    assert seen and set(seen) == {want}
+    assert _flags() == before
+
+    def boom(self, *a, **k):
+        assert _flags() == want
+        raise RuntimeError("boom")
+
+    monkeypatch.setattr(Nnet, "train_step", boom)
+    monkeypatch.setattr(Nnet, "train_steps", boom)
+    with pytest.raises(RuntimeError, match="boom"):
+        run()
+    assert _flags() == before
+
+
+def test_matmul_precision_unknown_raises():
+    tr, va, kw = _small_run(n=128)
+    with pytest.raises(ValueError, match="matmul_precision"):
+        train_nnet(_small_net(), Egs(*tr), Egs(*va),
+                   TrainConfig(matmul_precision="fp8", **kw))
+    from kaldi_cnn_tpu_torch.train.trainer import MATMUL_PRECISIONS
+    assert sorted(MATMUL_PRECISIONS) == ["bfloat16", "float32",
+                                         "tensorfloat32"]
+
+
+def _records(stream):
+    import json
+    return [json.loads(line) for line in stream.getvalue().splitlines()]
+
+
+def test_train_nnet_float32_and_metrics_match_jax(monkeypatch,
+                                                 jax_train_nnet):
+    """``matmul_precision="float32"`` in both packages: final params
+    within the file's train_nnet bar (rtol 2e-3); the ``metrics``
+    records have the JAX package's names and keys."""
+    import io
+    from kaldi_cnn_tpu_torch.core.logging import MetricsWriter
+    cfg, (x, y, w), kw, jparams, _, jinit, want = jax_train_nnet
+    tnet = make_convnet(ConvnetConfig(**cfg), fused=False, device="cpu")
+    monkeypatch.setattr(tnet, "init",
+                        lambda gen: params_from_jax(tnet, jinit))
+    tout = io.StringIO()
+    tparams, _ = train_nnet(tnet, Egs(x[100:], y[100:], w[100:]),
+                            Egs(x[:100], y[:100], w[:100]),
+                            TrainConfig(matmul_precision="float32", **kw),
+                            metrics=MetricsWriter(stream=tout))
+    for got_p, want_p in zip(tparams, jax.device_get(jparams)):
+        for k in got_p:
+            np.testing.assert_allclose(got_p[k].numpy(),
+                                       np.asarray(want_p[k]),
+                                       rtol=2e-3, atol=2e-4)
+    got = _records(tout)
+    assert [r["kind"] for r in got] == [r["kind"] for r in want] == \
+        ["train_epoch"] * 2
+    assert [sorted(r) for r in got] == [sorted(r) for r in want]
+    assert [r["epoch"] for r in got] == [0, 1]
+
+
+def test_train_nnet_step_fn_is_the_default_path(world_of_one, monkeypatch):
+    """``step_fn=make_dp_step(...)`` (world size 1 over gloo, a step a
+    minibatch) trains the default path's bits on the CPU; with a clock
+    that reads 1 s an epoch, ``frames_per_second`` sets the audio-s/s
+    in the metrics (minibatches x rows / frames_per_second)."""
+    import io
+    from kaldi_cnn_tpu_torch.core.logging import MetricsWriter
+    from kaldi_cnn_tpu_torch.parallel.dp import make_dp_step
+
+    class Second:
+        def reset(self):
+            pass
+
+        def elapsed(self):
+            return 1.0
+
+    monkeypatch.setattr(ttr, "Timer", Second)
+    tr, va, kw = _small_run()
+    runs, records = {}, {}
+    for mode, fps in (("default", 100.0), ("step_fn", 50.0)):
+        net = _small_net()
+        out = io.StringIO()
+        runs[mode], _ = train_nnet(
+            net, Egs(*tr), Egs(*va), TrainConfig(**kw),
+            step_fn=(make_dp_step(net, world_of_one)
+                     if mode == "step_fn" else None),
+            metrics=MetricsWriter(stream=out), frames_per_second=fps)
+        records[mode] = _records(out)
+    for a, b in zip(runs["default"], runs["step_fn"]):
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    assert [r["audio_seconds_per_sec"] for r in records["default"]] == \
+        [4 * 64 / 100.0]
+    assert [r["audio_seconds_per_sec"] for r in records["step_fn"]] == \
+        [4 * 64 / 50.0]
+    assert (records["default"][0]["train_logprob"]
+            == records["step_fn"][0]["train_logprob"])
 
 
 @pytest.mark.parametrize("name", ["combine_models",
