@@ -216,6 +216,12 @@ then runs these phases; any failure raises and the exit code is not 0.
    NG update period must come back.  The first step is replayed on the
    CPU from the card's parameters, NG states and posteriors before it:
    objf within OBJF_STEP_ATOL, each parameter tensor within PARAM_REL.
+   The steps replay CUDA graphs (one a (length, NG gates) key, captured
+   at first use, a tail graph after each refresh's eighs); a copy of the
+   net runs the same phase with ``discriminative_step_eager``, and under
+   deterministic cuDNN the two give the same objf history, parameters
+   and NG states bit for bit.  Prints the captures, the replays, the
+   captures' seconds and the ms a step of both.
    Then an nnet2 chain at the MFCC width (Splice +-4 -> FixedAffine from
    ``estimate_feature_transform`` -> Affine -> RectifiedLinear -> Affine
    -> Tanh -> Affine -> Sigmoid -> Dropout -> Affine -> Softmax) is
@@ -433,6 +439,7 @@ MMI_UTTS = 6
 MMI_ITERS = 2
 MMI_LR = 0.002
 MMI_DEN_ATOL = 1e-3       # each frame's denominator occupancies sum to 1
+MMI_PHASE_S = 40.0
 CHAIN_HIDDEN = 512
 # the verbs (phase 14): tests/test_cli_pipeline.py's yesno pipeline cut
 # to CLI_UTTS utterances (from 50), CLI_MONO_ITERS mono iterations (from
@@ -2237,8 +2244,9 @@ def nnet2_chain(mfcc, ali, t2p, num_pdfs, dev):
 def mmi_phase(dev, exp_dir, tmp, word_probs):
     """Phase 13: sequence-discriminative training of phase 8's CNN on the
     card (``mmi_train_nnet``: Nnet.predict with the fused conv+maxpool
-    kernel, the host lattice_decode, discriminative_step with the maxpool
-    kernels), one of its steps replayed on the CPU, and an nnet2 chain
+    kernel, the host lattice_decode, discriminative_step's CUDA graphs
+    with the maxpool kernels), the same on a copy of the net with the
+    eager step, one of its steps replayed on the CPU, and an nnet2 chain
     written to a .mdl, read on the card and on the CPU and trained one
     step on the card.  Returns the kernels' launches in mmi_train_nnet."""
     t_phase = time.perf_counter()
@@ -2261,57 +2269,99 @@ def mmi_phase(dev, exp_dir, tmp, word_probs):
 
     # each step: its denominator's row sums and its seconds; the first
     # step's parameters and NG states before and after, for the replay
-    steps, first = [], {}
-    step = net.discriminative_step
+    def recording(net, steps, first):
+        step = net.discriminative_step
 
-    def recorded(opt, x, num, den, lr, **kw):
-        if not first:
-            first.update(params=copy.deepcopy(params_to_numpy(net)),
-                         opt=opt_to_numpy(opt), x=x.cpu(), num=num.cpu(),
-                         den=den.cpu(), lr=lr,
-                         period=net.ng_in.update_period)
-        sums = den.sum(dim=1).cpu().numpy()
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = step(opt, x, num, den, lr, **kw)
-        torch.cuda.synchronize()
-        steps.append((len(x), time.perf_counter() - t, sums))
-        if "objf" not in first:
-            first.update(objf=float(out[1]),
-                         after=copy.deepcopy(params_to_numpy(net)))
-        return out
+        def recorded(opt, x, num, den, lr, **kw):
+            if not first:
+                first.update(params=copy.deepcopy(params_to_numpy(net)),
+                             opt=opt_to_numpy(opt), x=torch.as_tensor(x),
+                             num=torch.as_tensor(num),
+                             den=torch.as_tensor(den), lr=lr,
+                             period=net.ng_in.update_period)
+            sums = np.asarray(den).sum(axis=1)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(opt, x, num, den, lr, **kw)
+            torch.cuda.synchronize()
+            steps.append((len(x), time.perf_counter() - t, sums))
+            if "objf" not in first:
+                first.update(objf=float(out[1]),
+                             after=copy.deepcopy(params_to_numpy(net)))
+            return out
+        return recorded
 
-    net.discriminative_step = recorded
-    reset_launches()
-    t = time.perf_counter()
-    _, history = mmi_train_nnet(net, net.init_opt(), utts, hclg, t2p,
-                                am.priors, num_iters=MMI_ITERS,
-                                learning_rate=MMI_LR, device=dev)
-    torch.cuda.synchronize()
-    mmi_s = time.perf_counter() - t
-    launches = read_launches()
-    del net.discriminative_step
+    # the eager twin: the same net stepped op by op
+    eager_net = copy.deepcopy(net)
+    eager_net.discriminative_step = eager_net.discriminative_step_eager
+    runs = {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for name, n in (("graphed", net), ("eager", eager_net)):
+            steps, first = [], {}
+            n.discriminative_step = recording(n, steps, first)
+            reset_launches()
+            t = time.perf_counter()
+            opt, history = mmi_train_nnet(n, n.init_opt(), utts, hclg, t2p,
+                                          am.priors, num_iters=MMI_ITERS,
+                                          learning_rate=MMI_LR, device=dev)
+            torch.cuda.synchronize()
+            runs[name] = dict(s=time.perf_counter() - t, steps=steps,
+                              first=first, opt=opt, history=history,
+                              launches=read_launches())
+            del n.discriminative_step
+    finally:
+        torch.backends.cudnn.deterministic = False
+    g, e = runs["graphed"], runs["eager"]
+    steps, first, history, mmi_s = g["steps"], g["first"], g["history"], g["s"]
+    launches = g["launches"]
     den_err = max(float(np.abs(s - 1.0).max()) for _, _, s in steps)
     step_ms = [1e3 * sec / n for n, sec, _ in steps]
+    caps = net.capture_seconds
+    disc_caps = sorted(k for k in caps if k[0] == "disc")
+    tail_caps = [k for k in caps if k[0] == "tail"]
+    ms = {k: [1e3 * sec for _, sec, _ in runs[k]["steps"]] for k in runs}
     log(f"mmi: mmi_train_nnet on phase 8's CNN (F = 64, {num_pdfs} pdfs), "
         f"{len(utts)} training utterances ({frames} frames), {MMI_ITERS} "
-        f"iterations, lr {MMI_LR}: {mmi_s:.3f} s; objf history "
-        f"{[round(h, 5) for h in history]} (not asserted); "
-        f"discriminative_step {np.median([1e3 * sec for _, sec, _ in steps]):.3f} "
-        f"ms median a step ({np.median(step_ms):.4f} ms a frame, "
-        f"{len(steps)} steps of {min(n for n, _, _ in steps)}-"
-        f"{max(n for n, _, _ in steps)} frames); denominator row sums max "
-        f"|1 - sum| {den_err:.3g} (limit {MMI_DEN_ATOL}); launches "
-        f"{launches}")
+        f"iterations, lr {MMI_LR}: {mmi_s:.3f} s graphed, {e['s']:.3f} s "
+        f"eager; objf history {[round(h, 5) for h in history]} (not "
+        f"asserted); discriminative_step median "
+        f"{np.median(ms['graphed']):.3f} ms graphed (first use of a graph "
+        f"included), "
+        f"{np.median(ms['eager']):.3f} ms eager ({np.median(step_ms):.4f} "
+        f"ms a frame graphed, {len(steps)} steps of "
+        f"{min(n for n, _, _ in steps)}-{max(n for n, _, _ in steps)} "
+        f"frames); denominator row sums max |1 - sum| {den_err:.3g} (limit "
+        f"{MMI_DEN_ATOL}); launches {launches}")
+    replayed = ms["graphed"][len(utts):]
+    log(f"mmi graphs: {len(disc_caps)} step graphs {disc_caps} and "
+        f"{len(tail_caps)} tail graphs, {sum(caps.values()):.3f} s of "
+        f"captures, {len(steps)} step replays; the second iteration's "
+        f"steps {np.median(replayed):.3f} ms median graphed against "
+        f"{np.median(ms['eager'][len(utts):]):.3f} ms eager")
+    same = (history == e["history"] and all(
+        np.array_equal(a[k], b[k]) for a, b in zip(
+            params_to_numpy(net), params_to_numpy(eager_net)) for k in a)
+        and all(torch.equal(x.u, y.u) and torch.equal(x.d, y.d)
+                and torch.equal(x.rho, y.rho) and x.t == y.t
+                for (_, x), (_, y) in zip(ng_states(g["opt"]),
+                                          ng_states(e["opt"]))))
+    log(f"mmi graphed vs eager (deterministic cuDNN): objf history, "
+        f"parameters and NG states bit-equal: {same}; eager launches "
+        f"{e['launches']}")
+    if not same:
+        raise AssertionError("the graphed MMI steps differ from the eager "
+                             "ones")
     need = ("conv_maxpool", "maxpool_fwd_vec", "maxpool_bwd")
     if min(launches[k] for k in need) <= 0:
         raise AssertionError(f"a kernel did not run in the MMI phase: "
                              f"{launches}")
     if (len(steps) != MMI_ITERS * len(utts) or den_err > MMI_DEN_ATOL
-            or len(history) != MMI_ITERS or not np.isfinite(history).all()):
+            or len(history) != MMI_ITERS or not np.isfinite(history).all()
+            or not disc_caps):
         raise AssertionError(f"the MMI phase's result is malformed: "
                              f"{len(steps)} steps, history {history}, "
-                             f"den error {den_err}")
+                             f"den error {den_err}, graphs {disc_caps}")
     if net.ng_in.update_period != 16:
         raise AssertionError("mmi_train_nnet kept its update period")
 
@@ -2364,7 +2414,10 @@ def mmi_phase(dev, exp_dir, tmp, word_probs):
             or ll_err > LOGLIKE_ATOL or not np.isfinite(objf)):
         raise AssertionError("the nnet2 chain's .mdl disagrees between the "
                              "card and the CPU, or its step failed")
-    log(f"mmi phase: {time.perf_counter() - t_phase:.1f} s")
+    phase_s = time.perf_counter() - t_phase
+    log(f"mmi phase: {phase_s:.1f} s (limit {MMI_PHASE_S})")
+    if phase_s > MMI_PHASE_S:
+        raise AssertionError(f"the MMI phase took {phase_s:.1f} s")
     return launches
 
 

@@ -7,7 +7,8 @@ Switchboard CNN's pair of slices), the train step
 (``train_forward`` -> objective derivative -> ``_backward_update``, the
 reference's NnetUpdater::ComputeForMinibatch), the MMI step
 (``discriminative_step``: the same walk from the numerator minus
-denominator occupancies), ``objf``, and ``AmNnet`` with
+denominator occupancies; on the card a replay of a graph per shape, as
+the JAX package jits it per shape), ``objf``, and ``AmNnet`` with
 ``loglikes``/``loglikes_batch``
 (ref: src/nnet2/nnet-nnet.cc, nnet-update.cc,
 nnet-compute-discriminative.cc, am-nnet.cc, decodable-am-nnet.cc).
@@ -321,19 +322,46 @@ class Nnet(nn.Module):
         return any(isinstance(m, DropoutComponent) and m.proportion > 0
                    for m in self.modules())
 
-    @torch.no_grad()
-    def discriminative_step(self, opt, x: torch.Tensor,
-                            num_post: torch.Tensor, den_post: torch.Tensor,
-                            lr: float,
+    def discriminative_step(self, opt, x, num_post, den_post, lr: float,
                             generator: Optional[torch.Generator] = None,
                             group=None):
         """Lattice-based sequence-discriminative (MMI) update of the
         parameters in place (ref: nnet2/nnet-compute-discriminative.cc,
-        MMI case).  num_post/den_post [N, P]: numerator and denominator
-        occupancies of x's rows; with a process ``group``, this rank's
-        rows of the group's minibatch.  The objective's derivative at the
+        MMI case).  x [N, D]; num_post/den_post [N, P]: numerator and
+        denominator occupancies of x's rows (arrays or tensors); with a
+        process ``group``, this rank's rows of the group's minibatch.
+        Returns (opt', MMI objf per frame as a device scalar).
+
+        On a CUDA net (with no group or an NCCL one) the step is a replay
+        of a CUDA graph captured once per (rows, width, pdfs, NG gates,
+        storage dtype, flags), as the JAX package jits it once per shape
+        (``models/step_graphs.py``, a one-step group of its own kind):
+        the inputs cross in one copy from a pinned buffer, so numpy
+        inputs are the cheap ones, and a step whose gates open runs its
+        eighs between its graph and a tail graph.  A capture or replay
+        that fails raises.  Elsewhere it is
+        ``discriminative_step_eager``."""
+        if self.device.type != "cuda" or not replays_collectives(group):
+            return self.discriminative_step_eager(
+                opt, x, num_post, den_post, lr, generator, group)
+        if self._step_graphs is None:
+            self._step_graphs = StepGraphs(self)
+        return self._step_graphs.run_discriminative(
+            opt, x, num_post, den_post, float(lr), generator,
+            _storage_dtype(self.train_storage_dtype), group)
+
+    @torch.no_grad()
+    def discriminative_step_eager(self, opt, x, num_post, den_post, lr,
+                                  generator: Optional[torch.Generator] = None,
+                                  group=None):
+        """``discriminative_step`` run op by op on the net's device (the
+        plain version of its graphs).  The objective's derivative at the
         softmax output is (num - den) / y over the numerator's frame
-        count.  Returns (opt', MMI objf per frame as a device scalar)."""
+        count."""
+        dev = self.device
+        x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        num_post = torch.as_tensor(num_post, device=dev)
+        den_post = torch.as_tensor(den_post, device=dev)
         sd = _storage_dtype(self.train_storage_dtype)
         out, acts, auxs = self.train_forward(x, sd, generator, group)
         y = torch.clamp_min(out.to(torch.float32), 1e-20)

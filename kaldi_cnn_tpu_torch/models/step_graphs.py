@@ -45,6 +45,16 @@ parameters and states are put back, so that lazy initialisations and
 the slots' buffers happen outside the capture.  A failed capture or
 replay raises; nothing falls back to the eager steps.
 
+``Nnet.discriminative_step`` (the MMI step, which the JAX package jits
+once per shape) replays these graphs too: a one-step group of its own
+kind, whose staging holds x [T, D], the numerator and denominator
+occupancies [T, P] and lr, and whose graphs are keyed by (rows T,
+width, pdfs, gates, storage dtype, flags), so that each utterance
+length is a graph of its own (rows are not padded: a padded step is
+not known to give the unpadded one's bits).  It shares the storage,
+the slots (by rows), the tail graphs and the pool with the train
+steps.
+
 A mode-A data-parallel step (``parallel.dp.make_dp_step``, one step a
 call) replays these graphs too when its process group is an NCCL group
 (``replays_collectives``): the step's all-reduces (``core/mesh.py``:
@@ -140,17 +150,27 @@ def _host(v):
     return v.cpu().numpy() if isinstance(v, torch.Tensor) else v
 
 
-class _Staging:
-    """A group's inputs at fixed addresses: xs [K, N, D] f32, labels
-    [K, N] int64, weights [K, N] f32 and lrs [K] f32, laid out in one
-    pinned host buffer and one device buffer, so that a group's inputs
-    cross in one copy."""
+def train_parts(k: int, n: int, d: int) -> tuple:
+    """A group of K train steps' inputs: xs [K, N, D] f32, labels [K, N]
+    int64, weights [K, N] f32 and lrs [K] f32."""
+    return (("x", torch.float32, (k, n, d)), ("y", torch.int64, (k, n)),
+            ("w", torch.float32, (k, n)), ("lr", torch.float32, (k,)))
 
-    def __init__(self, k: int, n: int, d: int, device):
-        parts = (("x", torch.float32, (k, n, d)),
-                 ("y", torch.int64, (k, n)),
-                 ("w", torch.float32, (k, n)),
-                 ("lr", torch.float32, (k,)))
+
+def discriminative_parts(n: int, d: int, p: int) -> tuple:
+    """One discriminative step's inputs: x [1, T, D], num_post and
+    den_post [1, T, P] and lr [1], all f32."""
+    return (("x", torch.float32, (1, n, d)),
+            ("num", torch.float32, (1, n, p)),
+            ("den", torch.float32, (1, n, p)), ("lr", torch.float32, (1,)))
+
+
+class _Staging:
+    """A group's inputs at fixed addresses (``parts``: (name, dtype,
+    shape) each), laid out in one pinned host buffer and one device
+    buffer, so that a group's inputs cross in one copy."""
+
+    def __init__(self, parts, device):
         spans, off = [], 0
         for name, dt, shape in parts:
             size = int(np.prod(shape)) * dt.itemsize
@@ -164,11 +184,10 @@ class _Staging:
             self.dev[name] = self.dev_raw[o:o + size].view(dt).view(shape)
         self.copied: Optional[torch.cuda.Event] = None
 
-    def load(self, xs, labels, lrs, weights) -> None:
-        """This group's inputs ([K, ...] arrays or K per-step arrays,
-        numpy or tensors) into the device buffers through the pinned
-        buffer, in one copy."""
-        values = {"x": xs, "y": labels, "w": weights, "lr": lrs}
+    def load(self, values: Dict[str, object]) -> None:
+        """This group's inputs by name ([K, ...] arrays or K per-step
+        arrays, numpy or tensors) into the device buffers through the
+        pinned buffer, in one copy."""
         if self.copied is not None:
             self.copied.synchronize()      # the last group's copy is done
         for k, v in values.items():
@@ -220,7 +239,9 @@ class _Slot:
 
 class Plan:
     """A group's steps on tensors at fixed addresses, on any device:
-    ``inputs`` (x [K, N, D], y, w, lr), the NG states' ``storage``, each
+    ``inputs`` (``train_parts``' x, y, w and lr: ``Nnet.train_step``; or
+    ``discriminative_parts``' x, num, den and lr:
+    ``Nnet.discriminative_step``), the NG states' ``storage``, each
     state's ``slots`` (by its index in ``storage``), for a net that
     draws masks one generator a step, and the process ``group`` of a
     data-parallel step (None: none).  A step runs whole, its
@@ -249,11 +270,16 @@ class Plan:
         every state whose gate is closed updated, the refreshing states'
         Grams in their slots; returns those states' indices."""
         st = self.inputs
+        gen = None if self.gens is None else self.gens[k]
         with deferred_refresh() as pending:
-            new_opt, objf = self.net.train_step(
-                opt, st["x"][k], st["y"][k], st["lr"][k], weights=st["w"][k],
-                group=self.group,
-                generator=None if self.gens is None else self.gens[k])
+            if "num" in st:
+                new_opt, objf = self.net.discriminative_step_eager(
+                    opt, st["x"][k], st["num"][k], st["den"][k], st["lr"][k],
+                    generator=gen, group=self.group)
+            else:
+                new_opt, objf = self.net.train_step(
+                    opt, st["x"][k], st["y"][k], st["lr"][k],
+                    weights=st["w"][k], group=self.group, generator=gen)
         self.objf[k].copy_(objf)
         for (_, dst), (_, src) in zip(ng_states(opt), ng_states(new_opt)):
             _store(dst, src)
@@ -285,13 +311,13 @@ class Plan:
 
 
 class _Group(Plan):
-    """A plan on the card: the pinned staging of its inputs and, for a
-    net that draws masks, its generators (one a step, registered with
-    that step's graphs)."""
+    """A plan on the card: the pinned staging of its inputs (``parts``)
+    and, for a net that draws masks, its generators (one a step,
+    registered with that step's graphs)."""
 
-    def __init__(self, sg: "StepGraphs", k: int, n: int, d: int,
+    def __init__(self, sg: "StepGraphs", parts, k: int, n: int,
                  draws: bool, group=None):
-        self.staging = _Staging(k, n, d, sg.device)
+        self.staging = _Staging(parts, sg.device)
         gens = ([torch.Generator(device=sg.device) for _ in range(k)]
                 if draws else None)
         super().__init__(sg.net, self.staging.dev, sg.storage,
@@ -299,11 +325,11 @@ class _Group(Plan):
 
 
 class StepGraphs:
-    """A net's graphed train steps: the NG states' fixed storage, the
-    slots, the groups (staging and plan) by (K, rows, width, whether
-    masks are drawn, process group), the graphs, and the memory pool
-    they share.  A deep copy or a pickle of the net gets none of it (a
-    copy captures its own)."""
+    """A net's graphed train and discriminative steps: the NG states'
+    fixed storage, the slots, the groups (staging and plan) by (kind,
+    K, rows, width, whether masks are drawn, process group[, pdfs]),
+    the graphs, and the memory pool they share.  A deep copy or a pickle
+    of the net gets none of it (a copy captures its own)."""
 
     def __init__(self, net):
         self.net = net
@@ -373,25 +399,56 @@ class StepGraphs:
             self.capture_s[key] = time.perf_counter() - t
         return g
 
+    def _plan(self, gkey: tuple, parts, k_steps: int, n: int, draws: bool,
+              group) -> _Group:
+        plan = self.groups.get(gkey)
+        if plan is None:
+            plan = self.groups[gkey] = _Group(self, parts, k_steps, n,
+                                              draws, group)
+        return plan
+
     def run(self, opt, xs, labels, lrs, weights, generators,
             store_dtype, group=None) -> Tuple:
         """``Nnet.train_steps`` on the card (lrs a float32 array [K]),
         each step over process ``group`` (an NCCL group, or None)."""
+        self._bind([s for _, s in ng_states(opt)])
+        k_steps, n, d = len(lrs), len(labels[0]), self.net.input_dim
+        draws = generators is not None and self.net.draws_masks()
+        gkey = ("train", k_steps, n, d, draws, _group_key(group))
+        plan = self._plan(gkey, train_parts(k_steps, n, d), k_steps, n,
+                          draws, group)
+        plan.staging.load({"x": xs, "y": labels, "w": weights, "lr": lrs})
+        return self._steps(plan, gkey, opt, generators, draws, store_dtype,
+                           group)
+
+    def run_discriminative(self, opt, x, num_post, den_post, lr, generator,
+                           store_dtype, group=None) -> Tuple:
+        """``Nnet.discriminative_step`` on the card: a one-step group of
+        its own kind, a graph a (rows, pdfs, gates, ...)."""
+        self._bind([s for _, s in ng_states(opt)])
+        (n, d), p = tuple(x.shape), int(num_post.shape[1])
+        draws = generator is not None and self.net.draws_masks()
+        gkey = ("disc", 1, n, d, draws, _group_key(group), p)
+        plan = self._plan(gkey, discriminative_parts(n, d, p), 1, n, draws,
+                          group)
+        plan.staging.load({"x": [x], "num": [num_post], "den": [den_post],
+                           "lr": np.asarray([lr], np.float32)})
+        opt, objf = self._steps(plan, gkey, opt,
+                                None if generator is None else [generator],
+                                draws, store_dtype, group)
+        return opt, objf[0]
+
+    def _steps(self, plan: _Group, gkey: tuple, opt, generators, draws,
+               store_dtype, group) -> Tuple:
+        """The group's steps as replays, each graph captured at its first
+        use; returns (opt', objf per step)."""
         net = self.net
         sides = ng_states(opt)
-        self._bind([s for _, s in sides])
-        k_steps, n = len(lrs), len(labels[0])
-        d = net.input_dim
         ts = [s.t for _, s in sides]
-        draws = generators is not None and net.draws_masks()
-        gkey = (k_steps, n, d, draws, _group_key(group))
-        plan = self.groups.get(gkey)
-        if plan is None:
-            plan = self.groups[gkey] = _Group(self, k_steps, n, d, draws,
-                                              group)
+        k_steps, n = gkey[1], gkey[2]
         mode = "global" if group is None else "thread_local"
-        plan.staging.load(xs, labels, lrs, weights)
-        shape = (n, d, store_dtype, torch.backends.cudnn.deterministic,
+        shape = (n, gkey[3], store_dtype,
+                 torch.backends.cudnn.deterministic,
                  torch.backends.cudnn.benchmark,
                  torch.backends.cudnn.allow_tf32,
                  torch.backends.cuda.matmul.allow_tf32,
@@ -402,7 +459,7 @@ class StepGraphs:
                           for (side, _), t in zip(sides, ts))
             skey = ("step", gkey, k, gates) + shape
             if skey not in self.graphs:
-                self._warm(plan, k, opt, shape, gates)
+                self._warm(plan, k, opt, gkey[:1] + shape, gates)
 
                 def body(k=k, skey=skey):
                     self.refreshed[skey] = plan.step(k, plan.opt(opt, k))
@@ -428,13 +485,16 @@ class StepGraphs:
     @property
     def capture_seconds(self) -> Dict[tuple, float]:
         """Seconds of each graph's capture: ("step", K, rows, slot k,
-        refreshes) and ("tail", rows); a data-parallel step's key ends
-        with its group's (backend, size, rank)."""
+        refreshes), ("disc", rows, refreshes) and ("tail", rows); a
+        data-parallel step's key ends with its group's (backend, size,
+        rank)."""
         out = {}
         for key, v in self.capture_s.items():
             if key[0] == "step":
-                pg = key[1][4]
-                out[("step", key[1][0], key[1][1], key[2], any(key[3]))
+                kind, k_steps, n, _, _, pg = key[1][:6]
+                head = (("step", k_steps, n, key[2]) if kind == "train"
+                        else ("disc", n))
+                out[head + (any(key[3]),)
                     + (() if pg is None else (pg[:3],))] = v
             else:
                 out[("tail", key[1])] = v

@@ -18,7 +18,9 @@ verbatim but for the imports (host numpy).  ``mmi_train_nnet`` scores
 each utterance with ``Nnet.predict`` on ``device`` (the fused
 conv+maxpool kernel on the card for a CNN), decodes the denominator
 lattice with the host ``lattice_decode`` and takes
-``Nnet.discriminative_step`` on the device.  It pins the NG-SGD update
+``Nnet.discriminative_step`` on the device (on the card a replay of its
+CUDA graph for the utterance's length and the step's NG gates, on the
+CPU the eager step).  It pins the NG-SGD update
 period to at most 4 for the phase, as the JAX function does, and gives
 the net its own period back when it returns (the JAX function leaves
 the net changed).
@@ -90,9 +92,9 @@ def mmi_train_nnet(
             tot_objf, tot_frames = 0.0, 0
             for x, num_ali in utts:
                 T = x.shape[0]
-                xd = torch.as_tensor(np.asarray(x, np.float32),
-                                     device=device)
-                post = net.predict(xd).float().cpu().numpy()
+                x = np.asarray(x, np.float32)
+                post = net.predict(torch.as_tensor(
+                    x, device=device)).float().cpu().numpy()
                 ll = (np.log(np.maximum(post, 1e-20))
                       - log_priors[None, :]).astype(np.float32)
                 lat = lattice_decode(den_graph, ll,
@@ -103,9 +105,10 @@ def mmi_train_nnet(
                                              1.0, acoustic_scale)
                 num = np.zeros((T, num_pdfs), np.float32)
                 num[np.arange(T), num_ali] = 1.0
-                opt, objf = net.discriminative_step(
-                    opt, xd, torch.as_tensor(num, device=device),
-                    torch.as_tensor(den, device=device), learning_rate)
+                # host arrays: on the card the step's graph takes them
+                # in one copy from its pinned buffer
+                opt, objf = net.discriminative_step(opt, x, num, den,
+                                                    learning_rate)
                 tot_objf += float(objf) * T
                 tot_frames += T
             history.append(tot_objf / max(tot_frames, 1))

@@ -27,7 +27,21 @@ GMM-SAT and the DNN lattices of the run, the dev point of a wider
 rescoring grid than ``score_sweep``'s (acoustic scales 0.01-1.0, word
 insertion penalties to -8) and the test WER and deletions there.
 
-On the card, the GPU's name and power limit come first.
+``--classify`` (the port only) sorts each DNN test utterance that loses
+words into one class and counts the deleted words by word;
+``--wide-search`` and ``--host-subset N`` decode the deleted utterances
+again with a wider search and with the host ``lattice_decode``
+(``scripts/deletions.py``).  ``--dump DIR`` (the port only) keeps the
+DNN test decode's graph, loglikes, references and point in
+``DIR/rm_<package>_seed<N>.npz``, and the line names the test
+utterances that lose words (``test_deleted``); ``libri_diagnose.py
+--decode-inputs`` decodes such a file with either package.
+
+    python3 scripts/rm_diagnose.py --eval-utts 900 --seeds 29 \
+        --classify --wide-search --host-subset 16
+
+On the card, the GPU's name and power limit come first, and again as
+each line's first key (``gpu``).
 """
 
 from __future__ import annotations
@@ -36,12 +50,15 @@ import argparse
 import importlib
 import json
 import os
-import subprocess
 import sys
 import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+
+from deletions import (Recorder, classify, gpu_name,  # noqa: E402
+                       save_inputs, test_deleted)
 
 WIDE_SCALES = (0.01, 0.02, 0.05, 0.1, 0.2, 0.3, 0.5, 0.75, 1.0)
 WIDE_WIPS = (-8.0, -4.0, -2.0, -1.0, -0.5, 0.0, 0.5)
@@ -84,15 +101,21 @@ def main(argv=None) -> int:
     ap.add_argument("--exp-dir", default=None)
     ap.add_argument("--stage", type=int, default=0)
     ap.add_argument("--wide-grid", action="store_true")
+    ap.add_argument("--classify", action="store_true")
+    ap.add_argument("--wide-search", action="store_true")
+    ap.add_argument("--host-subset", type=int, default=0)
+    ap.add_argument("--dump", default="")
+    ap.add_argument("--dump-deleted", action="store_true",
+                    help="--dump only the test utterances that lose words")
     a = ap.parse_args(argv)
     port = a.package == "kaldi_cnn_tpu_torch"
-    if a.wide_grid and not port:
-        ap.error("--wide-grid reads the port's decodes")
-    if port and a.device.startswith("cuda"):
-        print("gpu:", subprocess.run(
-            ["nvidia-smi", "--query-gpu=name,power.limit",
-             "--format=csv,noheader"], check=True, capture_output=True,
-            text=True).stdout.strip(), flush=True)
+    if (a.wide_grid or a.classify or a.dump) and not port:
+        ap.error("--wide-grid, --classify and --dump read the port's "
+                 "decodes")
+    gpu = (gpu_name() if port and a.device.startswith("cuda")
+           else None)
+    if gpu:
+        print("gpu:", gpu, flush=True)
     rm = importlib.import_module(f"{a.package}.recipes.rm")
     for seed in a.seeds:
         kw = dict(num_utts=a.num_utts, seed=seed, nnet_epochs=a.epochs,
@@ -101,31 +124,49 @@ def main(argv=None) -> int:
                            if a.exp_dir else None))
         if port:
             kw["device"] = a.device
-        gmm, dnn = [], []
-        if a.wide_grid:
-            saved = rm.gmm_decode, rm.nnet_decode
+        gmm = []
+        record = a.wide_grid or a.classify or a.dump
+        if record:
+            saved = rm.gmm_decode
             rm.gmm_decode = recording(rm, "gmm_decode", gmm)
-            rm.nnet_decode = recording(rm, "nnet_decode", dnn)
         t = time.perf_counter()
         try:
-            res = rm.run(**kw)
+            with Recorder(rm, a.package) as rec:
+                res = rm.run(**kw)
         finally:
-            if a.wide_grid:
-                rm.gmm_decode, rm.nnet_decode = saved
+            if record:
+                rm.gmm_decode = saved
         wall_s = time.perf_counter() - t
-        line = {"package": a.package,
+        line = {**({"gpu": gpu} if gpu else {}), "package": a.package,
                 "device": a.device if port else "jax-default",
                 "seed": seed, "num_utts": a.num_utts,
                 "eval_utts": a.eval_utts, "epochs": a.epochs,
                 "stage": a.stage,
                 **{k: res[k] for k in KEYS if k in res},
                 "wall_s": wall_s}
-        if a.wide_grid:
-            _, dev, test = rm.make_corpus(a.num_utts, seed, a.eval_utts)
+        if record:
+            train, dev, test = rm.make_corpus(a.num_utts, seed,
+                                              a.eval_utts)
             word_table = gmm[0][0][5].word_table
+        if a.dump:
+            line["test_deleted"] = test_deleted(
+                a.package, rec.calls[-1], test.transcripts, word_table,
+                res["dnn_point"])
+            os.makedirs(a.dump, exist_ok=True)
+            save_inputs(os.path.join(a.dump, f"rm_{a.package}_seed{seed}"
+                                     ".npz"), rec.calls[-1],
+                        test.transcripts, word_table, res["dnn_point"],
+                        line["test_deleted"] if a.dump_deleted else None)
+        if a.classify:
+            line["classes"] = classify(
+                rec.calls[-1], test.transcripts, word_table,
+                res["dnn_point"], train.transcripts, a.device,
+                a.wide_search, a.host_subset)
+        if a.wide_grid:
             line["wide_gmm"] = wide_grid(rm, gmm[0][1][0], gmm[1][1][0],
                                          dev, test, word_table)
-            line["wide_dnn"] = wide_grid(rm, dnn[0][1], dnn[1][1], dev,
+            line["wide_dnn"] = wide_grid(rm, rec.calls[0]["lats"],
+                                         rec.calls[1]["lats"], dev,
                                          test, word_table)
         print(json.dumps(line), flush=True)
     return 0

@@ -22,6 +22,22 @@ With ``--ablate`` (the port only), each seed also prints:
    again with every utterance's iVector columns replaced by the mean
    test iVector, which takes away what the iVector tells the net.
 
+With ``--classify`` (the port only), each seed also prints the
+classification of the test utterances that lose words and the deleted
+words by word; ``--wide-search`` and ``--host-subset N`` decode the
+deleted utterances again with a wider search and with the host
+``lattice_decode`` (``scripts/deletions.py``).
+
+    python3 scripts/swbd_diagnose.py --seeds 43 --classify --wide-search \
+        --host-subset 16
+    python3 scripts/swbd_diagnose.py --device cpu --seeds 43 --dump D
+
+``--device`` is the port's (the card by default); ``--dump DIR`` keeps
+the test decode's graph, loglikes, references and point in
+``DIR/swbd_<package>_seed<N>.npz`` and names the test utterances that
+lose words (``test_deleted``), for ``libri_diagnose.py
+--decode-inputs``.
+
 On the card, the GPU's name and power limit come first.
 """
 
@@ -38,6 +54,10 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
+
+from deletions import (Recorder, classify, save_inputs,  # noqa: E402
+                       test_deleted)
 
 SCALES = (0.02, 0.05, 0.1, 0.2, 0.3, 0.5, 0.75, 1.0)
 WIPS = (-8.0, -4.0, -2.0, -1.0, -0.5, 0.0, 0.5)
@@ -108,12 +128,19 @@ def main() -> int:
     ap.add_argument("--seeds", type=int, nargs="+", default=[43])
     ap.add_argument("--eval-utts-per-speaker", type=int, default=34)
     ap.add_argument("--ablate", action="store_true")
+    ap.add_argument("--classify", action="store_true")
+    ap.add_argument("--wide-search", action="store_true")
+    ap.add_argument("--host-subset", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dump", default="")
+    ap.add_argument("--dump-deleted", action="store_true",
+                    help="--dump only the test utterances that lose words")
     a = ap.parse_args()
     port = a.package == "kaldi_cnn_tpu_torch"
-    if a.ablate and not port:
-        ap.error("--ablate needs the port")
+    if (a.ablate or a.classify or a.dump) and not port:
+        ap.error("--ablate, --classify and --dump need the port")
     swbd = importlib.import_module(f"{a.package}.recipes.swbd")
-    if port:
+    if port and a.device.startswith("cuda"):
         import torch
         if not torch.cuda.is_available():
             print("swbd_diagnose: the port's recipe needs a CUDA GPU",
@@ -129,14 +156,36 @@ def main() -> int:
         with contextlib.ExitStack() as stack:
             if a.ablate:
                 stack.enter_context(recorded(swbd, "nnet_decode", decodes))
+            if a.ablate or a.classify or a.dump:
                 stack.enter_context(recorded(swbd, "score_sweep", sweeps))
-            res = swbd.run(seed=seed,
+            rec = stack.enter_context(Recorder(swbd, a.package))
+            res = swbd.run(seed=seed, **({"device": a.device} if port
+                                         else {}),
                            eval_utts_per_speaker=a.eval_utts_per_speaker)
         print(json.dumps({"step": "recipe", "package": a.package,
                           "seed": seed, "dev_wer": res["dev_wer"],
                           "point": res.get("point"),
                           **{k: res[k] for k in ERROR_KEYS},
                           "seconds": time.time() - t0}), flush=True)
+        if a.classify or a.dump:
+            train, _, test = swbd.make_corpus(
+                seed=seed, eval_utts_per_speaker=a.eval_utts_per_speaker)
+            point = tuple(res["point"])
+        if a.dump:
+            deleted = test_deleted(a.package, rec.calls[-1],
+                                   test.transcripts, sweeps[0][0][2], point)
+            os.makedirs(a.dump, exist_ok=True)
+            save_inputs(os.path.join(a.dump, f"swbd_{a.package}_seed{seed}"
+                                     ".npz"), rec.calls[-1],
+                        test.transcripts, sweeps[0][0][2], point,
+                        deleted if a.dump_deleted else None)
+            print(json.dumps({"step": "dump", "seed": seed,
+                              "test_deleted": deleted}), flush=True)
+        if a.classify:
+            print(json.dumps({"step": "classes", "seed": seed, **classify(
+                rec.calls[-1], test.transcripts, sweeps[0][0][2], point,
+                train.transcripts, a.device, a.wide_search,
+                a.host_subset)}), flush=True)
         if a.ablate:
             ablations(swbd, decodes, sweeps, tuple(res["point"]), seed,
                       a.eval_utts_per_speaker)

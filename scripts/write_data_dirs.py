@@ -12,20 +12,49 @@ then
     python3 -m kaldi_cnn_tpu_torch.recipes.yesno --data-dir OUT/yesno
     python3 -m kaldi_cnn_tpu_torch.recipes.wsj --data-dir OUT/wsj \\
         --lexicon OUT/wsj_lexicon.txt
+
+With ``--run-wsj`` it then runs the WSJ recipe on the card from
+``OUT/wsj`` twice and prints a JSON line for each: as the ``--data-dir``
+run reads it (the unigram estimated from the transcripts, the waves
+rounded to int16), and with the synthetic corpus's own word
+probabilities given to it, which leaves the rounding as the one
+difference from the corpus in memory.  Each line holds the WER, the
+errors by kind and the classification of the test utterances that lose
+words (``scripts/deletions.py``; ``--wide-search`` and ``--host-subset
+N`` as there).  On the card the GPU's name and power limit come first,
+and again as each line's first key (``gpu``).
+``--device cpu`` runs it on the CPU; ``--dump DIR`` keeps each run's
+test decode in ``DIR/wsj_datadir_<word probs>.npz`` (``--dump-deleted``:
+only the utterances that lose words) and names its test utterances that
+lose words (``test_deleted``), for ``libri_diagnose.py
+--decode-inputs``.
+
+    python3 scripts/write_data_dirs.py OUT --run-wsj --wide-search \\
+        --host-subset 16
 """
 
+import argparse
+import json
 import os
 import sys
+import time
 
-sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
-    __file__))))
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "scripts"))
 
+from deletions import (Recorder, classify, gpu_name,  # noqa: E402
+                       save_inputs, test_deleted)
 from kaldi_cnn_tpu_torch.recipes import synthetic, wsj  # noqa: E402
 from kaldi_cnn_tpu_torch.recipes.datadir import (  # noqa: E402
     write_data_dir, write_lexicon_file)
 
+ERROR_KEYS = ("dev_wer", "wer", "errors", "words", "sub", "ins", "del",
+              "point")
 
-def main(out: str) -> None:
+
+def write(out: str):
+    """The two data dirs; returns the WSJ corpus written."""
     lex = synthetic.yesno_lexicon()
     c = synthetic.make_corpus(lex, {"yes": 0.5, "no": 0.5}, 100, 1, 3, 17)
     write_data_dir(os.path.join(out, "yesno"), c.waves, c.transcripts,
@@ -35,8 +64,67 @@ def main(out: str) -> None:
     write_data_dir(os.path.join(out, "wsj"), c.waves, c.transcripts, None,
                    c.sample_rate)
     write_lexicon_file(os.path.join(out, "wsj_lexicon.txt"), c.lexicon)
-    print(f"data dirs in {out}")
+    print(f"data dirs in {out}", flush=True)
+    return c
+
+
+def run_wsj(out: str, synthetic_corpus, wide: bool, host_subset: int,
+            device: str = "cuda", dump: str = "",
+            dump_deleted: bool = False) -> None:
+    """The WSJ recipe from ``out/wsj`` as read, then with the synthetic
+    word probabilities (module doc)."""
+    from kaldi_cnn_tpu_torch.lang.hclg import Lang
+    gpu = gpu_name() if device.startswith("cuda") else None
+    if gpu:
+        print("gpu:", gpu, flush=True)
+    for probs in ("estimated", "synthetic"):
+        corpus = wsj.corpus_from_data_dir(os.path.join(out, "wsj"),
+                                          os.path.join(out,
+                                                       "wsj_lexicon.txt"))
+        if probs == "synthetic":
+            corpus.word_probs = dict(synthetic_corpus.word_probs)
+        t = time.perf_counter()
+        with Recorder(wsj, "kaldi_cnn_tpu_torch") as rec:
+            res = wsj.run(device=device, corpus=corpus)
+        line = {**({"gpu": gpu} if gpu else {}), "corpus": "data dir",
+                "word_probs": probs, "device": device,
+                **{k: res[k] for k in ERROR_KEYS},
+                "seconds": time.perf_counter() - t}
+        dev_call, test_call = rec.calls[0], rec.calls[1]
+        test_refs = {u: corpus.transcripts[u] for u in test_call["loglikes"]}
+        train = {u: w for u, w in corpus.transcripts.items()
+                 if u not in test_refs and u not in dev_call["loglikes"]}
+        words, point = (Lang.create(corpus.lexicon).word_table,
+                        tuple(res["point"]))
+        line["test_deleted"] = test_deleted("kaldi_cnn_tpu_torch", test_call,
+                                            test_refs, words, point)
+        if dump:
+            os.makedirs(dump, exist_ok=True)
+            save_inputs(os.path.join(dump, f"wsj_datadir_{probs}.npz"),
+                        test_call, test_refs, words, point,
+                        line["test_deleted"] if dump_deleted else None)
+        line["classes"] = classify(test_call, test_refs, words, point,
+                                   train, device, wide, host_subset)
+        print(json.dumps(line), flush=True)
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("out")
+    ap.add_argument("--run-wsj", action="store_true")
+    ap.add_argument("--wide-search", action="store_true")
+    ap.add_argument("--host-subset", type=int, default=0)
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--dump", default="")
+    ap.add_argument("--dump-deleted", action="store_true",
+                    help="--dump only the test utterances that lose words")
+    a = ap.parse_args(argv)
+    c = write(a.out)
+    if a.run_wsj:
+        run_wsj(a.out, c, a.wide_search, a.host_subset, a.device, a.dump,
+                a.dump_deleted)
+    return 0
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    sys.exit(main())

@@ -823,10 +823,11 @@ def test_swbd_train_step_on_card_runs_the_maxpool_kernels(cuda):
 
 
 def test_wsj_discriminative_step_on_card_matches_cpu(cuda):
-    """One MMI step (``Nnet.discriminative_step``) of the WSJ recipe's
-    CNN (F = 64) on 300 frames on the card: the maxpool forward with
-    argmax and the backward launch once each, and objf and parameters
-    agree with the same step on the CPU (1e-3, 1e-3 relative)."""
+    """One MMI step (``Nnet.discriminative_step``, a replay of its CUDA
+    graph) of the WSJ recipe's CNN (F = 64) on 300 frames on the card:
+    the maxpool forward with argmax and the backward launch once each
+    beside the graph's warm-up, and objf and parameters agree with the
+    same step on the CPU (1e-3, 1e-3 relative)."""
     import copy
     from kaldi_cnn_tpu_torch.models.factory import make_convnet
     from kaldi_cnn_tpu_torch.recipes import wsj
@@ -846,12 +847,15 @@ def test_wsj_discriminative_step_on_card_matches_cpu(cuda):
     num[torch.arange(n), torch.as_tensor(r.integers(0, num_pdfs, n))] = 1.0
     den = torch.as_tensor(r.dirichlet(np.ones(num_pdfs) * 0.1, size=n)
                           .astype(np.float32))
-    before = (mp.maxpool3d.launches, mp.maxpool3d_backward.launches)
+    def launched():
+        return tuple(fn.launches - fn.warmup_launches
+                     for fn in (mp.maxpool3d, mp.maxpool3d_backward))
+
+    before = launched()
     _, objf = net.discriminative_step(net.init_opt(), x.to(cuda),
                                       num.to(cuda), den.to(cuda), 0.002)
     torch.cuda.synchronize()
-    assert (mp.maxpool3d.launches, mp.maxpool3d_backward.launches) == (
-        before[0] + 1, before[1] + 1)
+    assert launched() == (before[0] + 1, before[1] + 1)
     _, objf_c = cpu.discriminative_step(cpu.init_opt(), x, num, den, 0.002)
     assert float(objf) == pytest.approx(float(objf_c), abs=1e-3)
     for (k, a), (_, b) in zip(net.named_parameters(),
@@ -952,6 +956,49 @@ def test_train_steps_graphs_match_eager_bit_for_bit(deterministic_cudnn):
         {("step", 8, 256, k, True) for k in range(8)}
         | {("step", 8, 256, k, False) for k in range(1, 8)}
         | {("step", 1, 256, 0, False), ("tail", 256)})
+
+
+def test_discriminative_step_graphs_match_eager_bit_for_bit(
+        deterministic_cudnn):
+    """``Nnet.discriminative_step`` on the WSJ CNN through its graphs, and
+    ``discriminative_step_eager`` on a copy, under deterministic cuDNN at
+    MMI's update period 4 from t = 62 (gates open in the NG warm-up, at
+    t = 64 and 68, closed between): 6 utterances of 120 and 88 frames in
+    turn, then a 120-frame one on new inputs, which replays a graph
+    captured before.  Objfs, parameters and NG states equal bit for bit,
+    and the step graphs are one a distinct (length, gates) key."""
+    import copy
+    from kaldi_cnn_tpu_torch.models.step_graphs import ng_states, with_states
+    net = _wsj_net(deterministic_cudnn)
+    ref = copy.deepcopy(net)
+    for ng in (net.ng_in, net.ng_out, ref.ng_in, ref.ng_out):
+        ng.update_period = 4
+    r = np_rng(9, "discriminative graphs")
+    P = net.output_dim
+    start = lambda n: with_states(n.init_opt(), [
+        s._replace(t=62) for _, s in ng_states(n.init_opt())])
+    opt, opt_e = start(net), start(ref)
+    keys, captured = set(), 0
+    for i, T in enumerate((120, 88, 120, 88, 120, 88, 120)):
+        x = r.normal(size=(T, net.input_dim)).astype(np.float32)
+        num = np.eye(P, dtype=np.float32)[r.integers(0, P, T)]
+        den = r.random((T, P)).astype(np.float32)
+        den /= den.sum(axis=1, keepdims=True)
+        keys.add((T, net.ng_in._update_now(62 + i)))
+        captured = len(net.capture_seconds)
+        opt, objf = net.discriminative_step(opt, x, num, den, 0.002)
+        opt_e, objf_e = ref.discriminative_step_eager(
+            opt_e, torch.as_tensor(x, device=deterministic_cudnn),
+            torch.as_tensor(num, device=deterministic_cudnn),
+            torch.as_tensor(den, device=deterministic_cudnn), 0.002)
+        assert torch.equal(objf, objf_e), i
+    torch.cuda.synchronize()
+    _same_training(net, ref, opt, opt_e, objf, objf_e)
+    assert len(net.capture_seconds) == captured      # the last: a replay
+    assert {k for k in net.capture_seconds if k[0] == "disc"} == {
+        ("disc", T, g) for T, g in keys}
+    assert {k for k in net.capture_seconds if k[0] == "tail"} == {
+        ("tail", 120), ("tail", 88)}
 
 
 def test_train_steps_on_card_launch_the_maxpool_kernels_as_eager(

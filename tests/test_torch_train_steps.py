@@ -195,6 +195,49 @@ def test_cut_steps_equal_eager_steps_bit_for_bit(jax_net, t0, k_steps):
     assert len(slots) == (0 if t0 >= 64 else len(storage))
 
 
+@pytest.mark.parametrize("t0", [0, 64])
+def test_cut_discriminative_steps_equal_eager_steps_bit_for_bit(jax_net,
+                                                                t0):
+    """What the card replays for ``Nnet.discriminative_step``: one-step
+    plans of the discriminative kind, one a length (40 and 56 rows in
+    turn), on one fixed storage of the NG states, each refreshing step
+    cut around its eighs.  Objfs, parameters and states equal
+    ``discriminative_step_eager`` calls bit for bit, in the NG warm-up
+    and past it (period 3: open and closed gates)."""
+    net = _port_net(jax_net[1])
+    ref = copy.deepcopy(net)
+    r = np.random.default_rng(5)
+    opt = tuple({k: v._replace(t=t0) for k, v in o.items()}
+                for o in net.init_opt())
+    storage = [NGState(s.u.clone(), s.d.clone(), s.rho.clone(), s.t)
+               for _, s in ng_states(opt)]
+    plans, want, lr = {}, opt, 0.002
+    for n in (40, 56, 40, 56, 40):
+        x = r.normal(size=(n, 144)).astype(np.float32)
+        num = np.eye(20, dtype=np.float32)[r.integers(0, 20, n)]
+        den = r.random((n, 20)).astype(np.float32)
+        den /= den.sum(axis=1, keepdims=True)
+        if n not in plans:
+            plans[n] = Plan(net, {"x": torch.zeros(1, n, 144),
+                                  "num": torch.zeros(1, n, 20),
+                                  "den": torch.zeros(1, n, 20),
+                                  "lr": torch.zeros(1)}, storage, {})
+        plan = plans[n]
+        for k, v in (("x", x), ("num", num), ("den", den),
+                     ("lr", np.float32([lr]))):
+            plan.inputs[k].copy_(torch.as_tensor(v).reshape(
+                plan.inputs[k].shape))
+        plan.run_eager(opt)
+        opt = plan.opt(opt, 1)
+        want, objf = ref.discriminative_step_eager(want, x, num, den, lr)
+        assert float(plan.objf[0]) == float(objf), n
+    for a, b in zip(net.parameters(), ref.parameters()):
+        assert torch.equal(a, b)
+    for got, (_, w) in zip(storage, ng_states(want)):
+        assert (torch.equal(got.u, w.u) and torch.equal(got.d, w.d)
+                and torch.equal(got.rho, w.rho) and got.t + 5 == w.t)
+
+
 def _trainer_data(n=700, dim=144, pdfs=20, seed=11):
     r = np.random.default_rng(seed)
     centers = r.normal(size=(pdfs, dim)).astype(np.float32)
