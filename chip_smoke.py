@@ -280,7 +280,28 @@ then runs these phases; any failure raises and the exit code is not 0.
    BIG_COPY_UTTS lattices through lattice-copy (ark and back, arc for
    arc) and lattice-determinize.  The fbank and conv+maxpool
    kernels must launch in the phase, which must end within
-   LATTICE_PHASE_S.
+   LATTICE_PHASE_S.  (c) The dense exact search
+   (``DenseViterbiDecoder``, beam 1e9, max_active 0) on (b)'s graph:
+   the 20-frame case must give the host exact Viterbi's words and cost
+   (BIG_COST_REL / BIG_COST_ABS); over BIG_UTTS x BIG_FRAMES the captured
+   frame blocks, a second replay and the eager frames must give the same
+   tids, words and cost bits, and each utterance's exact cost must be at
+   most the top-K best path's of (b) + BIG_COST_ABS (where the top-K kept
+   no final state, the exact search's cheapest state at the last frame is
+   the bound); prints the seconds with and without the captures, RTF,
+   the histories' size, the peak ``max_memory_allocated`` and the
+   utterances whose top-K words differ from the exact search's (the
+   top-K's search error at the reference settings).  The phase must end
+   within DENSE_PHASE_S.
+16. Mode B (run right after phase 12's two ranks): ``make_replica_step``
+   with MODE_B_REPLICAS replicas of the Librispeech net (phase 12's
+   pdfs), each on DP_ROWS rows of its own, MODE_B_STEPS steps in the NG
+   warm-up (every step refreshes, cut around its eighs in the graphs),
+   through the step graphs and eagerly under deterministic cuDNN:
+   objfs, parameters and NG states must be bit-equal, the replicas must
+   have diverged and be one model after ``average_replicas``, and the
+   maxpool kernels must launch; prints ms an R-step graphed against R
+   single eager steps.
 
 Output: the GPU's name and power limit (nvidia-smi), the build time, one
 line per check, the total seconds, a JSON line {"kernels": [...]} (for
@@ -289,7 +310,7 @@ path, with each phase's count in ``launches_by_phase``, phase 9's as
 its recognizer run "streaming" and its two verb runs "verb_card" and
 "verb_host", phase 10's as "swbd", phase 11's as "rm", phase 12's as
 "librispeech", phase 13's as "mmi", phase 14's as "cli", phase 15's as
-"lattice"; error, ms,
+"lattice", 15 (c)'s as "dense", phase 16's as "mode_b"; error, ms,
 plain_ms, bound_ms, bound_by, library_ms, graph_ms and library_graph_ms,
 at the main path's shapes, and the same at the Switchboard shapes under
 "swbd_f48...") and, last, the JSON line {"ok": true,
@@ -333,6 +354,7 @@ from kaldi_cnn_tpu_torch.decode.lattice import (load_lattices, save_lattices,
 from kaldi_cnn_tpu_torch.decode.score import wer_details
 from kaldi_cnn_tpu_torch.decode.topk_decoder import (StreamingDecoder,
                                                      TopKDecoder)
+from kaldi_cnn_tpu_torch.decode.tpu_decoder import DenseViterbiDecoder
 from kaldi_cnn_tpu_torch.features import functional as F
 from kaldi_cnn_tpu_torch.gmm.train import align_equal
 from kaldi_cnn_tpu_torch.io import native_io
@@ -410,8 +432,9 @@ STREAM_COST_ABS = 1e-2
 SWBD_EPOCHS = 8
 # the RM recipe (rm.run, phase 11) at its own widths (seed 29, pnorm
 # 800/160 on 180-dim fMLLR rows, 25 epochs), its depth cut from 140
-# utterances for the same reason (its host GMM chain grows with them)
-RM_UTTS = 70
+# utterances for the same reason (its host GMM chain grows with them;
+# 70 until the script passed 700 s with phases 15 (c) and 16)
+RM_UTTS = 56
 RM_EPOCHS = 25
 # JAX rm.run's result: wer_details + the three WERs
 RM_KEYS = {"wer", "errors", "words", "sub", "ins", "del", "missing_utts",
@@ -457,6 +480,10 @@ BIG_GRAPH = dict(num_words=90_000, num_pdfs=256, min_len=4, max_len=8,
 BIG_COST_REL, BIG_COST_ABS = 1e-4, 0.1   # top-K vs host exact Viterbi
 BIG_UTTS, BIG_FRAMES = 16, 200
 BIG_COPY_UTTS = 4
+# the dense exact search (phase 15 (c)) on the big graph
+DENSE_PHASE_S = 30.0
+# mode B (phase 16): replicas of the Librispeech net in one process
+MODE_B_REPLICAS, MODE_B_STEPS = 4, 8
 # published H100 SXM peaks (NVIDIA data sheet, dense) for bound_ms
 HBM_BYTES_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
@@ -2740,7 +2767,7 @@ def lattice_phase(dev, tmp, test):
         raise AssertionError("a lattice verb's check failed")
 
     # ---- (b) the big graph on the card ------------------------------------
-    big_graph(dev, q)
+    big = big_graph(dev, q)
     launches = read_launches()
     phase_s = time.perf_counter() - t_phase
     log(f"lattice phase: {phase_s:.1f} s (limit {LATTICE_PHASE_S}); "
@@ -2750,6 +2777,125 @@ def lattice_phase(dev, tmp, test):
                              f"{launches}")
     if phase_s > LATTICE_PHASE_S:
         raise AssertionError(f"the lattice phase took {phase_s:.1f} s")
+    return launches, big
+
+
+def dense_phase(dev, big):
+    """Phase 15 (c): the dense exact search (``DenseViterbiDecoder``) on
+    phase 15 (b)'s big graph; returns the kernels' launches in the phase
+    (the search is plain PyTorch ops: none)."""
+    t_phase = time.perf_counter()
+    reset_launches()
+    g, ll, lls = big["graph"], big["ll"], big["lls"]
+    w_host, c_host = big["host"]
+    audio_s = BIG_UTTS * BIG_FRAMES / 100.0
+    dec = DenseViterbiDecoder(g, beam=1e9, max_active=0, acoustic_scale=1.0,
+                              device=dev)
+    ((tids, w, c),) = dec.decode_batch([ll])
+    exact20 = (list(w) == list(w_host) and len(tids) == len(ll)
+               and abs(c - c_host) <= max(BIG_COST_ABS,
+                                          BIG_COST_REL * abs(c_host)))
+    dec.release()               # the 20-frame histories
+    runs = {}
+    for name in ("captured", "warm", "eager"):
+        if name == "eager":
+            dec.release()       # the graphs' histories go first
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        caps = sum(dec.capture_seconds.values())
+        t = time.perf_counter()
+        paths = dec.decode_batch(lls, eager=name == "eager")
+        torch.cuda.synchronize()
+        runs[name] = dict(paths=paths, s=time.perf_counter() - t,
+                          caps=sum(dec.capture_seconds.values()) - caps,
+                          graphs=dict(dec.capture_seconds),
+                          peak=torch.cuda.max_memory_allocated())
+    cap_, eag = runs["captured"], runs["eager"]
+    bad_eager = differing(cap_["paths"], eag["paths"])
+    bad_warm = differing(cap_["paths"], runs["warm"]["paths"])
+    # where the top-K kept no final state, its path ends on its cheapest
+    # token, which the exact search's cheapest state bounds: the exact
+    # search on the graph with no final state (its fallback)
+    no_final = copy.copy(g)
+    no_final.final = np.full_like(g.final, np.inf)
+    nf = DenseViterbiDecoder(no_final, beam=1e9, max_active=0,
+                             acoustic_scale=1.0, device=dev)
+    any_paths = nf.decode_batch(lls)
+    del nf
+    exact = [d[2] if f else a[2] for d, f, a in zip(
+        cap_["paths"], big["topk_final"], any_paths)]
+    over = [b for b, (e, k) in enumerate(zip(exact, big["topk"]))
+            if e > k[2] + BIG_COST_ABS]
+    topk_err = [b for b, (d, k) in enumerate(zip(cap_["paths"], big["topk"]))
+                if list(d[1]) != list(k[1])]
+    hist = 2 * BIG_FRAMES * BIG_UTTS * g.num_states * 4
+    phase_s = time.perf_counter() - t_phase
+    launches = read_launches()
+    log(f"dense search (DenseViterbiDecoder, beam 1e9, max_active 0, eps "
+        f"depth {dec.eps_iters}; {gpu_line()}): 20 frames {len(w)} words, "
+        f"cost {c:.4f} against the host exact Viterbi's {len(w_host)} "
+        f"words, {c_host:.4f}: words equal and cost within rel "
+        f"{BIG_COST_REL} / abs {BIG_COST_ABS}: {exact20}; {BIG_UTTS} x "
+        f"{BIG_FRAMES} frames captured {cap_['s']:.3f} s with "
+        f"{cap_['caps']:.3f} s of captures (RTF {cap_['s'] / audio_s:.4f}, "
+        f"{(cap_['s'] - cap_['caps']) / audio_s:.4f} without; block graphs "
+        f"{ {k: round(v, 3) for k, v in cap_['graphs'].items()} }), "
+        f"replayed again {runs['warm']['s']:.3f} s (RTF "
+        f"{runs['warm']['s'] / audio_s:.4f}), eager {eag['s']:.3f} s (RTF "
+        f"{eag['s'] / audio_s:.4f}); histories {hist / 2**30:.2f} GiB; peak "
+        f"max_memory_allocated captured {cap_['peak'] / 2**30:.2f} GiB, "
+        f"eager {eag['peak'] / 2**30:.2f} GiB; rows whose (tids, words, "
+        f"cost bits) differ: eager {bad_eager}, the second replay "
+        f"{bad_warm}; rows whose top-K best path (beam 15, max_active 7000) "
+        f"ends in a final state: {sum(big['topk_final'])} of {BIG_UTTS} "
+        f"(not: {[b for b, f in enumerate(big['topk_final']) if not f]}); "
+        f"rows whose exact cost (where the top-K kept no final state: the "
+        f"exact search's cheapest state at the last frame) exceeds the "
+        f"top-K's + {BIG_COST_ABS}: {over}; top-K search "
+        f"errors (words differ from the exact search's): {len(topk_err)} "
+        f"of {BIG_UTTS} {topk_err}; phase {phase_s:.1f} s (limit "
+        f"{DENSE_PHASE_S})")
+    if not exact20 or bad_eager or bad_warm or over:
+        raise AssertionError("the dense search's checks failed")
+    if phase_s > DENSE_PHASE_S:
+        raise AssertionError(f"the dense search phase took {phase_s:.1f} s")
+    return launches
+
+
+def mode_b_phase(num_pdfs):
+    """Phase 16: mode B (``make_replica_step``) on the card, MODE_B_REPLICAS
+    replicas of the Librispeech net at DP_ROWS rows each, MODE_B_STEPS
+    steps in the NG warm-up (every step refreshes), graphed and eager
+    under deterministic cuDNN (``rank_check.replicas_graphs_vs_eager``):
+    objfs, parameters and NG states bit-equal, the replicas diverged and
+    one model after ``average_replicas``, the maxpool kernels launched;
+    returns the phase's launches."""
+    t = time.perf_counter()
+    reset_launches()
+    r = rank_check.replicas_graphs_vs_eager(
+        libri_cfg(num_pdfs), MODE_B_REPLICAS, MODE_B_STEPS, DP_ROWS, 0.08,
+        SEED)
+    launches = read_launches()
+    g, e = r["graphed"], r["eager"]
+    med = lambda v: float(np.median(v[2:]))
+    log(f"mode B (make_replica_step, {r['replicas']} replicas of the "
+        f"Librispeech net, {num_pdfs} pdfs, {r['steps']} steps of "
+        f"{r['rows']} rows each, every step an NG refresh; deterministic "
+        f"cuDNN; {gpu_line()}; {time.perf_counter() - t:.1f} s): bit-equal "
+        f"{r['same']}; replicas diverged {r['diverged']}, one model after "
+        f"average_replicas {r['averaged_equal']}; ms an R-step graphed "
+        f"{[round(x, 3) for x in g['ms']]} (median of steps 2-"
+        f"{r['steps'] - 1}: {med(g['ms']):.3f}), R single eager steps "
+        f"{[round(x, 3) for x in e['ms']]} (median {med(e['ms']):.3f}); "
+        f"{len(g['captures'])} graphs captured in "
+        f"{sum(g['captures'].values()):.3f} s; maxpool fwd/bwd graphed "
+        f"{g['maxpool']} (warm-ups {g['warmup']}), eager {e['maxpool']}; "
+        f"objf {r['objf'][0]:.4f} -> {r['objf'][1]:.4f}")
+    if (not all(r["same"].values()) or not r["diverged"]
+            or not r["averaged_equal"] or not g["captures"]
+            or min(e["maxpool"]) <= 0 or min(g["maxpool"]) <= 0):
+        raise AssertionError("mode B through the graphs failed its checks")
     return launches
 
 
@@ -2803,6 +2949,7 @@ def big_graph(dev, q):
             torch.cuda.synchronize()
             best_s = time.perf_counter() - t
             best_caps = dict(dec.capture_seconds)
+            final = dec.last_reached_final
             t = time.perf_counter()
             big_lats = dec.decode_batch_lattice(lls, determinize=False)
             torch.cuda.synchronize()
@@ -2811,7 +2958,7 @@ def big_graph(dev, q):
                           lat_s=lat_s, probe=pr, overflow=dec.last_overflow,
                           peak=torch.cuda.max_memory_allocated(),
                           caps=dict(dec.capture_seconds),
-                          best_caps=best_caps)
+                          best_caps=best_caps, final=final)
     cap_, eag = runs["captured"], runs["eager"]
     paths, big_lats, best_s, lat_s, peak = (
         cap_[k] for k in ("paths", "lats", "best_s", "lat_s", "peak"))
@@ -2879,6 +3026,8 @@ def big_graph(dev, q):
             or sorted(det) != sorted(big)
             or any(l.num_arcs == 0 for l in det.values())):
         raise AssertionError("the big-graph lattice checks failed")
+    return {"graph": g, "ll": ll, "host": (w_host, c_host), "lls": lls,
+            "topk": paths, "topk_final": cap_["final"].tolist()}
 
 
 def stream_rows(stream, rows):
@@ -3175,8 +3324,10 @@ def main() -> int:
                                  wsj.split_corpus(recipe_corpus)[2])
 
         # ---- 15. the lattice layer, on phase 14's files, and the big graph
-        lattice_launches = lattice_phase(dev, tmp,
-                                         wsj.split_corpus(recipe_corpus)[2])
+        lattice_launches, big = lattice_phase(
+            dev, tmp, wsj.split_corpus(recipe_corpus)[2])
+        dense_launches = dense_phase(dev, big)
+        del big
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -3197,6 +3348,7 @@ def main() -> int:
         libri_launches, libri = librispeech_phase(dev, tmp)
         nccl_graph_phase(libri["tree_leaves"])
         two_rank_phase(libri["tree_leaves"])
+        mode_b_launches = mode_b_phase(libri["tree_leaves"])
         log(f"librispeech phase: {time.perf_counter() - t:.1f} s")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
@@ -3207,7 +3359,8 @@ def main() -> int:
         "recipe": recipe_launches, "recipe_mfcc_stage": {"fbank_fft": mfcc_n},
         **stream_launches, "swbd": swbd_launches, "rm": rm_launches,
         "librispeech": libri_launches, "mmi": mmi_launches,
-        "cli": cli_launches, "lattice": lattice_launches}
+        "cli": cli_launches, "lattice": lattice_launches,
+        "dense": dense_launches, "mode_b": mode_b_launches}
 
     def entry(name, source, replaces, n, r, pre=""):
         return {"name": name, "route": "cuda",

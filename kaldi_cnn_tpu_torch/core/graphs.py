@@ -105,7 +105,9 @@ def capture(body: Callable[[], None], warm: Callable[[], None], device,
     operations (one frame, one step), goes first on a side stream, so
     that every lazy initialisation happens outside the capture; the
     ``carry`` tensors (which both update in place) are put back, and
-    ``body`` is captured into ``pool``.  Returns (graph, seconds)."""
+    ``body`` is captured into ``pool``.  Returns (graph, seconds); the
+    seconds start after the work queued before the call has ended."""
+    torch.cuda.synchronize(device)
     t = time.perf_counter()
     warm_up(warm, device, carry)
     graph = capture_only(body, device, pool)

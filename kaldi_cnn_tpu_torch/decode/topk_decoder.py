@@ -350,6 +350,10 @@ class TopKDecoder:
                       else int(lattice_arcs_per_frame))
         # (arcs dropped, frames affected) of the last lattice decode
         self.last_overflow: Optional[Tuple[int, int]] = None
+        # per row of the last decode_batch: whether its best path ends in
+        # a final state (ref: ReachedFinal()); else it ended on the
+        # row's cheapest token, its cost without a final cost
+        self.last_reached_final: Optional[np.ndarray] = None
         self.De = max(g.max_emit_deg, 1)
         self.Dn = max(g.max_eps_deg, 1)
         self.He = len(g.e_hub_arcs)
@@ -832,8 +836,8 @@ class TopKDecoder:
         repaired on the host (``_best_path``)."""
         am, lengths = self._pad(loglikes)
         lv = self._decode(torch.as_tensor(am, device=self.device))["lv"]
-        arcs, ns, costs, fails, empties = self._backtrace(
-            lv, torch.as_tensor(lengths, device=self.device))
+        arcs, ns, costs, fails, empties, self.last_reached_final = (
+            self._backtrace(lv, torch.as_tensor(lengths, device=self.device)))
         out = []
         for b in range(len(loglikes)):
             if empties[b]:
@@ -864,17 +868,23 @@ class TopKDecoder:
         """Steps (and arc slots) of a backtrace over ``levels`` levels."""
         return levels * (self.eps_iters + 1) + 4
 
+    def _last_tokens(self, fs, fc, lengths):
+        """Each row's tokens at its true length: valid [B, K], their
+        costs, and their costs with the final cost added (BIG where no
+        token or no final state)."""
+        b = torch.arange(fs.shape[0], device=fs.device)
+        fsT, fcT = fs[b, lengths], fc[b, lengths]
+        valid = fsT != _INVALID
+        return valid, fcT, torch.where(valid, fcT + self.d["final"][
+            torch.where(valid, fsT, 0).long()], _BIG)
+
     def _bt_start(self, fs, fc, lengths, L: int) -> Dict[str, torch.Tensor]:
         """The walk's start state (``_backtrace_impl``'s per-row set-up):
         each row's cheapest token at its true length with the final cost
         added, or, when no final state was reached, its cheapest token;
         the cost, the empty flag and an arc buffer of L slots."""
         B = fs.shape[0]
-        b = torch.arange(B, device=fs.device)
-        fsT, fcT = fs[b, lengths], fc[b, lengths]
-        valid = fsT != _INVALID
-        total_f = torch.where(valid, fcT + self.d["final"][
-            torch.where(valid, fsT, 0).long()], _BIG)
+        valid, fcT, total_f = self._last_tokens(fs, fc, lengths)
         slot_f = total_f.argmin(-1)
         cost_f = total_f.gather(1, slot_f[:, None])[:, 0]
         total_a = torch.where(valid, fcT, _BIG)
@@ -934,18 +944,22 @@ class TopKDecoder:
     def _backtrace(self, lv, lengths):
         """The backtrace of a best-path history lv [T + 1, 4, B, K] (the
         view ``_decode`` returned) on its device, fetched to the host in
-        one transfer: (arcs [B, L], n, cost, fail, empty) as numpy.  On
-        the card its steps run as captured chunks (``_Backtrace``)."""
+        one transfer: (arcs [B, L], n, cost, fail, empty, whether the
+        path ends in a final state) as numpy.  On the card its steps run
+        as captured chunks (``_Backtrace``)."""
         L = self._bt_len(lv.shape[0])
         arcs, n, cost, fail, empty = self._bt_walk(lv, lengths)
+        fs, fc, _, _ = self._split(lv)
+        final = self._last_tokens(fs, fc, lengths)[2].amin(-1) < _BIG
         B = arcs.shape[0]
         flat = torch.cat([arcs[:, :L].reshape(-1), n.to(torch.int32),
                           cost.view(torch.int32), fail.to(torch.int32),
-                          empty.to(torch.int32)]).cpu().numpy()
-        arcs, n, cost, fail, empty = np.split(
-            flat, np.cumsum([B * L, B, B, B]))
+                          empty.to(torch.int32),
+                          final.to(torch.int32)]).cpu().numpy()
+        arcs, n, cost, fail, empty, final = np.split(
+            flat, np.cumsum([B * L, B, B, B, B]))
         return (arcs.reshape(B, L), n, cost.view(np.float32),
-                fail.astype(bool), empty.astype(bool))
+                fail.astype(bool), empty.astype(bool), final.astype(bool))
 
     def _bt_walk(self, lv, lengths):
         """The walk on the card as replays of the captured step chunks,

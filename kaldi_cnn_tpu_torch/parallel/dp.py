@@ -35,10 +35,14 @@ columns) and updates that rank's rows.  The NG states stay whole on
 every rank, as the JAX step keeps them replicated.  ``gather_params``
 gives the whole parameters back in the JAX pytree layout.
 
+Mode B in one process (``make_replica_step``): R independent NG-SGD
+streams on one device, synchronized only by ``average_replicas``, where
+the JAX package vmaps the step over a leading replica axis sharded over
+its mesh's data slots.  Replica mode over ranks is
+``parallel/multihost.py``.
+
 ``initialize_distributed`` joins a multi-process group
-(``multihost.initialize`` calls it).  Not ported: ``make_replica_step``
-(independent streams vmapped on one host; replica mode over ranks is
-``parallel/multihost.py``).
+(``multihost.initialize`` calls it).
 """
 
 from __future__ import annotations
@@ -56,8 +60,10 @@ from torch import nn
 from kaldi_cnn_tpu_torch.convert import params_to_numpy
 from kaldi_cnn_tpu_torch.core.mesh import (Mesh, all_gather_cols,
                                            all_reduce, local_slice)
+from kaldi_cnn_tpu_torch.core.rng import torch_generator
 from kaldi_cnn_tpu_torch.models.components import (AffineComponent,
-                                                   Component)
+                                                   Component, map_tree,
+                                                   param_tree)
 from kaldi_cnn_tpu_torch.models.ng_sgd import ng_affine_apply
 from kaldi_cnn_tpu_torch.models.nnet import Nnet
 from kaldi_cnn_tpu_torch.models.step_graphs import replays_collectives
@@ -97,6 +103,71 @@ def make_dp_step(net: Nnet, mesh: Mesh, eager: bool = False) -> Callable:
             group=group, generator=generator)
 
     return step
+
+
+def make_replica_step(net: Nnet, mesh: Optional[Mesh], num_replicas: int,
+                      eager: bool = False) -> Callable:
+    """Mode B, the reference's exact semantics: ``num_replicas``
+    independent SGD streams, synchronized only by explicit
+    ``average_replicas`` calls (ref: steps/nnet2/train_*.sh N parallel
+    jobs + nnet-am-average; Povey et al. ICLR WS 2015: NG-SGD makes the
+    averaging work).  The counterpart of the JAX package's
+    ``make_replica_step``, in one process on ``net``'s device (the
+    ``mesh``'s, where one is given).
+
+    Returns step(params_r, opt_r, x_r, labels_r, lr, indices_r=None,
+    weights_r=None) -> (params_r', opt_r', objf_r): ``params_r`` and
+    ``opt_r`` are R parameter sets (the JAX pytree layout) and NG states,
+    as ``stack_replicas`` gives them; x_r [R, B, D], labels_r [R, B] and
+    weights_r [R, B] (None: ones) each replica's rows; ``indices_r`` one
+    generator index a replica in place of the JAX step's ``keys_r``
+    (ROADMAP 3.20): replica r's Dropout draws from the generator of
+    (0, "mh_step", indices_r[r]), and None draws nothing.  objf_r
+    [R] is each replica's objective, a device tensor.
+
+    The R steps take turns on ``net``: a replica's parameters are copied
+    into it, it steps, and its new parameters are copied out (the
+    parameters' addresses never change).  On a CUDA net each step
+    replays ``net.train_steps``' CUDA graph at K = 1, whose NG states
+    are copied into fixed storage and out again, so one set of graphs
+    (a graph a gate pattern; a refreshing step cut around its eighs,
+    ``models/step_graphs.py``) serves every replica.  On the CPU, and
+    with ``eager``, it is ``net.train_step`` R times."""
+    if mesh is not None and mesh.device != net.device:
+        raise ValueError(f"mesh on {mesh.device}, net on {net.device}")
+    dev = net.device
+
+    def step(params_r, opt_r, x_r, labels_r, lr: float, indices_r=None,
+             weights_r=None):
+        if not (len(params_r) == len(opt_r) == len(x_r) == num_replicas):
+            raise ValueError(f"{num_replicas} replicas: got "
+                             f"{len(params_r)} / {len(opt_r)} / {len(x_r)}")
+        steps = net._train_steps_eager if eager else net.train_steps
+        new_p, new_o, objfs = [], [], []
+        for r in range(num_replicas):
+            set_params(net, params_r[r])
+            gen = (None if indices_r is None else
+                   torch_generator(0, "mh_step", int(indices_r[r]), dev))
+            w = None if weights_r is None else weights_r[r]
+            opt, objf = steps(opt_r[r], [x_r[r]], [labels_r[r]], [lr],
+                              weights=None if w is None else [w],
+                              generators=None if gen is None else [gen])
+            new_p.append(tuple(param_tree(c, lambda _, t: t.detach().clone())
+                               for c in net.components))
+            new_o.append(opt)
+            objfs.append(objf[0])
+        return new_p, new_o, torch.stack(objfs)
+
+    return step
+
+
+@torch.no_grad()
+def set_params(net: Nnet, params) -> None:
+    """Copies a parameter set in the JAX pytree layout (tensors or
+    arrays) into ``net``'s parameters, in place."""
+    for c, p in zip(net.components, params, strict=True):
+        own = dict(c.named_parameters())
+        map_tree(p, lambda k, v: own[k].copy_(torch.as_tensor(v)))
 
 
 class ShardedAffineComponent(Component):
@@ -234,7 +305,8 @@ def _tree_map(fn, *trees):
     if isinstance(t, dict):
         return {k: _tree_map(fn, *(x[k] for x in trees)) for k in t}
     if isinstance(t, (tuple, list)):
-        return type(t)(_tree_map(fn, *xs) for xs in zip(*trees))
+        kids = [_tree_map(fn, *xs) for xs in zip(*trees)]
+        return type(t)(*kids) if hasattr(t, "_fields") else type(t)(kids)
     return fn(*trees)
 
 
@@ -249,7 +321,14 @@ def average_params(param_list: List):
     (ref: src/nnet2bin/nnet-am-average.cc), leaf by leaf as the JAX
     package sums them."""
     n = len(param_list)
-    return _tree_map(lambda *leaves: sum(leaves) / n, *param_list)
+
+    def mean(*leaves):
+        if all(isinstance(v, int) for v in leaves):
+            # an NG state's step count, a host integer: the same in
+            # replicas that took the same steps
+            return round(sum(leaves) / n)
+        return sum(leaves) / n
+    return _tree_map(mean, *param_list)
 
 
 # the once-per-outer-iteration sync of the reference, over a list of

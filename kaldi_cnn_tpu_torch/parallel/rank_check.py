@@ -2,7 +2,9 @@
 (``tests/test_torch_cuda.py``) and ``chip_smoke.py`` share: two ranks
 against world size 1, and ``train_multihost`` over an NCCL group of one
 through the step's CUDA graphs against the same training run eagerly
-(``nccl_graphs_vs_eager``).
+(``nccl_graphs_vs_eager``), and mode B's R replicas in one process
+through the graphs against the same steps run eagerly
+(``replicas_graphs_vs_eager``).
 
 Two ranks join a gloo group (on the card: NCCL refuses two ranks on one
 GPU, so gloo carries the CUDA tensors) and take ``steps`` steps of the
@@ -33,8 +35,11 @@ from kaldi_cnn_tpu_torch.models.nnet import Nnet
 from kaldi_cnn_tpu_torch.models.step_graphs import ng_states
 from kaldi_cnn_tpu_torch.ops import maxpool as mp
 from kaldi_cnn_tpu_torch.parallel.dp import (ShardedAffineComponent,
-                                             average_params, gather_params,
-                                             make_dp_step, make_dp_tp_step)
+                                             average_params,
+                                             average_replicas, gather_params,
+                                             make_dp_step, make_dp_tp_step,
+                                             make_replica_step,
+                                             stack_replicas)
 from kaldi_cnn_tpu_torch.parallel.multihost import (MultihostConfig,
                                                     initialize,
                                                     make_replica_average,
@@ -356,3 +361,84 @@ def nccl_graphs_vs_eager(cfg: ConvnetConfig, steps: int = 112,
                                    "captures")},
             "objf": (float(g["objfs"][0]), float(g["objfs"][-1]))}
 
+
+def replicas_graphs_vs_eager(cfg: ConvnetConfig, replicas: int = 4,
+                             steps: int = 8, rows: int = 256,
+                             lr: float = 0.08, seed: int = 5,
+                             device="cuda") -> Dict:
+    """Mode B in one process (``make_replica_step``): ``replicas``
+    streams of the net from ``seeded_case``'s parameters, each on rows
+    of its own, ``steps`` steps of ``rows`` rows, twice under
+    deterministic cuDNN: through the step's CUDA graphs and eagerly
+    (``train_step`` a replica).  The first steps are in the NG warm-up,
+    so every step refreshes the NG states (cut around its eighs in the
+    graphs).  Then the replicas are averaged (``average_replicas``).
+
+    Returns ``same`` ({what: bit-equal?} for the objfs, parameters and
+    NG states of every replica), ``diverged`` (every replica's
+    parameters differ from replica 0's), ``averaged_equal`` (the
+    averaged replicas are one model), per run the ms of each R-step
+    (host clock, the card synchronized; the graphed run's first
+    includes its captures), ``maxpool`` ((forward, backward) launches
+    in the run, warm-ups included) and ``warmup`` (the warm-ups'), and
+    the graphed net's ``captures`` ({key: seconds})."""
+    params, _, _, _ = seeded_case(cfg, seed, rows)
+    r = np_rng(seed, "replica batches")
+    d = make_convnet(cfg, device="cpu").input_dim
+    x = r.normal(size=(steps, replicas, rows, d)).astype(np.float32)
+    y = r.integers(0, cfg.num_pdfs, (steps, replicas, rows)).astype(np.int32)
+    runs = {}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        for mode in ("graphed", "eager"):
+            net = _net(cfg, params, device)
+            step = make_replica_step(net, None, replicas,
+                                     eager=mode == "eager")
+            p_r = stack_replicas(params, replicas)
+            o_r = stack_replicas(net.init_opt(), replicas)
+            before = _counts()
+            ms, objfs = [], []
+            for k in range(steps):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                p_r, o_r, objf = step(p_r, o_r, x[k], y[k], lr)
+                torch.cuda.synchronize()
+                ms.append(1e3 * (time.perf_counter() - t))
+                objfs.append(objf.cpu())
+            c = _counts() - before
+            avg = stack_replicas(average_replicas(p_r), replicas)
+            runs[mode] = {
+                "ms": ms, "maxpool": (int(c[2]), int(c[4])),
+                "warmup": (int(c[3]), int(c[5])),
+                "objfs": torch.stack(objfs),
+                "params": [[t.cpu() for d_ in p for t in d_.values()]
+                           for p in p_r],
+                "states": [[(s.t, s.u.cpu(), s.d.cpu(), s.rho.cpu())
+                            for _, s in ng_states(o)] for o in o_r],
+                "avg": [[t.cpu() for d_ in p for t in d_.values()]
+                        for p in avg],
+                "captures": net.capture_seconds}
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    g, e = runs["graphed"], runs["eager"]
+    eq = lambda a, b: all(torch.equal(u, v) for u, v in zip(a, b,
+                                                             strict=True))
+    same = {
+        "objfs": torch.equal(g["objfs"], e["objfs"]),
+        "parameters": all(eq(a, b) for a, b in zip(g["params"],
+                                                   e["params"])),
+        "NG states": all(sa[0] == sb[0] and eq(sa[1:], sb[1:])
+                         for a, b in zip(g["states"], e["states"])
+                         for sa, sb in zip(a, b, strict=True))}
+    p = g["params"]
+    return {"same": same, "replicas": replicas, "steps": steps,
+            "rows": rows,
+            "diverged": all(not eq(p[0], p[i]) for i in range(1, replicas)),
+            "averaged_equal": all(eq(g["avg"][0], g["avg"][i])
+                                  for i in range(1, replicas)),
+            "graphed": {k: g[k] for k in ("ms", "maxpool", "warmup",
+                                          "captures")},
+            "eager": {k: e[k] for k in ("ms", "maxpool", "warmup")},
+            "objf": (float(g["objfs"][0].mean()),
+                     float(g["objfs"][-1].mean()))}

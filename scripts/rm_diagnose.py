@@ -107,6 +107,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dump", default="")
     ap.add_argument("--dump-deleted", action="store_true",
                     help="--dump only the test utterances that lose words")
+    ap.add_argument("--note", default="",
+                    help="kept as each line's 'note' (e.g. where the "
+                         "--exp-dir artifacts came from)")
     a = ap.parse_args(argv)
     port = a.package == "kaldi_cnn_tpu_torch"
     if (a.wide_grid or a.classify or a.dump) and not port:
@@ -138,12 +141,13 @@ def main(argv=None) -> int:
                 rm.gmm_decode = saved
         wall_s = time.perf_counter() - t
         line = {**({"gpu": gpu} if gpu else {}), "package": a.package,
-                "device": a.device if port else "jax-default",
+                "device": (a.device if port else
+                           os.environ.get("JAX_PLATFORMS") or "jax-default"),
                 "seed": seed, "num_utts": a.num_utts,
                 "eval_utts": a.eval_utts, "epochs": a.epochs,
                 "stage": a.stage,
                 **{k: res[k] for k in KEYS if k in res},
-                "wall_s": wall_s}
+                "wall_s": wall_s, **({"note": a.note} if a.note else {})}
         if record:
             train, dev, test = rm.make_corpus(a.num_utts, seed,
                                               a.eval_utts)

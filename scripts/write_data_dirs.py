@@ -31,6 +31,16 @@ lose words (``test_deleted``), for ``libri_diagnose.py
 
     python3 scripts/write_data_dirs.py OUT --run-wsj --wide-search \\
         --host-subset 16
+
+``--seed N`` writes ``wsj.make_corpus(160, N)`` and runs the recipe at
+seed N (the default 37 is the recipe's own).  ``--probs estimated``
+runs only the first of the two variants, ``--no-classify`` leaves the
+classification out.  ``--package kaldi_cnn_tpu``
+runs the JAX package's ``wsj.run`` on the data dir instead (wherever
+JAX is set to run; it prints the WER and errors, no classification):
+
+    JAX_PLATFORMS=cpu python3 scripts/write_data_dirs.py OUT --run-wsj \\
+        --seed 38 --probs estimated --package kaldi_cnn_tpu
 """
 
 import argparse
@@ -53,14 +63,14 @@ ERROR_KEYS = ("dev_wer", "wer", "errors", "words", "sub", "ins", "del",
               "point")
 
 
-def write(out: str):
+def write(out: str, seed: int = 37):
     """The two data dirs; returns the WSJ corpus written."""
     lex = synthetic.yesno_lexicon()
     c = synthetic.make_corpus(lex, {"yes": 0.5, "no": 0.5}, 100, 1, 3, 17)
     write_data_dir(os.path.join(out, "yesno"), c.waves, c.transcripts,
                    None, c.sample_rate)
     write_lexicon_file(os.path.join(out, "yesno", "lexicon.txt"), lex)
-    c = wsj.make_corpus(160, 37)
+    c = wsj.make_corpus(160, seed)
     write_data_dir(os.path.join(out, "wsj"), c.waves, c.transcripts, None,
                    c.sample_rate)
     write_lexicon_file(os.path.join(out, "wsj_lexicon.txt"), c.lexicon)
@@ -68,16 +78,37 @@ def write(out: str):
     return c
 
 
+def run_jax_wsj(out: str, synthetic_corpus, seed: int, probs_list) -> None:
+    """The JAX package's recipe from ``out/wsj`` (module doc)."""
+    from kaldi_cnn_tpu.recipes import wsj as jwsj
+    from kaldi_cnn_tpu.recipes.datadir import corpus_from_data_dir
+    for probs in probs_list:
+        corpus = corpus_from_data_dir(os.path.join(out, "wsj"),
+                                      os.path.join(out, "wsj_lexicon.txt"))
+        if probs == "synthetic":
+            corpus.word_probs = dict(synthetic_corpus.word_probs)
+        t = time.perf_counter()
+        res = jwsj.run(seed=seed, corpus=corpus)
+        print(json.dumps({
+            "package": "kaldi_cnn_tpu", "corpus": "data dir", "seed": seed,
+            "word_probs": probs,
+            "device": os.environ.get("JAX_PLATFORMS") or "jax-default",
+            **{k: res[k] for k in ERROR_KEYS if k in res},
+            "seconds": time.perf_counter() - t}), flush=True)
+
+
 def run_wsj(out: str, synthetic_corpus, wide: bool, host_subset: int,
             device: str = "cuda", dump: str = "",
-            dump_deleted: bool = False) -> None:
+            dump_deleted: bool = False, seed: int = 37,
+            probs_list=("estimated", "synthetic"),
+            classes: bool = True) -> None:
     """The WSJ recipe from ``out/wsj`` as read, then with the synthetic
     word probabilities (module doc)."""
     from kaldi_cnn_tpu_torch.lang.hclg import Lang
     gpu = gpu_name() if device.startswith("cuda") else None
     if gpu:
         print("gpu:", gpu, flush=True)
-    for probs in ("estimated", "synthetic"):
+    for probs in probs_list:
         corpus = wsj.corpus_from_data_dir(os.path.join(out, "wsj"),
                                           os.path.join(out,
                                                        "wsj_lexicon.txt"))
@@ -85,9 +116,9 @@ def run_wsj(out: str, synthetic_corpus, wide: bool, host_subset: int,
             corpus.word_probs = dict(synthetic_corpus.word_probs)
         t = time.perf_counter()
         with Recorder(wsj, "kaldi_cnn_tpu_torch") as rec:
-            res = wsj.run(device=device, corpus=corpus)
+            res = wsj.run(device=device, corpus=corpus, seed=seed)
         line = {**({"gpu": gpu} if gpu else {}), "corpus": "data dir",
-                "word_probs": probs, "device": device,
+                "seed": seed, "word_probs": probs, "device": device,
                 **{k: res[k] for k in ERROR_KEYS},
                 "seconds": time.perf_counter() - t}
         dev_call, test_call = rec.calls[0], rec.calls[1]
@@ -103,8 +134,9 @@ def run_wsj(out: str, synthetic_corpus, wide: bool, host_subset: int,
             save_inputs(os.path.join(dump, f"wsj_datadir_{probs}.npz"),
                         test_call, test_refs, words, point,
                         line["test_deleted"] if dump_deleted else None)
-        line["classes"] = classify(test_call, test_refs, words, point,
-                                   train, device, wide, host_subset)
+        if classes:
+            line["classes"] = classify(test_call, test_refs, words, point,
+                                       train, device, wide, host_subset)
         print(json.dumps(line), flush=True)
 
 
@@ -118,11 +150,21 @@ def main(argv=None) -> int:
     ap.add_argument("--dump", default="")
     ap.add_argument("--dump-deleted", action="store_true",
                     help="--dump only the test utterances that lose words")
+    ap.add_argument("--seed", type=int, default=37)
+    ap.add_argument("--no-classify", action="store_true")
+    ap.add_argument("--probs", choices=["both", "estimated"],
+                    default="both")
+    ap.add_argument("--package", default="kaldi_cnn_tpu_torch",
+                    choices=["kaldi_cnn_tpu_torch", "kaldi_cnn_tpu"])
     a = ap.parse_args(argv)
-    c = write(a.out)
-    if a.run_wsj:
+    c = write(a.out, a.seed)
+    probs = (("estimated",) if a.probs == "estimated"
+             else ("estimated", "synthetic"))
+    if a.run_wsj and a.package == "kaldi_cnn_tpu":
+        run_jax_wsj(a.out, c, a.seed, probs)
+    elif a.run_wsj:
         run_wsj(a.out, c, a.wide_search, a.host_subset, a.device, a.dump,
-                a.dump_deleted)
+                a.dump_deleted, a.seed, probs, not a.no_classify)
     return 0
 
 

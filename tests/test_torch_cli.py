@@ -81,8 +81,28 @@ def _verb(main, p, mdl, tag, extra):
         return f.read()
 
 
+@pytest.fixture(scope="module")
+def streamed(workdir):
+    """The port's verb on the streaming path at the verb's 0.2 s chunks
+    on the CPU, run once for the two tests that read it: its hypotheses
+    (lattices in ``lats_port_streaming.npz``) and each utterance's
+    advance sizes, keyed by its recorder."""
+    p, _ = workdir
+    sizes = {}
+    advance = cli_train.AdvanceRecorder.advance
+
+    def counted(self, ll):      # keyed by the recorder: one an utterance
+        sizes.setdefault(self, []).append(len(ll))
+        advance(self, ll)
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(cli_train.AdvanceRecorder, "advance", counted)
+        hyps = _verb(cli.main, p, "mono.mdl", "port_streaming",
+                     ["--device=cpu"])
+    return hyps, sizes
+
+
 @pytest.mark.parametrize("path", ["host", "streaming"])
-def test_online2_wav_latgen_matches_jax(workdir, path):
+def test_online2_wav_latgen_matches_jax(workdir, request, path):
     """The streaming path at the verb's 0.2 s chunks; the host path at
     1 s chunks, since the JAX package's eager MFCC costs ~0.1 s a chunk
     on the CPU."""
@@ -90,8 +110,9 @@ def test_online2_wav_latgen_matches_jax(workdir, path):
     extra = (["--host-decode", "--chunk-seconds=1.0"] if path == "host"
              else [])
     want = _verb(jcli.main, p, "mono.mdl", f"jax_{path}", extra)
-    got = _verb(cli.main, p, "mono.mdl", f"port_{path}",
-                extra + ["--device=cpu"])
+    got = (request.getfixturevalue("streamed")[0] if path == "streaming"
+           else _verb(cli.main, p, "mono.mdl", f"port_{path}",
+                      extra + ["--device=cpu"]))
     assert got == want
     hyps = dict((ln.split(None, 1) + [""])[:2] for ln in got.splitlines())
     assert sorted(hyps) == sorted(test.waves)
@@ -106,22 +127,26 @@ def test_online2_wav_latgen_matches_jax(workdir, path):
 
 @pytest.mark.parametrize("path,seconds", [("host", 0.2), ("streaming", 0.2),
                                           ("streaming", 0.5)])
-def test_verb_advances_the_decoder_once_a_chunk(workdir, monkeypatch, path,
-                                                 seconds):
+def test_verb_advances_the_decoder_once_a_chunk(workdir, monkeypatch,
+                                                 request, path, seconds):
     """The recognizer's pieces are the chunk's frame count: every chunk
     reaches the decoder as one advance of its 20 (50) frames, and the
-    last advance an utterance takes what is left."""
+    last advance an utterance takes what is left.  The streaming path
+    at 0.2 s (the verb's default) is the run ``streamed`` keeps."""
     p, test = workdir
-    sizes = {}
-    advance = cli_train.AdvanceRecorder.advance
+    if (path, seconds) == ("streaming", 0.2):
+        sizes = request.getfixturevalue("streamed")[1]
+    else:
+        sizes = {}
+        advance = cli_train.AdvanceRecorder.advance
 
-    def counted(self, ll):      # keyed by the recorder: one an utterance
-        sizes.setdefault(self, []).append(len(ll))
-        advance(self, ll)
-    monkeypatch.setattr(cli_train.AdvanceRecorder, "advance", counted)
-    extra = [f"--chunk-seconds={seconds}", "--device=cpu"]
-    _verb(cli.main, p, "mono.mdl", f"pieces_{path}_{seconds}",
-          extra + (["--host-decode"] if path == "host" else []))
+        def counted(self, ll):  # keyed by the recorder: one an utterance
+            sizes.setdefault(self, []).append(len(ll))
+            advance(self, ll)
+        monkeypatch.setattr(cli_train.AdvanceRecorder, "advance", counted)
+        extra = [f"--chunk-seconds={seconds}", "--device=cpu"]
+        _verb(cli.main, p, "mono.mdl", f"pieces_{path}_{seconds}",
+              extra + (["--host-decode"] if path == "host" else []))
     step = int(seconds * 100)
     assert len(sizes) == len(test.waves)
     fo = F.FrameExtractionOptions(samp_freq=float(test.sample_rate))

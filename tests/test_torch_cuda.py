@@ -1539,8 +1539,8 @@ def test_chip_smoke_cli_phase(cuda, tmp_path):
                                smoke.wsj.split_corpus(corpus)[2])
     assert min(launches["fbank_fft"], launches["conv_maxpool"]) > 0
     # and phase 15 on its files (the lattice verbs, the big graph)
-    launches = smoke.lattice_phase(cuda, str(tmp_path),
-                                   smoke.wsj.split_corpus(corpus)[2])
+    launches, _ = smoke.lattice_phase(cuda, str(tmp_path),
+                                      smoke.wsj.split_corpus(corpus)[2])
     assert min(launches["fbank_fft"], launches["conv_maxpool"]) > 0
 
 
@@ -1564,6 +1564,63 @@ def test_big_graph_topk_on_card_matches_host_viterbi(cuda):
     assert len(tids) == ll.shape[0]
     assert cost == pytest.approx(cost_h, rel=1e-4, abs=0.1)
     assert list(words) == list(words_h)
+
+
+@pytest.mark.parametrize("beam,max_active", [(1e9, 0), (12.0, 40)])
+def test_dense_search_graphs_match_eager_and_cpu(cuda, beam, max_active):
+    """``DenseViterbiDecoder`` on the digits HCLG: the captured frame
+    blocks against the eager frames on the card (tids, words, cost bits)
+    and against the CPU (tids, words; cost rel 1e-5 / abs 1e-2); a second
+    batch of the same shape replays the graphs without a capture, and a
+    longer one captures its histories anew."""
+    from kaldi_cnn_tpu_torch.decode.biggraph import sample_loglikes
+    from kaldi_cnn_tpu_torch.decode.tpu_decoder import DenseViterbiDecoder
+    lex = synthetic.digits_lexicon()
+    wp = {w: 1.0 / len(lex.entries) for w in lex.entries}
+    lang = Lang.create(lex)
+    g = CompiledGraph(make_hclg_from_arpa(lang, make_unigram_arpa(wp)),
+                      lang.trans_model.trans_id_to_pdf_array())
+    P = lang.trans_model.num_pdfs
+    lls = [sample_loglikes(g, P, T=t, seed=s)
+           for s, t in enumerate((70, 45, 90, 17))]
+    kw = dict(beam=beam, max_active=max_active, acoustic_scale=0.5)
+    dec = DenseViterbiDecoder(g, device=cuda, **kw)
+    cap = dec.decode_batch(lls)
+    caps = dict(dec.capture_seconds)
+    again = dec.decode_batch(lls)
+    assert dec.capture_seconds == caps and set(caps) == {64, 16, 4, 1}
+    eager = dec.decode_batch(lls, eager=True)
+    cpu = DenseViterbiDecoder(g, device="cpu", **kw).decode_batch(lls)
+    bits = lambda c: np.float32(c).view(np.int32)
+    for c, a, e, h in zip(cap, again, eager, cpu, strict=True):
+        for o in (a, e):
+            np.testing.assert_array_equal(c[0], o[0])
+            assert list(c[1]) == list(o[1]) and bits(c[2]) == bits(o[2])
+        np.testing.assert_array_equal(c[0], h[0])
+        assert list(c[1]) == list(h[1])
+        assert c[2] == pytest.approx(h[2], rel=1e-5, abs=1e-2)
+    longer = dec.decode_batch(lls[:3] + [sample_loglikes(g, P, T=130)])
+    assert len(longer[3][0]) == 130 and dec._runner.T == 130
+
+
+def test_mode_b_graphs_match_eager_bit_for_bit(cuda):
+    """``make_replica_step``: 4 replicas of the Librispeech net, 8 steps
+    of 256 rows each in the NG warm-up, through the step graphs and
+    eagerly under deterministic cuDNN: objfs, parameters and NG states
+    bit for bit, the replicas diverged, one model after
+    ``average_replicas``, maxpool launches equal (less the graphs'
+    warm-ups) and one forward and one backward a replica step."""
+    from kaldi_cnn_tpu_torch.models.factory import ConvnetConfig
+    from kaldi_cnn_tpu_torch.parallel import rank_check
+    r = rank_check.replicas_graphs_vs_eager(ConvnetConfig(**LIBRI_CFG), 4, 8,
+                                            256, LIBRI_LR, 5)
+    g, e = r["graphed"], r["eager"]
+    assert all(r["same"].values()), r["same"]
+    assert r["diverged"] and r["averaged_equal"]
+    assert e["maxpool"] == (32, 32) and e["warmup"] == (0, 0)
+    assert (g["maxpool"][0] - g["warmup"][0],
+            g["maxpool"][1] - g["warmup"][1]) == (32, 32)
+    assert g["captures"]
 
 
 @pytest.mark.parametrize("dither", [0.0, 1.0])

@@ -3,6 +3,7 @@ TpuTopKDecoder and the host Viterbi decoder, on numpy-made loglikes
 (no GMM training), plus the graph and WER twins and the recombination
 primitive."""
 
+import copy
 import math
 
 import numpy as np
@@ -83,6 +84,26 @@ def test_padding_and_degree_caps_do_not_change_result(digits):
     for (ta, wa, ca), (tb, wb, cb) in zip(a, b):
         assert list(ta) == list(tb) and list(wa) == list(wb)
         assert ca == pytest.approx(cb, rel=1e-5, abs=1e-2)
+
+
+def test_last_reached_final_reports_the_end_state(digits):
+    """``last_reached_final`` (ref: ReachedFinal()): every row's best
+    path ends in a final state on the digits graph, and none with every
+    final weight infinite, where each row ends on its cheapest token."""
+    g, _, lls = digits
+    kw = dict(beam=1e8, max_active=g.num_states + 32, acoustic_scale=SCALE,
+              device="cpu")
+    dec = T.TopKDecoder(g, **kw)
+    assert dec.last_reached_final is None
+    dec.decode_batch(lls[:2])
+    assert dec.last_reached_final.tolist() == [True, True]
+    g2 = copy.copy(g)
+    g2.final = np.full_like(g.final, np.inf)
+    dec = T.TopKDecoder(g2, **kw)
+    got = dec.decode_batch(lls[:2])
+    assert dec.last_reached_final.tolist() == [False, False]
+    assert all(np.isfinite(c) and len(t) == len(ll)
+               for (t, _, c), ll in zip(got, lls))
 
 
 def _eps_exit_graph(num_words=12, num_pdfs=16, seed=0):

@@ -209,7 +209,7 @@ def _tiny_graph():
     "OnlineBaseFeature", "OnlineRecognizer", "StreamingDecoder",
     "swbd.run", "make_convnet_ivector", "librispeech.run",
     "compute-fbank-feats verb", "add-deltas verb", "nnet-train verb",
-    "latgen-faster verb", "compute_plp"])
+    "latgen-faster verb", "compute_plp", "DenseViterbiDecoder"])
 def test_entry_points_default_to_the_card(entry):
     """Left without ``device``, the port's entry points run on the card;
     where there is none they raise, at construction or at the first call,
@@ -229,6 +229,7 @@ def test_entry_points_default_to_the_card(entry):
                                              OnlineRecognizer)
     from kaldi_cnn_tpu_torch.recipes.yesno import compute_features
     from kaldi_cnn_tpu_torch.features.plp import compute_plp
+    from kaldi_cnn_tpu_torch.decode.tpu_decoder import DenseViterbiDecoder
     from kaldi_cnn_tpu_torch import cli
     wave = np.zeros(800, np.float32)
     lex = synthetic.digits_lexicon()
@@ -271,6 +272,8 @@ def test_entry_points_default_to_the_card(entry):
             "latgen-faster", "--lang-dir=lang", "am.mdl", "HCLG.txt",
             "feats.scp", "lats.npz", "hyp.txt"]),
         "compute_plp": lambda: compute_plp(wave),
+        "DenseViterbiDecoder": lambda: DenseViterbiDecoder(
+            _tiny_graph()).decode_batch([np.zeros((3, 60), np.float32)]),
     }
     with pytest.raises((RuntimeError, AssertionError),
                        match="CUDA|NVIDIA|cuda"):
