@@ -63,7 +63,8 @@ from deletions import (Recorder, classify, gpu_name,  # noqa: E402
 WIDE_SCALES = (0.01, 0.02, 0.05, 0.1, 0.2, 0.3, 0.5, 0.75, 1.0)
 WIDE_WIPS = (-8.0, -4.0, -2.0, -1.0, -0.5, 0.0, 0.5)
 KEYS = ("gmm_dev_wer", "gmm_test_wer", "dnn_dev_wer", "wer", "errors",
-        "words", "sub", "ins", "del", "gmm_point", "dnn_point", "seconds")
+        "words", "sub", "ins", "del", "gmm_point", "dnn_point",
+        "tree_leaves", "seconds")
 
 
 def recording(module, name: str, calls: list):

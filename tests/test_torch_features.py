@@ -142,3 +142,34 @@ def test_extractor_deltas_volume_matches_jax():
         true_deltas = np.asarray(JF.compute_deltas(
             fbank_pallas(jnp.asarray(waves[u]), opts_j), 2, 2))
         np.testing.assert_allclose(got[u], true_deltas, rtol=0, atol=ATOL)
+
+
+def test_jax_stage_port_deltas_are_the_port_deltas_of_jax_statics():
+    """``scripts/jax_stage_features.py --port-deltas`` (arm B of ROADMAP
+    3.14's paired run) keeps the JAX package's MFCC statics to the bit
+    and takes the port's ``compute_deltas`` over them, to the bit; it
+    parts from the JAX extractor's deltas only on each utterance's last
+    order * window frames, which JAX takes over its zero-padded bucket."""
+    import os
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), "scripts"))
+    from jax_stage_features import port_deltas
+    from kaldi_cnn_tpu.features.extractor import FeatureExtractor as JFE
+    opts = JF.MfccOptions()
+    opts.frame_opts.samp_freq = 8000.0
+    opts.frame_opts.dither = 0.0
+    jex = JFE("mfcc", opts, bucket_seconds=1.0, device="cpu",
+              use_pallas=False, deltas_order=2)
+    speech = _waves()[8000]
+    want = jex.extract_corpus({"a": speech[:6000], "b": speech[6000:]})
+    edge = 2 * 2
+    for f in want.values():
+        got = port_deltas(f)
+        assert got.shape == f.shape == (f.shape[0], 39)
+        np.testing.assert_array_equal(got[:, :13], f[:, :13])
+        np.testing.assert_array_equal(got, TF.compute_deltas(
+            torch.as_tensor(np.array(f[:, :13])), 2).numpy())
+        np.testing.assert_allclose(got[:-edge], f[:-edge], rtol=0,
+                                   atol=ATOL)
+        assert np.abs(got[-edge:] - f[-edge:]).max() > 10 * ATOL
