@@ -21,13 +21,16 @@ then runs these phases; any failure raises and the exit code is not 0.
    pool_c = 2) and at the Switchboard recipe's (conv+maxpool at F = 48,
    4096 and 512 rows; maxpool on its 8x30x48 output at 256 rows), with
    the error and both times from CUDA events.
-   Fbank runs both kernels at the power-of-two sizes: the FFT kernel the
-   wrapper picks there, held against the plain version in float64 (and
-   f32), and the table kernel (taken when round_to_power_of_two is off).
+   Fbank runs the FFT kernel the wrapper picks, held against the plain
+   version in float64 (and f32): the power-of-two kernel at those sizes,
+   and with round_to_power_of_two off the mixed-radix kernel at the
+   bench's 12000 frames (N = 400) and the WSJ utterance (N = 200); and
+   the table kernel at the same shapes.
    Conv+maxpool runs both kernels: bf16 operands on the tensor cores
-   (wgmma) and f32 on the CUDA cores.  Maxpool runs the forward the
-   wrapper picks (the vectorised kernel at the recipe's shapes, the
-   scalar one at pool_c = 2) and the scalar forward.  Each line also
+   (wgmma) and f32 on the CUDA cores.  Maxpool runs the forward and the
+   backward the wrappers pick (the vectorised kernels at the recipe's
+   shapes, the scalar ones at pool_c = 2) and the scalar forward and
+   backward.  Each line also
    gives the time a call inside a CUDA graph of 20 calls (fbank,
    maxpool), the fbank wrapper's host microseconds a call, the kernel's
    bound (bytes over the HBM rate or operations over the peak rate, the
@@ -433,8 +436,9 @@ SWBD_EPOCHS = 8
 # the RM recipe (rm.run, phase 11) at its own widths (seed 29, pnorm
 # 800/160 on 180-dim fMLLR rows, 25 epochs), its depth cut from 140
 # utterances for the same reason (its host GMM chain grows with them;
-# 70 until the script passed 700 s with phases 15 (c) and 16)
-RM_UTTS = 56
+# 70 until the script passed 700 s with phases 15 (c) and 16, 56 until
+# the kernel phase took on the mixed-radix fbank and scalar backward cases)
+RM_UTTS = 48
 RM_EPOCHS = 25
 # JAX rm.run's result: wer_details + the three WERs
 RM_KEYS = {"wer", "errors", "words", "sub", "ins", "del", "missing_utts",
@@ -573,16 +577,23 @@ def fbank_work(opts, frames, out, energy):
 
 
 def fbank_case(name, opts, wave, dev):
-    """The FFT kernel (the one the wrapper picks at this power-of-two
-    size) against the float64 and the float32 plain version, and the table
+    """The FFT kernel the wrapper picks at this size (the power-of-two
+    one, or the mixed-radix one where round_to_power_of_two is off)
+    against the float64 and the float32 plain version, and the table
     kernel at the same shape against the float32 plain version."""
     fo = opts.frame_opts
     frames = F.add_dither(
         F.extract_frames(torch.as_tensor(wave, device=dev), fo), fo,
         torch_generator(SEED, name)).contiguous()
-    if fbank_ops.fbank_kernel(fo) != "fft":
-        raise AssertionError(f"{name}: the wrapper does not pick the FFT")
+    kind = fbank_ops.fbank_kernel(fo)
+    counter = {"fft": fbank_frames,
+               "mixed": fbank_ops.fbank_frames_mixed}.get(kind)
+    if counter is None:
+        raise AssertionError(f"{name}: the wrapper picks no FFT kernel")
+    before = counter.launches
     out, energy = fbank_frames(frames, opts)
+    if counter.launches != before + 1:
+        raise AssertionError(f"{name}: the {kind} kernel did not launch")
     tab, tab_e = fbank_ops.fbank_frames_table(frames, opts)
     ref, ref_e = fbank_reference_frames(frames, opts)
     ref64, ref64_e = fbank_reference_frames(frames.double(), opts)
@@ -599,7 +610,8 @@ def fbank_case(name, opts, wave, dev):
     b, by = bound(moved, flops, "f32")
     fft = lambda: fbank_frames(frames, opts)
     table = lambda: fbank_ops.fbank_frames_table(frames, opts)
-    r = {"name": name, "shape": f"{frames.shape[0]} frames x "
+    r = {"name": name, "kernel": kind,
+         "shape": f"{frames.shape[0]} frames x "
          f"{fo.window_size} samples (N {fo.padded_window_size}) -> "
          f"{opts.mel_opts.num_bins} bins",
          "max_abs_err": err64, "err_vs_f32": err32, "bound_ms": b,
@@ -611,7 +623,8 @@ def fbank_case(name, opts, wave, dev):
                   "graph_ms": graph_ms(table), "plain_ms": r["plain_ms"],
                   "bound_ms": b, "bound_by": by, "library_ms": None}
     table_bound = bound(moved, table_flops, "f32")[0]
-    log(f"kernel fbank {name}: {r['shape']}: FFT kernel vs float64 plain "
+    log(f"kernel fbank {name}: {r['shape']}: {kind} FFT kernel vs float64 "
+        f"plain "
         f"max err {err64:.3g} (limit {FBANK_F64_ATOL}), vs f32 plain "
         f"{err32:.3g} (limit {FBANK_ATOL}; f32 plain vs float64 "
         f"{plain_err64:.3g}); FFT {r['ms']:.4f} ms by events, "
@@ -621,7 +634,8 @@ def fbank_case(name, opts, wave, dev):
         f"{r['table']['graph_ms']:.4f} in a graph; plain {r['plain_ms']:.4f}"
         f" ms; bound {b:.4f} ms ({by}: {moved / 1e6:.2f} MB, "
         f"{flops / 1e6:.1f} MFLOP; FFT graph time "
-        f"{100 * b / r['graph_ms']:.1f}% of it); bound on a table DFT's "
+        f"{100 * b / r['graph_ms']:.1f}% of it, table graph time "
+        f"{100 * b / r['table']['graph_ms']:.1f}%); bound on a table DFT's "
         f"operations: {table_bound:.4f} ms; library: none")
     if not ok:
         raise AssertionError(f"fbank kernels disagree with plain: {r}")
@@ -707,10 +721,11 @@ def bit_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def maxpool_case(name, shape, rows, dtype, dev):
-    """Kernel 3: the forward the wrapper picks (vectorised where the shape
-    and alignment allow it), the scalar forward, each with and without the
-    argmax, and the backward, against the plain versions and the library
-    calls; returns the times and bandwidths."""
+    """Kernel 3: the forward and the backward the wrappers pick
+    (vectorised where the shape and alignment allow it), the scalar
+    forward, with and without the argmax, and the scalar backward, against
+    the plain versions and the library calls; returns the times and
+    bandwidths."""
     pool = mp.Pool3D(*shape)
     rng = np_rng(SEED, f"maxpool {name}")
     in_dim = shape[0] * shape[1] * shape[2]
@@ -723,19 +738,22 @@ def maxpool_case(name, shape, rows, dtype, dev):
     want, want_arg = mp.maxpool3d_reference(x, pool, with_argmax=True)
     d = torch.as_tensor(rng.normal(size=tuple(y.shape)).astype(np.float32),
                         device=dev).to(dtype)
+    bwd_kind = mp.backward_kernel(pool, dtype, d.data_ptr(), arg.data_ptr())
     dx = mp.maxpool3d_backward(d, arg, pool)
+    dxs = mp.maxpool3d_backward_scalar(d, arg, pool)
     want_dx = mp.maxpool3d_backward_reference(d, want_arg, pool)
     torch.cuda.synchronize()
     ok = (bit_equal(y, want) and bit_equal(y2, want) and bit_equal(ys, want)
           and torch.equal(arg, want_arg) and torch.equal(args, want_arg)
-          and bit_equal(dx, want_dx))
+          and bit_equal(dx, want_dx) and bit_equal(dxs, want_dx))
     mode = "bf16" if dtype == torch.bfloat16 else "f32"
     fwd = lambda: mp.maxpool3d(x, pool)
     fwd_arg = lambda: mp.maxpool3d(x, pool, True)
     sc = lambda: mp.maxpool3d_scalar(x, pool)
     sc_arg = lambda: mp.maxpool3d_scalar(x, pool, True)
     bwd = lambda: mp.maxpool3d_backward(d, arg, pool)
-    r = {"name": f"{name} {mode}", "kernel": kind,
+    sc_bwd = lambda: mp.maxpool3d_backward_scalar(d, arg, pool)
+    r = {"name": f"{name} {mode}", "kernel": kind, "bwd_kernel": bwd_kind,
          "max_abs_err": 0.0 if ok else float(
              (y.float() - want.float()).abs().max()),
          "fwd_ms": time_ms(fwd), "fwd_graph_ms": graph_ms(fwd),
@@ -747,9 +765,11 @@ def maxpool_case(name, shape, rows, dtype, dev):
          "sc_arg_ms": time_ms(sc_arg), "sc_arg_graph_ms": graph_ms(sc_arg),
          "bwd_ms": time_ms(bwd), "bwd_graph_ms": graph_ms(bwd),
          "bwd_plain_ms": time_ms(
-             lambda: mp.maxpool3d_backward_reference(d, arg, pool))}
-    r["sc_fwd_plain_ms"] = r["fwd_plain_ms"]
-    r["sc_arg_plain_ms"] = r["arg_plain_ms"]
+             lambda: mp.maxpool3d_backward_reference(d, arg, pool)),
+         "sc_bwd_ms": time_ms(sc_bwd), "sc_bwd_graph_ms": graph_ms(sc_bwd),
+         "bwd_host_us": host_us(bwd), "sc_bwd_host_us": host_us(sc_bwd)}
+    for key in ("fwd", "arg", "bwd"):
+        r[f"sc_{key}_plain_ms"] = r[f"{key}_plain_ms"]
     # yardsticks: amax over the window for the forward alone, and
     # max_pool3d with indices and its backward on the (t, f, c) volume
     it, i_f, ic, pt, pf, pc = shape
@@ -765,14 +785,15 @@ def maxpool_case(name, shape, rows, dtype, dev):
     for key, lib in libs.items():
         r[f"{key}_library_ms"] = time_ms(lib)
         r[f"{key}_library_graph_ms"] = graph_ms(lib)
-    for key in ("fwd", "arg"):
+    for key in ("fwd", "arg", "bwd"):
         r[f"sc_{key}_library_ms"] = r[f"{key}_library_ms"]
         r[f"sc_{key}_library_graph_ms"] = r[f"{key}_library_graph_ms"]
     xb, yb, ab = x.nbytes, y.nbytes, arg.nbytes
     r["fwd_bound_ms"] = r["sc_fwd_bound_ms"] = bound(xb + yb, 0, "f32")[0]
     r["arg_bound_ms"] = r["sc_arg_bound_ms"] = bound(xb + yb + ab, 0,
                                                      "f32")[0]
-    r["bwd_bound_ms"] = bound(yb + ab + xb, 0, "f32")[0]
+    r["bwd_bound_ms"] = r["sc_bwd_bound_ms"] = bound(yb + ab + xb, 0,
+                                                     "f32")[0]
     gbs = lambda nbytes, ms: nbytes / ms / 1e6
     log(f"kernel maxpool {r['name']}: {rows} rows x {in_dim} -> "
         f"{y.shape[1]} (pool {pt}x{pf}x{pc}), {arg.dtype} argmax, "
@@ -790,8 +811,14 @@ def maxpool_case(name, shape, rows, dtype, dev):
         f"{r['arg_plain_ms']:.4f}, library (max_pool3d with indices) "
         f"{r['arg_library_ms']:.4f} / graph "
         f"{r['arg_library_graph_ms']:.4f}, bound {r['arg_bound_ms']:.4f}; "
-        f"backward {r['bwd_ms']:.4f} ms, graph {r['bwd_graph_ms']:.4f} "
-        f"({gbs(yb + ab + xb, r['bwd_graph_ms']):.0f} GB/s) vs plain "
+        f"maxpool3d_backward takes the {bwd_kind} kernel: backward "
+        f"{r['bwd_ms']:.4f} ms, graph {r['bwd_graph_ms']:.4f} "
+        f"({gbs(yb + ab + xb, r['bwd_graph_ms']):.0f} GB/s, "
+        f"{100 * r['bwd_bound_ms'] / r['bwd_graph_ms']:.1f}% of bound) vs "
+        f"scalar {r['sc_bwd_ms']:.4f} / graph {r['sc_bwd_graph_ms']:.4f} "
+        f"({100 * r['bwd_bound_ms'] / r['sc_bwd_graph_ms']:.1f}%), wrapper "
+        f"host {r['bwd_host_us']:.1f} / scalar {r['sc_bwd_host_us']:.1f} us "
+        f"a call, plain "
         f"{r['bwd_plain_ms']:.4f}, library (max_pool3d_with_indices_"
         f"backward) {r['bwd_library_ms']:.4f} / graph "
         f"{r['bwd_library_graph_ms']:.4f}, bound "
@@ -1175,8 +1202,7 @@ def lattice_slice(am, am_cpu, corpus, hclg, word_table, dec):
     the corpus), held against the host lattice decoder and ``dec``'s best
     path on the same loglikes, and replayed on the CPU."""
     dev_c, test_c = corpus.split(0.5)
-    fbank_frames.launches = fbank_ops.fbank_frames_table.launches = 0
-    conv2d_maxpool.launches = conv2d_maxpool_f32.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     with lattice_probes() as probe:
@@ -1346,12 +1372,14 @@ def reset_launches() -> None:
 
 def read_launches() -> dict:
     return {"fbank_fft": fbank_frames.launches,
+            "fbank_fft_mixed": fbank_ops.fbank_frames_mixed.launches,
             "fbank_table": fbank_ops.fbank_frames_table.launches,
             "conv_maxpool": conv2d_maxpool.launches,
             "conv_maxpool_f32": conv2d_maxpool_f32.launches,
             "maxpool_fwd_vec": mp.maxpool3d.launches,
             "maxpool_fwd_scalar": mp.maxpool3d_scalar.launches,
-            "maxpool_bwd": mp.maxpool3d_backward.launches}
+            "maxpool_bwd": mp.maxpool3d_backward.launches,
+            "maxpool_bwd_scalar": mp.maxpool3d_backward_scalar.launches}
 
 
 def read_warmups() -> dict:
@@ -1359,7 +1387,9 @@ def read_warmups() -> dict:
     launches, also in ``read_launches``; an eager run makes none)."""
     return {"maxpool_fwd_vec": mp.maxpool3d.warmup_launches,
             "maxpool_fwd_scalar": mp.maxpool3d_scalar.warmup_launches,
-            "maxpool_bwd": mp.maxpool3d_backward.warmup_launches}
+            "maxpool_bwd": mp.maxpool3d_backward.warmup_launches,
+            "maxpool_bwd_scalar":
+                mp.maxpool3d_backward_scalar.warmup_launches}
 
 
 @contextlib.contextmanager
@@ -1460,7 +1490,8 @@ def recipe_phase(dev, tmp, corpus):
                              f"graphed fits with one CNN: {fits}")
     eager_s, eager_n = eager_refit(cnn[0])
     graphed_n, warm_n = cnn[0][2], cnn[0][4]
-    mp_keys = ("maxpool_fwd_vec", "maxpool_bwd", "maxpool_fwd_scalar")
+    mp_keys = ("maxpool_fwd_vec", "maxpool_bwd", "maxpool_fwd_scalar",
+               "maxpool_bwd_scalar")
     log(f"recipe nnet_train: CNN {cnn[0][1]:.3f} s through the graphs "
         f"({captures(cnn[0][0][0])}; DNN "
         f"{[c[1] for c in fits if c is not cnn[0]][0]:.3f} s), the "
@@ -3069,6 +3100,7 @@ def main() -> int:
     num_pdfs = lang.trans_model.num_pdfs
 
     # ---- 1. kernel phase ----------------------------------------------
+    t_kernels = time.perf_counter()
     bench = F.FbankOptions()                        # 16 kHz, 23 bins
     bench.frame_opts.dither = 1.0
     nsamp = 11999 * bench.frame_opts.window_shift \
@@ -3076,11 +3108,22 @@ def main() -> int:
     wave = (np_rng(SEED, "bench_wave").normal(size=nsamp) * 1000
             ).astype(np.float32)
     fbank_case("bench-16k", bench, wave, dev)
+    # round_to_power_of_two off: N = ws = 400, the mixed-radix kernel's
+    bench_n400 = copy.deepcopy(bench)
+    bench_n400.frame_opts.round_to_power_of_two = False
+    t = time.perf_counter()
+    fb_n400 = fbank_case("bench-16k-n400", bench_n400, wave, dev)
+    mixed_s = time.perf_counter() - t
     slice_opts = F.FbankOptions()
     slice_opts.frame_opts.samp_freq = float(corpus.sample_rate)
     slice_opts.mel_opts.num_bins = 36
     utt0 = sorted(corpus.waves)[0]
     fb = fbank_case("wsj-8k", slice_opts, corpus.waves[utt0], dev)
+    slice_n200 = copy.deepcopy(slice_opts)                 # N = ws = 200
+    slice_n200.frame_opts.round_to_power_of_two = False
+    t = time.perf_counter()
+    fb_n200 = fbank_case("wsj-8k-n200", slice_n200, corpus.waves[utt0], dev)
+    mixed_s += time.perf_counter() - t
     mfcc_opts = F.MfccOptions()
     mfcc_opts.frame_opts.samp_freq = float(corpus.sample_rate)
     fb_mfcc = fbank_case("mfcc-8k", F.mfcc_fbank_options(mfcc_opts),
@@ -3117,11 +3160,12 @@ def main() -> int:
             r = maxpool_case(pname, shape, rows, dtype, dev)
             pools[r["name"]] = r
     mp_bench = pools["bench-F128 f32"]
+    log(f"kernel phase: {time.perf_counter() - t_kernels:.1f} s (of it the "
+        f"round_to_power_of_two=False fbank cases {mixed_s:.1f} s)")
 
     # ---- 2. slice phase -----------------------------------------------
     am = wsj_model(num_pdfs, dev)
-    fbank_frames.launches = fbank_ops.fbank_frames_table.launches = 0
-    conv2d_maxpool.launches = conv2d_maxpool_f32.launches = 0
+    reset_launches()
     torch.cuda.synchronize()
     t = time.perf_counter()
     res = wsj.decode(am, corpus, hclg, lang.word_table, seed=SEED)
@@ -3129,13 +3173,12 @@ def main() -> int:
     slice_s = time.perf_counter() - t
     launches = {"fbank_fft": fbank_frames.launches,
                 "conv_maxpool": conv2d_maxpool.launches}
-    f32_launches = conv2d_maxpool_f32.launches
-    table_launches = fbank_ops.fbank_frames_table.launches
+    off_path = {k: v for k, v in read_launches().items() if k in (
+        "conv_maxpool_f32", "fbank_table", "fbank_fft_mixed")}
     lls = res["loglikes"]
     frames = sum(v.shape[0] for v in lls.values())
     log(f"slice: {len(lls)} utterances, {frames} frames, launches "
-        f"{launches} (conv_maxpool_f32 {f32_launches}, fbank_table "
-        f"{table_launches}), wsj.decode "
+        f"{launches} (off the path {off_path}), wsj.decode "
         f"{slice_s:.3f} s (fbank + scoring + search + WER), WER "
         f"{res['wer']:.2f}% ({res['errors']} errors / {res['words']} "
         f"words; random weights, not asserted)")
@@ -3195,10 +3238,7 @@ def main() -> int:
     # ---- 5. training slice ----------------------------------------------
     tmp = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        fbank_frames.launches = fbank_ops.fbank_frames_table.launches = 0
-        mp.maxpool3d.launches = mp.maxpool3d_backward.launches = 0
-        mp.maxpool3d_scalar.launches = 0
-        conv2d_maxpool.launches = 0
+        reset_launches()
         torch.cuda.synchronize()
         t = time.perf_counter()
         tvols = wsj.compute_fbank_volumes(corpus, seed=SEED, device=dev)
@@ -3214,7 +3254,9 @@ def main() -> int:
                           "maxpool_fwd_vec": mp.maxpool3d.launches,
                           "maxpool_bwd": mp.maxpool3d_backward.launches}
         train_graphs = am_t.nnet.capture_seconds
-        scalar_launches = mp.maxpool3d_scalar.launches
+        scalar_launches = {
+            "maxpool_fwd_scalar": mp.maxpool3d_scalar.launches,
+            "maxpool_bwd_scalar": mp.maxpool3d_backward_scalar.launches}
         egs_train, egs_valid = wsj.split_valid(
             wsj.make_cnn_egs(tvols, ali, t2p, wsj.CONTEXT, wsj.CONTEXT, SEED))
         frames = TRAIN_EPOCHS * len(egs_train)
@@ -3229,7 +3271,7 @@ def main() -> int:
             f"({frames / 100.0 / train_s:.1f} audio-s/s) through "
             f"Nnet.train_steps' CUDA graphs ({captures(am_t.nnet)}; "
             f"eager-loop calls {len(eager_calls)}); launches "
-            f"{train_launches} (maxpool_fwd_scalar {scalar_launches}); "
+            f"{train_launches} (scalar kernels {scalar_launches}); "
             f"objf step 0 {objfs[0]:.4f} -> last "
             f"{objfs[-1]:.4f}; valid logprob {lp0:.4f} (initial) -> "
             f"{lp:.4f}")
@@ -3353,9 +3395,8 @@ def main() -> int:
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     by_phase = {
-        "slice": {**launches, "fbank_table": table_launches,
-                  "conv_maxpool_f32": f32_launches},
-        "train": {**train_launches, "maxpool_fwd_scalar": scalar_launches},
+        "slice": {**launches, **off_path},
+        "train": {**train_launches, **scalar_launches},
         "recipe": recipe_launches, "recipe_mfcc_stage": {"fbank_fft": mfcc_n},
         **stream_launches, "swbd": swbd_launches, "rm": rm_launches,
         "librispeech": libri_launches, "mmi": mmi_launches,
@@ -3385,6 +3426,8 @@ def main() -> int:
               recipe_launches["fbank_fft"], fb),
         entry("fbank_table", "fbank.cu", "fbank_pallas.py:63",
               recipe_launches["fbank_table"], fb["table"]),
+        entry("fbank_fft_mixed", "fbank.cu", "fbank_pallas.py:63",
+              recipe_launches["fbank_fft_mixed"], fb_n400),
         entry("conv_maxpool", "conv_maxpool.cu", "conv_pallas.py:43",
               recipe_launches["conv_maxpool"], cv["bf16"]),
         entry("conv_maxpool_f32", "conv_maxpool.cu", "conv_pallas.py:43",
@@ -3395,7 +3438,18 @@ def main() -> int:
               recipe_launches["maxpool_fwd_scalar"], mp_wsj, "sc_arg_"),
         entry("maxpool_bwd", "maxpool.cu", "maxpool_pallas.py:43",
               recipe_launches["maxpool_bwd"], mp_wsj, "bwd_"),
+        entry("maxpool_bwd_scalar", "maxpool.cu", "maxpool_pallas.py:43",
+              recipe_launches["maxpool_bwd_scalar"], mp_wsj, "sc_bwd_"),
     ]
+    fbank_keys = ("max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms")
+    # the mixed-radix kernel at 8 kHz (N 200), and the table kernel at its
+    # two sizes, the ones round_to_power_of_two=False gave it before
+    kernels[2]["wsj_8k_n200"] = {k: fb_n200[k] for k in fbank_keys}
+    kernels[2]["max_abs_err"] = max(fb_n400["max_abs_err"],
+                                    fb_n200["max_abs_err"])
+    kernels[1]["bench_16k_n400"] = {k: fb_n400["table"][k]
+                                    for k in fbank_keys}
+    kernels[1]["wsj_8k_n200"] = {k: fb_n200["table"][k] for k in fbank_keys}
     # the fbank kernel at the MFCC's shape (23 bins, the energy kept)
     kernels[0]["mfcc_8k"] = {k: fb_mfcc[k] for k in (
         "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms")}
@@ -3410,30 +3464,35 @@ def main() -> int:
                                     fb_stream["max_abs_err"],
                                     fb_stream_mfcc["max_abs_err"])
     # the wgmma conv at a streaming chunk's 512 rows
-    kernels[2]["wsj_f64_512"] = {k: cv512["bf16"][k] for k in (
+    kernels[3]["wsj_f64_512"] = {k: cv512["bf16"][k] for k in (
         "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
         "library_graph_ms")}
-    kernels[2]["max_abs_err"] = max(cv["bf16"]["max_abs_err"],
+    kernels[3]["max_abs_err"] = max(cv["bf16"]["max_abs_err"],
                                     cv512["bf16"]["max_abs_err"],
                                     cv48["bf16"]["max_abs_err"],
                                     cv48_512["bf16"]["max_abs_err"])
-    kernels[3]["max_abs_err"] = max(cv["f32"]["max_abs_err"],
+    kernels[4]["max_abs_err"] = max(cv["f32"]["max_abs_err"],
                                     cv48["f32"]["max_abs_err"])
     # the Switchboard shapes: conv at F = 48 (4096 and 512 rows), maxpool
     # on its 8x30x48 output at the minibatch's 256 rows (f32 and bf16)
     conv_keys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
                  "library_ms", "library_graph_ms")
-    kernels[2]["swbd_f48"] = {k: cv48["bf16"][k] for k in conv_keys}
-    kernels[2]["swbd_f48_512"] = {k: cv48_512["bf16"][k] for k in conv_keys}
-    kernels[3]["swbd_f48"] = {k: cv48["f32"][k] for k in conv_keys}
-    for i, pre in ((4, "arg_"), (5, "sc_arg_"), (6, "bwd_")):
-        for mode in ("f32", "bf16"):
-            r = pools[f"swbd-F48 {mode}"]
-            kernels[i][f"swbd_f48_{mode}"] = {
-                "max_abs_err": r["max_abs_err"],
-                **{k: r[f"{pre}{k}"] for k in (
-                    "ms", "graph_ms", "plain_ms", "bound_ms", "library_ms",
-                    "library_graph_ms")}}
+    kernels[3]["swbd_f48"] = {k: cv48["bf16"][k] for k in conv_keys}
+    kernels[3]["swbd_f48_512"] = {k: cv48_512["bf16"][k] for k in conv_keys}
+    kernels[4]["swbd_f48"] = {k: cv48["f32"][k] for k in conv_keys}
+    # and the backwards at the bench shape too (4096 rows of 8x30x128)
+    for i, pre in ((5, "arg_"), (6, "sc_arg_"), (7, "bwd_"), (8, "sc_bwd_")):
+        cells = ("swbd-F48", "bench-F128") if pre.endswith("bwd_") else (
+            "swbd-F48",)
+        for cell in cells:
+            for mode in ("f32", "bf16"):
+                r = pools[f"{cell} {mode}"]
+                key = cell.lower().replace("-", "_")
+                kernels[i][f"{key}_{mode}"] = {
+                    "max_abs_err": r["max_abs_err"],
+                    **{k: r[f"{pre}{k}"] for k in (
+                        "ms", "graph_ms", "plain_ms", "bound_ms",
+                        "library_ms", "library_graph_ms")}}
     log(f"total: {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

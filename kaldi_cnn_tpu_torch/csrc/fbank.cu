@@ -1,4 +1,4 @@
-// Fused log-mel filterbank over a batch of raw frames: two kernels, one
+// Fused log-mel filterbank over a batch of raw frames: three kernels, one
 // function.
 //
 // Replaces the TPU kernel kaldi_cnn_tpu/ops/fbank_pallas.py::_fbank_kernel.
@@ -7,7 +7,7 @@
 // zero padding to padded_window_size N, real DFT, power, mel sums, log
 // floored at FLT_EPSILON.  Dither is added to the frames before the kernel;
 // energy flooring and use_energy stay in the wrapper (ops/fbank.py), which
-// picks the kernel from N before the launch.
+// picks one of the three kernels from N before the launch.
 //
 // fbank_fft_kernel (kcnn_fbank_fft), for N a power of two from 64 to 2048
 // (Kaldi's round_to_power_of_two, the default: 256 at 8 kHz, 512 at
@@ -49,14 +49,33 @@
 // and W_N^k as W_N^{k1} W_64^{k2}, so a warp's twiddle loads touch a few L1
 // lines instead of one a lane.
 //
-// fbank_kernel (kcnn_fbank), any N, the one taken when
-// round_to_power_of_two is off and N is not a power of two: the real DFT as
-// two sums against the cos/sin tables of features.functional.dft_matrices
-// and the mel sums against the dense mel_banks table.  Each table element a
-// block fetches serves FPB frames held in shared memory, the frames are read
-// four samples at a time (one float4 broadcast per frame for 8 FMAs), one
-// thread per DFT bin keeps the table reads coalesced, and one warp per frame
-// does the per-frame reductions.
+// fbank_mixed_kernel (kcnn_fbank_fft_mixed), for N = 50 L with L a power of
+// two from 2 to 32: the sizes Kaldi's 25 ms frames take with
+// round_to_power_of_two off (N = ws = 200 at 8 kHz, 400 at 16 kHz), which
+// went to the table kernel below at 2 % of its bound (0.3059 ms against
+// 0.0061 at 16 kHz x 12000 frames on an H100 80GB HBM3, 700 W).  The same
+// chain and the same register design as the power-of-two kernel, with the
+// complex FFT of H = N / 2 = 25 L points split as 25 x L: L lanes a frame
+// and F = 32 / L frames a warp (every lane busy), the 25 points of a lane
+// in its registers as a 5 x 5 DFT of radix-5 butterflies on constants with
+// the W_25 twiddles between, the twiddle W_H^{l k1}, then an L-point
+// radix-2 DIF across the frame's lanes by shuffles (log2 L steps, 25
+// registers a step), and the power-of-two kernel's real-FFT post-pass.  A
+// warp's F frames keep their bins at a stride of L modulo 32 floats in
+// shared memory, so the post-pass's stores do not conflict.  Every twiddle
+// is a load of the host's float64-built W_N table, none a power.  As for
+// the power-of-two kernel, the bound is the frames' bytes, and what is left
+// to limit it is the data movement between the steps: 2 x 25 shuffles a
+// cross-lane step, log2 L steps, none through shared memory.
+//
+// fbank_kernel (kcnn_fbank), any N, the one taken when N is neither a power
+// of two from 64 to 2048 nor 50 L: the real DFT as two sums against the
+// cos/sin tables of features.functional.dft_matrices and the mel sums
+// against the dense mel_banks table.  Each table element a block fetches
+// serves FPB frames held in shared memory, the frames are read four samples
+// at a time (one float4 broadcast per frame for 8 FMAs), one thread per DFT
+// bin keeps the table reads coalesced, and one warp per frame does the
+// per-frame reductions.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -407,6 +426,260 @@ fbank_fft_kernel(const float* __restrict__ frames, int T, int ws,
   }
 }
 
+// ---- the mixed-radix FFT for N = 50 L (L = 2 .. 32 lanes a frame) ----
+//
+// Z = FFT(z) over the H = N / 2 = 25 L packed points, q = l + L m held by
+// lane l < L of the frame's group in register m < 25.  With k = k1 + 25 k2,
+// Z[k] = sum_l W_L^{l k2} W_H^{l k1} sum_m W_25^{m k1} z[l + L m]: a
+// 25-point DFT in each lane's registers (5 x 5, radix-5 butterflies on
+// constants), the twiddle W_H^{l k1}, and an L-point radix-2 DIF across the
+// group's lanes by __shfl_xor_sync (lane l then holds k2 = bitrev(l)).
+
+constexpr int kP = 25;            // points of a lane's in-register DFT
+// cos and sin of 2 pi / 5 and 4 pi / 5
+constexpr float kC1 = 0.30901699437494742f;
+constexpr float kC2 = -0.80901699437494742f;
+constexpr float kS1 = 0.95105651629515357f;
+constexpr float kS2 = 0.58778525229247313f;
+
+// After the 25-point DFT register r = 5 c + d holds bin k1 = c + 5 d.
+__host__ __device__ constexpr int mixed_bin(int r) { return r / 5 + 5 * (r % 5); }
+__host__ __device__ constexpr int mixed_reg(int k1) {
+  return 5 * (k1 % 5) + k1 / 5;
+}
+
+// Floats of shared memory a frame: bins 0..H, and a stride of L modulo 32,
+// so that the F = 32 / L frames of a warp store bin k1 + 25 k2 of their
+// lanes to 32 different banks (25 k2 modulo L is a permutation of k2).
+__host__ __device__ constexpr int mixed_pw_stride(int L) {
+  return 25 * L + 1 + (((L - 25 * L - 1) % 32) + 32) % 32;
+}
+
+// The 5-point DFT (W_5 = exp(-2 pi i / 5)) of z[I0 + S j], j < 5, in place.
+template <int I0, int S>
+__device__ __forceinline__ void dft5(float2 (&z)[kP]) {
+  const float2 a0 = z[I0], a1 = z[I0 + S], a2 = z[I0 + 2 * S];
+  const float2 a3 = z[I0 + 3 * S], a4 = z[I0 + 4 * S];
+  const float t1x = a1.x + a4.x, t1y = a1.y + a4.y;
+  const float t2x = a2.x + a3.x, t2y = a2.y + a3.y;
+  const float t3x = a1.x - a4.x, t3y = a1.y - a4.y;
+  const float t4x = a2.x - a3.x, t4y = a2.y - a3.y;
+  z[I0] = make_float2(a0.x + t1x + t2x, a0.y + t1y + t2y);
+  const float b1x = a0.x + kC1 * t1x + kC2 * t2x;
+  const float b1y = a0.y + kC1 * t1y + kC2 * t2y;
+  const float b2x = a0.x + kC2 * t1x + kC1 * t2x;
+  const float b2y = a0.y + kC2 * t1y + kC1 * t2y;
+  const float ux = kS1 * t3x + kS2 * t4x, uy = kS1 * t3y + kS2 * t4y;
+  const float vx = kS2 * t3x - kS1 * t4x, vy = kS2 * t3y - kS1 * t4y;
+  z[I0 + S] = make_float2(b1x + uy, b1y - ux);          // b1 - i u
+  z[I0 + 4 * S] = make_float2(b1x - uy, b1y + ux);      // b1 + i u
+  z[I0 + 2 * S] = make_float2(b2x + vy, b2y - vx);      // b2 - i v
+  z[I0 + 3 * S] = make_float2(b2x - vy, b2y + vx);      // b2 + i v
+}
+
+// The 25-point DFT of a lane's registers, m = 5 a + b -> k1 = c + 5 d:
+// 5-point DFTs over a (register 5 c + b then holds frequency c), the
+// twiddle W_25^{b c} = W_N^{2 L b c}, 5-point DFTs over b (register 5 c + d
+// then holds k1 = c + 5 d).
+template <int L>
+__device__ __forceinline__ void dft25(float2 (&z)[kP],
+                                      const float2* __restrict__ tw) {
+  dft5<0, 5>(z);
+  dft5<1, 5>(z);
+  dft5<2, 5>(z);
+  dft5<3, 5>(z);
+  dft5<4, 5>(z);
+#pragma unroll
+  for (int c = 1; c < 5; ++c) {
+#pragma unroll
+    for (int b = 1; b < 5; ++b)
+      z[5 * c + b] = cmul(z[5 * c + b], __ldg(tw + 2 * L * b * c));
+  }
+  dft5<0, 1>(z);
+  dft5<5, 1>(z);
+  dft5<10, 1>(z);
+  dft5<15, 1>(z);
+  dft5<20, 1>(z);
+}
+
+// The real-FFT post-pass, as power_registers: bin k = k1 + 25 k2 of lane l
+// (k2 = bitrev(l)) from Z[k] and conj Z[H - k], which register
+// mixed_reg(25 - k1) of lane l ^ (L - 1) holds (k1 > 0), or register 0 of
+// lane bitrev(L - k2) (k1 = 0); its power goes to pw[k].
+template <int L, int... rs>
+__device__ __forceinline__ void power_mixed(const float2 (&z)[kP], int l,
+                                            const float2* __restrict__ tw,
+                                            float* pw,
+                                            std::integer_sequence<int, rs...>) {
+  constexpr int LB = log2_exact(L);
+  const int k2 = __brev(l) >> (32 - LB);
+  const int k2_mirror = __brev((L - k2) & (L - 1)) >> (32 - LB);
+  (
+      [&] {
+        constexpr int k1 = mixed_bin(rs);
+        constexpr int rp = k1 ? mixed_reg(kP - k1) : 0;
+        const int src = k1 ? l ^ (L - 1) : k2_mirror;
+        const float br = __shfl_sync(kFull, z[rp].x, src, L);
+        const float bi = __shfl_sync(kFull, z[rp].y, src, L);
+        const float ex = 0.5f * (z[rs].x + br), ey = 0.5f * (z[rs].y - bi);
+        const float ox = 0.5f * (z[rs].y + bi), oy = -0.5f * (z[rs].x - br);
+        const int k = k1 + kP * k2;
+        const float2 w = __ldg(tw + k);
+        const float xr = ex + w.x * ox - w.y * oy;
+        const float xi = ey + w.x * oy + w.y * ox;
+        pw[k] = xr * xr + xi * xi;
+      }(),
+      ...);
+}
+
+// L lanes a frame, F = 32 / L frames a warp, the H = 25 L packed points of
+// a frame in its lanes' registers: lane l holds z[q] = x[2q] + i x[2q+1]
+// for q = l + L m in register m < 25.  The front end (DC removal, energy,
+// pre-emphasis, window) is the power-of-two kernel's with sums and
+// neighbours over the frame's group of lanes; the mel stage gives each
+// lane one (frame, bin) of its warp at a time.  tw holds W_N^t, t < N.
+template <int L>
+__global__ void __launch_bounds__(256)
+fbank_mixed_kernel(const float* __restrict__ frames, int T, int ws,
+                   const float2* __restrict__ tw,
+                   const float* __restrict__ win,
+                   const int* __restrict__ bd, const float* __restrict__ bw,
+                   int M, float preemph, int remove_dc, int vec,
+                   float* __restrict__ out, float* __restrict__ energy) {
+  constexpr int H = kP * L, F = 32 / L, LB = log2_exact(L);
+  constexpr int S = mixed_pw_stride(L);
+  extern __shared__ float4 smem4[];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int l = lane & (L - 1);
+  const int t0 = (blockIdx.x * (blockDim.x >> 5) + warp) * F;
+  if (t0 >= T) return;
+  const int t = t0 + lane / L;
+  const bool valid = t < T;
+  float* pw = reinterpret_cast<float*>(smem4) + warp * F * S;
+
+  // the frame; past ws (and for a frame past T) zeros
+  const float* fr = frames + (size_t)t * ws;
+  float2 z[kP];
+#pragma unroll
+  for (int m = 0; m < kP; ++m) {
+    const int i = 2 * (l + L * m);
+    z[m] = make_float2(0.f, 0.f);
+    if (!valid) continue;
+    if (vec && i < ws) {
+      z[m] = __ldcs(reinterpret_cast<const float2*>(fr + i));
+    } else if (!vec) {
+      if (i < ws) z[m].x = __ldcs(fr + i);
+      if (i + 1 < ws) z[m].y = __ldcs(fr + i + 1);
+    }
+  }
+
+  // DC removal and raw energy over the ws samples (sums over the group)
+  float s = 0.f;
+#pragma unroll
+  for (int m = 0; m < kP; ++m) s += z[m].x + z[m].y;
+#pragma unroll
+  for (int o = L / 2; o > 0; o /= 2) s += __shfl_xor_sync(kFull, s, o);
+  const float mean = remove_dc ? s / (float)ws : 0.f;
+  float e = 0.f;
+#pragma unroll
+  for (int m = 0; m < kP; ++m) {
+    const int i = 2 * (l + L * m);
+    if (i < ws) z[m].x -= mean;
+    if (i + 1 < ws) z[m].y -= mean;
+    e = fmaf(z[m].x, z[m].x, fmaf(z[m].y, z[m].y, e));
+  }
+#pragma unroll
+  for (int o = L / 2; o > 0; o /= 2) e += __shfl_xor_sync(kFull, e, o);
+  if (l == 0 && valid) energy[t] = logf(fmaxf(e, kEpsilon));
+
+  // pre-emphasis and the window: the predecessor of sample 2q is lane
+  // l - 1's odd sample, or for lane 0 lane L - 1's of register m - 1
+  float prev[kP];
+#pragma unroll
+  for (int m = 0; m < kP; ++m) {
+    const float up = __shfl_up_sync(kFull, z[m].y, 1, L);
+    const float wrap = __shfl_sync(kFull, z[m > 0 ? m - 1 : 0].y, L - 1, L);
+    prev[m] = l > 0 ? up : (m > 0 ? wrap : z[0].x);
+  }
+#pragma unroll
+  for (int m = 0; m < kP; ++m) {
+    const int i = 2 * (l + L * m);
+    float2 w = make_float2(0.f, 0.f);
+    if (vec && i < ws) {
+      w = __ldg(reinterpret_cast<const float2*>(win + i));
+    } else if (!vec) {
+      if (i < ws) w.x = __ldg(win + i);
+      if (i + 1 < ws) w.y = __ldg(win + i + 1);
+    }
+    const float a = (z[m].x - preemph * prev[m]) * w.x;
+    z[m].y = (z[m].y - preemph * z[m].x) * w.y;
+    z[m].x = a;
+  }
+
+  // the 25-point DFT in the registers, then the twiddle W_H^{l k1} =
+  // W_N^{2 l k1} (2 l k1 <= 48 (L - 1) < N)
+  dft25<L>(z, tw);
+#pragma unroll
+  for (int r = 0; r < kP; ++r)
+    if (mixed_bin(r)) z[r] = cmul(z[r], __ldg(tw + 2 * l * mixed_bin(r)));
+
+  // L-point DIF across the group's lanes: at distance d the lower lane
+  // keeps a + b, the upper (a - b) W_{2d}^{l mod d} = W_N^{(l mod d) 25 L / d}
+#pragma unroll
+  for (int step = 0; step < LB; ++step) {
+    const int d = (L / 2) >> step;
+    const bool upper = l & d;
+    const float sign = upper ? -1.f : 1.f;
+    const float2 w = upper ? __ldg(tw + (l & (d - 1)) * (kP * L / d))
+                           : make_float2(1.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < kP; ++r) {
+      const float sr = fmaf(sign, z[r].x, __shfl_xor_sync(kFull, z[r].x, d));
+      const float si = fmaf(sign, z[r].y, __shfl_xor_sync(kFull, z[r].y, d));
+      z[r] = d == 1 ? make_float2(sr, si) : cmul(make_float2(sr, si), w);
+    }
+  }
+
+  // the power spectrum; bin H is (Re Z[0] - Im Z[0])^2
+  float* pwf = pw + (lane / L) * S;
+  power_mixed<L>(z, l, tw, pwf, std::make_integer_sequence<int, kP>());
+  if (l == 0) {
+    const float x = z[0].x - z[0].y;
+    pwf[H] = x * x;
+  }
+  __syncwarp();
+
+  // mel: one lane a (frame, bin) of the warp, over the bin's band only;
+  // the warp's outputs are contiguous
+  for (int j = lane; j < F * M; j += 32) {
+    const int f = j / M, m = j - f * M;
+    if (t0 + f >= T) break;
+    const float* p = pw + f * S;
+    const int first = __ldg(bd + m), len = __ldg(bd + M + m);
+    float acc = 0.f;
+#pragma unroll 4
+    for (int jj = 0; jj < len; ++jj)
+      acc = fmaf(p[first + jj], __ldg(bw + jj * M + m), acc);
+    out[(size_t)t0 * M + j] = logf(fmaxf(acc, kEpsilon));
+  }
+}
+
+template <int L>
+int launch_mixed(const float* frames, int T, int ws, const float* twiddle,
+                 const float* window, const int* bands, const float* band_w,
+                 int M, float preemph, int remove_dc, float* out,
+                 float* energy, cudaStream_t stream) {
+  constexpr int kWarps = 8, F = 32 / L;
+  const int vec =
+      ws % 2 == 0 && ((uintptr_t)frames | (uintptr_t)window) % 8 == 0;
+  const size_t smem = sizeof(float) * kWarps * F * mixed_pw_stride(L);
+  const int blocks = (T + kWarps * F - 1) / (kWarps * F);
+  fbank_mixed_kernel<L><<<blocks, 32 * kWarps, smem, stream>>>(
+      frames, T, ws, reinterpret_cast<const float2*>(twiddle), window, bands,
+      band_w, M, preemph, remove_dc, vec, out, energy);
+  return (int)cudaGetLastError();
+}
+
 template <int R>
 int launch_fft(const float* frames, int T, int ws, const float* twiddle,
                const float* window, const int* bands, const float* band_w,
@@ -477,6 +750,35 @@ extern "C" int kcnn_fbank_fft(const float* frames, int T, int ws, int n,
     KCNN_FFT_CASE(16)
     KCNN_FFT_CASE(32)
 #undef KCNN_FFT_CASE
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The mixed-radix FFT kernel, with kcnn_fbank_fft's arguments, for n = 50 L,
+// L a power of two from 2 to 32 (100, 200, 400, 800, 1600: Kaldi's 25 ms
+// frames at 8 and 16 kHz with round_to_power_of_two off are 200 and 400);
+// twiddle [n] complex exp(-2 pi i t / n), t < n (the power-of-two kernel's
+// table less its W_64 tail may be passed).  Returns the launch's cudaError_t
+// (cudaErrorInvalidValue for sizes it does not take).
+extern "C" int kcnn_fbank_fft_mixed(const float* frames, int T, int ws, int n,
+                                    const float* twiddle, const float* window,
+                                    const int* bands, const float* band_w,
+                                    int M, float preemph, int remove_dc,
+                                    float* out, float* energy, void* stream) {
+  if (n % 50 || ws <= 0 || ws > n || M <= 0) return (int)cudaErrorInvalidValue;
+  if (T <= 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  switch (n / 50) {
+#define KCNN_MIXED_CASE(L)                                                    \
+  case L:                                                                     \
+    return launch_mixed<L>(frames, T, ws, twiddle, window, bands, band_w, M, \
+                           preemph, remove_dc, out, energy, st);
+    KCNN_MIXED_CASE(2)
+    KCNN_MIXED_CASE(4)
+    KCNN_MIXED_CASE(8)
+    KCNN_MIXED_CASE(16)
+    KCNN_MIXED_CASE(32)
+#undef KCNN_MIXED_CASE
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -49,6 +49,26 @@
 //   one output element a thread, a window's offsets tabulated in shared
 //   memory, kChunk scalar loads in flight.
 //
+// And two backward kernels, picked the same way:
+//
+// * maxpool_bwd_vec_kernel (kcnn_maxpool_bwd_vec), the training path's,
+//   under the forward's vector conditions (the derivative, argmax and input
+//   derivative pointers 16-byte aligned): the forward's twin.  A thread owns
+//   V consecutive channels of one output position of one row: one 16-byte
+//   ld.global.nc of the derivative, one 4- or 8-byte load of the int8
+//   argmax (16-byte loads of an int32 one), then for each of the window's
+//   pool_t * pool_f offsets one 16-byte streaming store (__stcs) of the
+//   derivative's bits masked to the lanes whose argmax is that offset (0
+//   elsewhere; a NaN window's argmax is no offset, so it gets zeros).  The
+//   scalar backward stores 4 or 2 bytes a thread for each offset, so a
+//   warp request moves 128 B (f32) or 64 B (bf16): in bf16 it took 36 % of
+//   its bound at the Switchboard shape (8x30x48, 256 rows) and in f32 77 %
+//   at the bench shape, in CUDA graphs on an H100 80GB HBM3 (700 W).  Here
+//   a request moves 512 B.  The pool 2x3 is compile-time, others run-time;
+//   no offset table, no __syncthreads.
+// * maxpool_bwd_kernel (kcnn_maxpool_bwd), any pool_c, in_c and alignment:
+//   one output element a thread, its window's offsets tabulated.
+//
 // Layout of the scalar kernels: both give a thread one output element of a
 // row and walk rows along the grid's y dimension, so the element's (ot, of,
 // oc) and its window's offset are computed once (integer division, not
@@ -58,10 +78,10 @@
 // Neighbouring threads take neighbouring output channels, so for each window
 // offset a warp reads (forward) or writes (backward) one contiguous run of
 // the row (coalesced when pool_c = 1, the CNN recipe's case) and the maxima
-// and argmax are contiguous.  The backward writes the thread's whole window,
-// the derivative at the argmax and 0 elsewhere; the windows tile the input,
-// so every input element is written exactly once, with no atomics and no
-// memset pass.
+// and argmax are contiguous.  Both backward kernels write the thread's whole
+// window, the derivative at the argmax and 0 elsewhere; the windows tile
+// the input, so every input element is written exactly once, with no
+// atomics and no memset pass.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -340,6 +360,91 @@ __global__ void maxpool_bwd_kernel(const T* __restrict__ d,
   }
 }
 
+// The argmax of V consecutive output elements: one 4- or 8-byte load of
+// int8, or V / 4 16-byte loads of int32.
+template <typename A, int V>
+__device__ __forceinline__ void load_argmax(const A* p, int (&a)[V]) {
+  if constexpr (sizeof(A) == 1) {
+    uint32_t u[V / 4];
+    if constexpr (V == 4) {
+      u[0] = __ldg(reinterpret_cast<const unsigned int*>(p));
+    } else {
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+      u[0] = v.x;
+      u[1] = v.y;
+    }
+#pragma unroll
+    for (int j = 0; j < V; ++j) a[j] = (int)(int8_t)(u[j >> 2] >> (8 * (j & 3)));
+  } else {
+#pragma unroll
+    for (int q = 0; q < V / 4; ++q) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(p) + q);
+      a[4 * q] = v.x;
+      a[4 * q + 1] = v.y;
+      a[4 * q + 2] = v.z;
+      a[4 * q + 3] = v.w;
+    }
+  }
+}
+
+// The 16-byte vector d with every lane whose argmax is not w cleared: the
+// derivative's own bits (-0.0 and NaN payloads included) or +0.0.  A word
+// holds one f32 lane, or bf16 lanes 2q (low half) and 2q + 1.
+template <int V>
+__device__ __forceinline__ uint4 routed(const uint4& d, const int (&a)[V],
+                                        int w) {
+  uint32_t m[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    if constexpr (V == 4)
+      m[q] = a[q] == w ? 0xffffffffu : 0u;
+    else
+      m[q] = (a[2 * q] == w ? 0x0000ffffu : 0u) |
+             (a[2 * q + 1] == w ? 0xffff0000u : 0u);
+  }
+  return make_uint4(d.x & m[0], d.y & m[1], d.z & m[2], d.w & m[3]);
+}
+
+// The forward's twin: V = 16 / sizeof(T) consecutive output channels of one
+// output position a thread, x over a row's vectors, y over rows.  PT, PF > 0
+// fix the pool at compile time; PT = PF = 0 read it from s.  Requires
+// pool_c = 1, in_c % V = 0 and 16-byte aligned d, arg and dx.
+template <typename T, typename A, int PT, int PF>
+__global__ void maxpool_bwd_vec_kernel(const T* __restrict__ d,
+                                       const A* __restrict__ arg, int N,
+                                       Shape s, T* __restrict__ dx) {
+  constexpr int V = 16 / sizeof(T);
+  constexpr int kW = PT * PF;                  // 0: the pool is runtime
+  const int e = (blockIdx.x * blockDim.x + threadIdx.x) * V;
+  if (e >= s.out_dim) return;
+  const int base = window_base(s, e);
+  for (int n = blockIdx.y; n < N; n += gridDim.y) {
+    const int64_t o = (int64_t)n * s.out_dim + e;
+    const uint4 v = __ldg(reinterpret_cast<const uint4*>(d + o));
+    int a[V];
+    load_argmax<A, V>(arg + o, a);
+    T* dr = dx + (int64_t)n * s.in_dim + base;
+    if constexpr (kW > 0) {
+#pragma unroll
+      for (int w = 0; w < kW; ++w)
+        __stcs(reinterpret_cast<uint4*>(
+                   dr + ((w / PF) * s.in_f + w % PF) * s.in_c),
+               routed<V>(v, a, w));
+    } else {
+      const int window = s.pool_t * s.pool_f;
+      int pt = 0, pf = 0;
+      for (int w = 0; w < window; ++w) {
+        __stcs(reinterpret_cast<uint4*>(dr + (pt * s.in_f + pf) * s.in_c),
+               routed<V>(v, a, w));
+        if (++pf == s.pool_f) {
+          pf = 0;
+          ++pt;
+        }
+      }
+    }
+  }
+}
+
 // x over a row's output elements, y over rows: enough blocks to fill
 // the card, each walking several rows.
 dim3 grid_for(int N, const Shape& s) {
@@ -389,13 +494,18 @@ int launch_fwd(const void* x, int N, const Shape& s, void* out, void* arg,
   return (int)cudaGetLastError();
 }
 
+// The vector kernels' grid: x over a row's vectors in blocks of
+// kVecThreads, y over rows.
+template <typename T>
+dim3 vec_grid(int N, const Shape& s) {
+  const int vecs = s.out_dim / (16 / (int)sizeof(T));
+  return dim3((vecs + kVecThreads - 1) / kVecThreads, N < 65535 ? N : 65535);
+}
+
 template <typename T, typename A>
 void launch_fwd_vec_pool(const T* x, int N, const Shape& s, T* out, A* arg,
                          cudaStream_t stream) {
-  // x over a row's vectors in blocks of kVecThreads, y over rows
-  const int vecs = s.out_dim / (16 / (int)sizeof(T));
-  const dim3 grid((vecs + kVecThreads - 1) / kVecThreads,
-                  N < 65535 ? N : 65535);
+  const dim3 grid = vec_grid<T>(N, s);
   if (s.pool_t == 2 && s.pool_f == 3)
     maxpool_fwd_vec_kernel<T, A, 2, 3><<<grid, kVecThreads, 0, stream>>>(
         x, N, s, out, arg);
@@ -433,6 +543,32 @@ int launch_bwd(const void* d, const void* arg, int arg_bytes, int N,
   else
     maxpool_bwd_kernel<T, int32_t><<<grid, kThreads, smem, stream>>>(
         dt, static_cast<const int32_t*>(arg), N, s, dxt);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename A>
+void launch_bwd_vec_pool(const T* d, const A* arg, int N, const Shape& s,
+                         T* dx, cudaStream_t stream) {
+  const dim3 grid = vec_grid<T>(N, s);
+  if (s.pool_t == 2 && s.pool_f == 3)
+    maxpool_bwd_vec_kernel<T, A, 2, 3><<<grid, kVecThreads, 0, stream>>>(
+        d, arg, N, s, dx);
+  else
+    maxpool_bwd_vec_kernel<T, A, 0, 0><<<grid, kVecThreads, 0, stream>>>(
+        d, arg, N, s, dx);
+}
+
+template <typename T>
+int launch_bwd_vec(const void* d, const void* arg, int arg_bytes, int N,
+                   const Shape& s, void* dx, cudaStream_t stream) {
+  const T* dt = static_cast<const T*>(d);
+  T* dxt = static_cast<T*>(dx);
+  if (arg_bytes == 1)
+    launch_bwd_vec_pool<T, int8_t>(dt, static_cast<const int8_t*>(arg), N, s,
+                                   dxt, stream);
+  else
+    launch_bwd_vec_pool<T, int32_t>(dt, static_cast<const int32_t*>(arg), N,
+                                    s, dxt, stream);
   return (int)cudaGetLastError();
 }
 
@@ -509,4 +645,31 @@ extern "C" int kcnn_maxpool_bwd(const void* out_deriv, const void* argmax,
                                           in_deriv, st)
               : launch_bwd<float>(out_deriv, argmax, arg_bytes, N, s,
                                   in_deriv, st);
+}
+
+// The vectorised backward, with kcnn_maxpool_bwd's arguments.  Returns
+// cudaErrorInvalidValue, besides kcnn_maxpool_bwd's cases, when pool_c is
+// not 1, in_c is not a multiple of 16 B / element, an int8 argmax cannot
+// hold the window, or out_deriv, argmax or in_deriv is not 16-byte aligned.
+extern "C" int kcnn_maxpool_bwd_vec(const void* out_deriv, const void* argmax,
+                                    int arg_bytes, int N, int in_t, int in_f,
+                                    int in_c, int pool_t, int pool_f,
+                                    int pool_c, int bf16, void* in_deriv,
+                                    void* stream) {
+  Shape s;
+  if (!make_shape(in_t, in_f, in_c, pool_t, pool_f, pool_c, &s))
+    return (int)cudaErrorInvalidValue;
+  if (arg_bytes != 1 && arg_bytes != 4) return (int)cudaErrorInvalidValue;
+  if (arg_bytes == 1 && pool_t * pool_f >= 128)
+    return (int)cudaErrorInvalidValue;
+  const int v = bf16 ? 8 : 4;
+  if (pool_c != 1 || in_c % v || ((uintptr_t)out_deriv | (uintptr_t)argmax |
+                                  (uintptr_t)in_deriv) % 16)
+    return (int)cudaErrorInvalidValue;
+  if (N <= 0) return (int)cudaSuccess;
+  cudaStream_t st = (cudaStream_t)stream;
+  return bf16 ? launch_bwd_vec<__nv_bfloat16>(out_deriv, argmax, arg_bytes, N,
+                                              s, in_deriv, st)
+              : launch_bwd_vec<float>(out_deriv, argmax, arg_bytes, N, s,
+                                      in_deriv, st);
 }

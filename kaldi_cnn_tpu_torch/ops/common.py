@@ -52,6 +52,8 @@ SIGNATURES = {
     # remove_dc, out, energy, stream
     "kcnn_fbank_fft": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _F, _I, _P, _P,
                        _P],
+    "kcnn_fbank_fft_mixed": [_P, _I, _I, _I, _P, _P, _P, _P, _I, _F, _I, _P,
+                             _P, _P],
     # x, N, w, b, in_t, in_f, in_c, filt_t, filt_f, F, pool_t, pool_f,
     # relu, out, stream
     "kcnn_conv_maxpool": [_P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -66,6 +68,8 @@ SIGNATURES = {
     # out_deriv, argmax, arg_bytes, N, in_t, in_f, in_c, pool_t, pool_f,
     # pool_c, bf16, in_deriv, stream
     "kcnn_maxpool_bwd": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _P],
+    "kcnn_maxpool_bwd_vec": [_P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+                             _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

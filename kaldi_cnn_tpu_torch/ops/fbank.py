@@ -9,20 +9,24 @@ kernels (``csrc/fbank.cu``) run the whole per-frame chain
 
 for a batch of frames, and write [T, num_bins] log-mel and [T] raw log
 energy with no lane padding.  ``fbank_kernel`` picks one from the padded
-window size before the launch: a real FFT in registers and warp
+window size N before the launch: a real FFT in registers and warp
 shuffles, one warp a frame, with the mel sums over each filter's band
-only, when it is a power of two from 64 to 2048 (Kaldi's default
-``round_to_power_of_two``; ``fbank_frames.launches``), else the DFT as
-sums against cos/sin tables (``fbank_frames_table``, its own count).
+only, when N is a power of two from 64 to 2048 (Kaldi's default
+``round_to_power_of_two``; ``fbank_frames.launches``); a mixed-radix
+real FFT (a 25-point DFT in each lane's registers, a power-of-two one
+across L lanes) when N = 50 L is in ``MIXED_SIZES``, as Kaldi's 25 ms
+frames are with ``round_to_power_of_two`` off (``fbank_frames_mixed``,
+its own count); else the DFT as sums against cos/sin tables
+(``fbank_frames_table``, its own count).
 ``fbank_reference_frames`` is the table DFT in plain PyTorch, in the
 frames' dtype (float32, or float64 with float64 DFT tables).  Dither is
 added to the raw frames before either; energy flooring and
 ``use_energy`` are applied after it.
 
-``mfcc`` runs the same kernel with the energy kept and then the DCT
+``mfcc`` runs the same kernels with the energy kept and then the DCT
 and the lifter as one small product on the device, as ``mfcc_pallas``
-does them outside its Pallas call; it counts its launches through
-``fbank_frames``.
+does them outside its Pallas call; it counts its launches through the
+wrapper that ``fbank_frames`` picks.
 
 A CPU tensor takes the plain version; a CUDA tensor launches a kernel
 or raises.
@@ -41,19 +45,25 @@ from kaldi_cnn_tpu_torch.features import functional as F
 from kaldi_cnn_tpu_torch.ops import common
 
 FFT_SIZES = (64, 2048)      # padded window sizes the FFT kernel takes
+# the mixed-radix kernel's: N = 50 L, L = 2 .. 32 lanes a frame
+MIXED_SIZES = (100, 200, 400, 800, 1600)
 
 
 def fbank_kernel(frame_opts: F.FrameExtractionOptions) -> str:
     """``"fft"`` when the padded window size is a power of two in
-    ``FFT_SIZES``, else ``"table"``."""
+    ``FFT_SIZES``, ``"mixed"`` when it is in ``MIXED_SIZES``, else
+    ``"table"``."""
     n = frame_opts.padded_window_size
     lo, hi = FFT_SIZES
-    return "fft" if lo <= n <= hi and n & (n - 1) == 0 else "table"
+    if lo <= n <= hi and n & (n - 1) == 0:
+        return "fft"
+    return "mixed" if n in MIXED_SIZES else "table"
 
 
 def fft_twiddles(n: int) -> np.ndarray:
     """[n + 64, 2] f32 (re, im): exp(-2 pi i t / n) for t < n, then
-    exp(-2 pi i j / 64) for j < 64, computed in float64."""
+    exp(-2 pi i j / 64) for j < 64, computed in float64.  Both FFT
+    kernels read it; the mixed-radix one only its first n rows."""
     t = np.concatenate([np.arange(n) / n, np.arange(64) / 64])
     w = np.exp(-2j * np.pi * t)
     return np.stack([w.real, w.imag], axis=1).astype(np.float32)
@@ -89,7 +99,7 @@ class _Plan(NamedTuple):
     mel: torch.Tensor           # [M, nb]
     window: torch.Tensor        # [ws]
     n: int                      # padded window size
-    twiddle: torch.Tensor       # [n + 64, 2] f32: the FFT kernel
+    twiddle: torch.Tensor       # [n + 64, 2] f32: the FFT kernels
     bands: torch.Tensor         # [2, M] int32
     band_w: torch.Tensor        # [L, M] f32
 
@@ -176,6 +186,35 @@ def fbank_frames_table(frames: torch.Tensor, opts: F.FbankOptions
     return out, energy
 
 
+def _fft(fn: str, frames: torch.Tensor, opts: F.FbankOptions, p: _Plan
+         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launches the FFT kernel ``fn`` (power-of-two or mixed-radix; both
+    take the same arguments) on the CUDA frames with their plan ``p``."""
+    fo = opts.frame_opts
+    out, energy = _outputs(frames, opts)
+    rc = getattr(common.library(), fn)(
+        frames.data_ptr(), frames.shape[0], fo.window_size, p.n,
+        p.twiddle.data_ptr(), p.window.data_ptr(), p.bands.data_ptr(),
+        p.band_w.data_ptr(), p.bands.shape[1],
+        float(fo.preemph_coeff), int(fo.remove_dc_offset), out.data_ptr(),
+        energy.data_ptr(), common.stream_ptr(frames.device))
+    common.check_launch(fn, rc)
+    return out, energy
+
+
+def fbank_frames_mixed(frames: torch.Tensor, opts: F.FbankOptions
+                       ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``fbank_frames`` through the mixed-radix FFT kernel; the padded
+    window size must be in ``MIXED_SIZES`` (the kernel raises
+    otherwise)."""
+    if not common.on_cuda(frames):
+        return fbank_reference_frames(frames, opts)
+    res = _fft("kcnn_fbank_fft_mixed", frames, opts,
+               _plan(opts, frames.device))
+    fbank_frames_mixed.launches += 1
+    return res
+
+
 def fbank_frames(frames: torch.Tensor, opts: F.FbankOptions
                  ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel entry on dithered frames [T, ws] f32: (log-mel, energy).
@@ -185,20 +224,15 @@ def fbank_frames(frames: torch.Tensor, opts: F.FbankOptions
     p = _plan(opts, frames.device)
     if p.kernel == "table":
         return fbank_frames_table(frames, opts)
-    fo = opts.frame_opts
-    out, energy = _outputs(frames, opts)
-    rc = common.library().kcnn_fbank_fft(
-        frames.data_ptr(), frames.shape[0], fo.window_size, p.n,
-        p.twiddle.data_ptr(), p.window.data_ptr(), p.bands.data_ptr(),
-        p.band_w.data_ptr(), p.bands.shape[1],
-        float(fo.preemph_coeff), int(fo.remove_dc_offset), out.data_ptr(),
-        energy.data_ptr(), common.stream_ptr(frames.device))
-    common.check_launch("kcnn_fbank_fft", rc)
+    if p.kernel == "mixed":
+        return fbank_frames_mixed(frames, opts)
+    res = _fft("kcnn_fbank_fft", frames, opts, p)
     fbank_frames.launches += 1
-    return out, energy
+    return res
 
 
 common.counted(fbank_frames)
+common.counted(fbank_frames_mixed)
 common.counted(fbank_frames_table)
 
 

@@ -15,12 +15,14 @@ so the backward routes nothing into it.
 The kernels (``csrc/maxpool.cu``) read each window straight from the
 input row: the forward writes the maxima (and the argmax), the backward
 writes every input element once, the derivative at the argmax and 0
-elsewhere.  The forward has two kernels, and ``forward_kernel`` picks
-one from the shape and the pointers before the launch: the vectorised
-kernel (16-byte loads along the channels; ``maxpool3d.launches``) when
+elsewhere.  Each direction has two kernels, and ``forward_kernel`` /
+``backward_kernel`` pick one from the shape and the pointers before the
+launch: the vectorised kernel (16-byte loads and stores along the
+channels; ``maxpool3d.launches``, ``maxpool3d_backward.launches``) when
 ``pool_c == 1``, ``in_c`` is a multiple of 16 bytes' worth of elements
 and the tensors are 16-byte aligned, as the CNN recipe's are, and the
-scalar kernel (``maxpool3d_scalar``, its own count) otherwise.
+scalar kernel (``maxpool3d_scalar``, ``maxpool3d_backward_scalar``, their
+own counts) otherwise.
 ``maxpool3d_reference`` and ``maxpool3d_backward_reference`` are the
 plain versions: a 7-D reshape with ``amax`` and ``argmax``, and a
 where-scatter.
@@ -122,6 +124,14 @@ def forward_kernel(pool, dtype: torch.dtype, *pointers: int) -> str:
     return "scalar"
 
 
+def backward_kernel(pool, dtype: torch.dtype, *pointers: int) -> str:
+    """Which backward kernel takes ``pool`` on ``dtype`` derivatives at
+    these device addresses (the derivative's, the argmax's and the input
+    derivative's): the forward's conditions, ``"vector"`` or
+    ``"scalar"``."""
+    return forward_kernel(pool, dtype, *pointers)
+
+
 def _forward(fn: str, x: torch.Tensor, pool, with_argmax: bool):
     """Checks x, allocates the outputs and launches the forward kernel
     ``fn``: the maxima, and the argmax with ``with_argmax``."""
@@ -171,30 +181,56 @@ common.counted(maxpool3d)
 common.counted(maxpool3d_scalar)
 
 
-def maxpool3d_backward(out_deriv: torch.Tensor, argmax: torch.Tensor,
-                       pool) -> torch.Tensor:
-    """[N, out_dim] derivative and argmax -> [N, in_dim] derivative in
-    out_deriv's dtype."""
+def _backward(fn: str, out_deriv: torch.Tensor, argmax: torch.Tensor,
+              pool) -> torch.Tensor:
+    """Checks the operands, allocates the input derivative and launches
+    the backward kernel ``fn``."""
     *_, in_dim, out_dim = _dims(pool)
-    if not common.on_cuda(out_deriv, argmax):
-        return maxpool3d_backward_reference(out_deriv, argmax, pool)
     n = out_deriv.shape[0]
     _check_values(out_deriv, "out_deriv")
     common.require(out_deriv, "out_deriv", out_deriv.dtype, (n, out_dim))
     common.require(argmax, "argmax", argmax_dtype(pool), (n, out_dim))
     dx = torch.empty((n, in_dim), dtype=out_deriv.dtype,
                      device=out_deriv.device)
-    rc = common.library().kcnn_maxpool_bwd(
+    rc = getattr(common.library(), fn)(
         out_deriv.data_ptr(), argmax.data_ptr(), argmax.element_size(), n,
         pool.in_t, pool.in_f, pool.in_c, pool.pool_t, pool.pool_f,
         pool.pool_c, int(out_deriv.dtype == torch.bfloat16), dx.data_ptr(),
         common.stream_ptr(out_deriv.device))
-    common.check_launch("kcnn_maxpool_bwd", rc)
+    common.check_launch(fn, rc)
+    return dx
+
+
+def maxpool3d_backward_scalar(out_deriv: torch.Tensor, argmax: torch.Tensor,
+                              pool) -> torch.Tensor:
+    """``maxpool3d_backward`` through the scalar backward kernel, whatever
+    the shape: one output element a thread."""
+    _dims(pool)
+    if not common.on_cuda(out_deriv, argmax):
+        return maxpool3d_backward_reference(out_deriv, argmax, pool)
+    dx = _backward("kcnn_maxpool_bwd", out_deriv, argmax, pool)
+    maxpool3d_backward_scalar.launches += 1
+    return dx
+
+
+def maxpool3d_backward(out_deriv: torch.Tensor, argmax: torch.Tensor,
+                       pool) -> torch.Tensor:
+    """[N, out_dim] derivative and argmax -> [N, in_dim] derivative in
+    out_deriv's dtype.  The output comes from PyTorch's allocator, so the
+    derivative and the argmax decide the kernel."""
+    _dims(pool)
+    if not common.on_cuda(out_deriv, argmax):
+        return maxpool3d_backward_reference(out_deriv, argmax, pool)
+    if backward_kernel(pool, out_deriv.dtype, out_deriv.data_ptr(),
+                       argmax.data_ptr()) == "scalar":
+        return maxpool3d_backward_scalar(out_deriv, argmax, pool)
+    dx = _backward("kcnn_maxpool_bwd_vec", out_deriv, argmax, pool)
     maxpool3d_backward.launches += 1
     return dx
 
 
 common.counted(maxpool3d_backward)
+common.counted(maxpool3d_backward_scalar)
 
 
 class MaxPool3D(torch.autograd.Function):

@@ -229,7 +229,8 @@ def test_maxpool_kernels_match_plain(cuda, shape, dtype, rows):
     x[0, 5] = float("nan")                   # one window pools to NaN
     counter = (mp.maxpool3d if mp.forward_kernel(pool, dtype, x.data_ptr())
                == "vector" else mp.maxpool3d_scalar)
-    before = (counter.launches, mp.maxpool3d_backward.launches)
+    bwd = _backward_counter(pool, dtype)
+    before = (counter.launches, bwd.launches)
     y = mp.maxpool3d(x, pool)
     y2, arg = mp.maxpool3d(x, pool, with_argmax=True)
     want, want_arg = mp.maxpool3d_reference(x, pool, with_argmax=True)
@@ -238,24 +239,32 @@ def test_maxpool_kernels_match_plain(cuda, shape, dtype, rows):
     dx = mp.maxpool3d_backward(d, arg, pool)
     want_dx = mp.maxpool3d_backward_reference(d, want_arg, pool)
     torch.cuda.synchronize()
-    assert (counter.launches, mp.maxpool3d_backward.launches) == (
-        before[0] + 2, before[1] + 1)
+    assert (counter.launches, bwd.launches) == (before[0] + 2, before[1] + 1)
     assert _equal(y, want) and _equal(y2, want)
     assert arg.dtype == mp.argmax_dtype(pool) and torch.equal(arg, want_arg)
     assert int(arg.max()) == mp.window(pool)  # the NaN window's argmax
     assert _equal(dx, want_dx)
 
 
+def _backward_counter(pool, dtype):
+    """The wrapper whose count a backward on PyTorch-allocated (aligned)
+    tensors of this pool and dtype moves."""
+    return (mp.maxpool3d_backward
+            if mp.backward_kernel(pool, dtype) == "vector"
+            else mp.maxpool3d_backward_scalar)
+
+
 def test_maxpool_autograd_runs_the_kernels(cuda):
-    pool = mp.Pool3D(4, 6, 8, 2, 3, 2)
+    pool = mp.Pool3D(4, 6, 8, 2, 3, 2)        # pool_c = 2: the scalar ones
     x = torch.randn(9, 192, device=cuda, requires_grad=True)
-    before = mp.maxpool3d_backward.launches
+    bwd = _backward_counter(pool, x.dtype)
+    before = bwd.launches
     y = mp.MaxPool3D.apply(x, pool)
     (g,) = torch.autograd.grad((y * y).sum(), x)
     xr = x.detach().cpu().requires_grad_()
     (gr,) = torch.autograd.grad(
         (mp.MaxPool3D.apply(xr, pool) ** 2).sum(), xr)
-    assert mp.maxpool3d_backward.launches == before + 1
+    assert bwd.launches == before + 1
     assert torch.equal(g.cpu(), gr)
 
 
@@ -340,25 +349,124 @@ def test_mfcc_on_card_matches_plain_on_cpu(cuda, sr, dither):
     assert (err.max(axis=0) <= limit).all(), err.max(axis=0)
 
 
+def _counts():
+    return (fb.fbank_frames.launches, fb.fbank_frames_mixed.launches,
+            fb.fbank_frames_table.launches)
+
+
 @pytest.mark.parametrize("sr,bins", [(8000, 36), (16000, 23), (16000, 40)])
 def test_fbank_table_kernel_runs_without_power_of_two(cuda, sr, bins):
-    """round_to_power_of_two=False (N = ws = 200 or 400) takes the table
-    kernel, which moves its own count and matches the plain version; the
-    table kernel also still takes the power-of-two sizes."""
+    """round_to_power_of_two=False (N = ws = 200 or 400) takes the
+    mixed-radix kernel now, not the table kernel; the table kernel still
+    takes those sizes through fbank_frames_table, and the power-of-two
+    ones, moves its own count and matches the plain version."""
     x, opts = _fbank_frames(cuda, sr, 301, 1, bins, pow2=False)
-    assert fb.fbank_kernel(opts.frame_opts) == "table"
-    before = (fb.fbank_frames.launches, fb.fbank_frames_table.launches)
-    out, energy = fb.fbank_frames(x, opts)
+    assert fb.fbank_kernel(opts.frame_opts) == "mixed"
+    before = _counts()
+    out, energy = fb.fbank_frames_table(x, opts)
     ref, ref_e = fb.fbank_reference_frames(x, opts)
     x2, opts2 = _fbank_frames(cuda, sr, 301, 1, bins)
     out2, _ = fb.fbank_frames_table(x2, opts2)
     ref2, _ = fb.fbank_reference_frames(x2, opts2)
     torch.cuda.synchronize()
-    assert (fb.fbank_frames.launches, fb.fbank_frames_table.launches) == (
-        before[0], before[1] + 2)
+    assert _counts() == (before[0], before[1], before[2] + 2)
     for got, want in ((out, ref), (energy, ref_e), (out2, ref2)):
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=0, atol=FBANK_ATOL)
+
+
+@pytest.mark.parametrize("sr", [8000, 16000])
+@pytest.mark.parametrize("frames", [1, 7, 301])
+@pytest.mark.parametrize("dither", [0, 1])
+def test_fbank_mixed_kernel_matches_float64_and_f32_plain(cuda, sr, frames,
+                                                          dither):
+    """round_to_power_of_two=False (N = ws = 200, 400): fbank_frames takes
+    the mixed-radix kernel, which moves its own count only and holds to
+    the float64 plain version and to the float32 one."""
+    x, opts = _fbank_frames(cuda, sr, frames, dither, pow2=False)
+    assert fb.fbank_kernel(opts.frame_opts) == "mixed"
+    before = _counts()
+    out, energy = fb.fbank_frames(x, opts)
+    ref64, ref64_e = fb.fbank_reference_frames(x.double(), opts)
+    ref, ref_e = fb.fbank_reference_frames(x, opts)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0], before[1] + 1, before[2])
+    assert out.shape == (frames, opts.mel_opts.num_bins)
+    assert bool(torch.isfinite(out).all())
+    for got, want in ((out, ref64), (energy, ref64_e), (out, ref),
+                      (energy, ref_e)):
+        np.testing.assert_allclose(got.cpu().double().numpy(),
+                                   want.cpu().double().numpy(), rtol=0,
+                                   atol=FBANK_ATOL)
+
+
+@pytest.mark.parametrize("sr", [4000, 32000, 64000])
+def test_fbank_mixed_kernel_takes_every_size(cuda, sr):
+    """N = 100, 800 and 1600 (2, 16 and 32 lanes a frame) against the
+    float64 plain version."""
+    x, opts = _fbank_frames(cuda, sr, 301, 1, 23, pow2=False)
+    assert opts.frame_opts.padded_window_size == sr // 40
+    before = _counts()
+    out, energy = fb.fbank_frames(x, opts)
+    ref, ref_e = fb.fbank_reference_frames(x.double(), opts)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0], before[1] + 1, before[2])
+    for got, want in ((out, ref), (energy, ref_e)):
+        np.testing.assert_allclose(got.cpu().double().numpy(),
+                                   want.cpu().numpy(), rtol=0,
+                                   atol=FBANK_ATOL)
+
+
+@pytest.mark.parametrize("sr", [8000, 16000])
+@pytest.mark.parametrize("dither", [0, 1])
+def test_mfcc_mixed_on_card_matches_plain_on_cpu(cuda, sr, dither):
+    """MFCC with round_to_power_of_two=False (N = 200, 400) launches the
+    mixed-radix kernel once and holds to mfcc_reference on the CPU by the
+    limits of test_mfcc_on_card_matches_plain_on_cpu."""
+    opts = F.MfccOptions()
+    opts.frame_opts.samp_freq = float(sr)
+    opts.frame_opts.dither = float(dither)
+    opts.frame_opts.round_to_power_of_two = False
+    wave = (np_rng(10, "mfcc").normal(size=sr) * 1000).astype(np.float32)
+    before = _counts()
+    got = fb.mfcc(torch.as_tensor(wave, device=cuda), opts,
+                  torch_generator(10, "mfcc_dither"))
+    torch.cuda.synchronize()
+    assert _counts() == (before[0], before[1] + 1, before[2])
+    want = fb.mfcc_reference(torch.as_tensor(wave), opts,
+                             torch_generator(10, "mfcc_dither"))
+    assert got.shape == want.shape == (F.num_frames(sr, opts.frame_opts), 13)
+    limit = 2e-3 * F.lifter_coeffs(13, 22.0).astype(np.float64)
+    limit[0] = 1e-3
+    err = np.abs(got.cpu().double().numpy() - want.double().numpy())
+    assert (err.max(axis=0) <= limit).all(), err.max(axis=0)
+
+
+def test_fbank_mixed_kernel_takes_misaligned_frames(cuda):
+    """Frames that start 4 bytes into an aligned buffer: the mixed-radix
+    kernel reads them with scalar loads and still matches."""
+    x, opts = _fbank_frames(cuda, 16000, 50, 1, pow2=False)
+    buf = torch.empty(x.numel() + 1, device=cuda)
+    view = buf[1:].view(x.shape)
+    view.copy_(x)
+    assert view.data_ptr() % 16 == 4
+    before = _counts()
+    out, energy = fb.fbank_frames(view, opts)
+    ref, ref_e = fb.fbank_reference_frames(x.double(), opts)
+    torch.cuda.synchronize()
+    assert _counts() == (before[0], before[1] + 1, before[2])
+    for got, want in ((out, ref), (energy, ref_e)):
+        np.testing.assert_allclose(got.cpu().double().numpy(),
+                                   want.cpu().numpy(), rtol=0,
+                                   atol=FBANK_ATOL)
+
+
+def test_fbank_mixed_kernel_refuses_other_sizes(cuda):
+    """The C entry point checks N itself and raises through the wrapper's
+    launch check; it never falls back."""
+    x, opts = _fbank_frames(cuda, 8000, 5, 0)             # N 256
+    with pytest.raises(RuntimeError, match="kcnn_fbank_fft_mixed"):
+        fb.fbank_frames_mixed(x, opts)
 
 
 def test_fbank_fft_kernel_takes_misaligned_frames(cuda):
@@ -446,6 +554,97 @@ def test_maxpool_misaligned_view_takes_the_scalar_kernel(cuda, dtype):
     assert (mp.maxpool3d.launches, mp.maxpool3d_scalar.launches) == (
         before[0], before[1] + 1)
     assert _equal(y, want) and torch.equal(arg, want_arg)
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    return t.view(torch.int32 if t.dtype == torch.float32 else torch.int16)
+
+
+def _routed_derivative(shape, rows, dtype, cuda, seed=13):
+    """The recipe-like case for the backward: rows with ties, +-inf and NaN
+    windows (an argmax of no index), and a derivative holding -0.0 and
+    NaNs with payloads."""
+    p = mp.Pool3D(*shape)
+    x = _hard_rows(rows, p, dtype, cuda, seed=seed)
+    _, arg = mp.maxpool3d_reference(x, p, with_argmax=True)
+    d = torch.as_tensor(np_rng(seed, "d").normal(size=tuple(arg.shape))
+                        .astype(np.float32), device=cuda).to(dtype)
+    bits = _bits(d).view(-1)
+    r = np_rng(seed, "special")
+    specials = ([-2**31, 0x7fc12345, -0x3ff544] if dtype == torch.float32
+                else [-2**15, 0x7fc1, -0x3d])   # -0.0, NaN with payloads
+    for val in specials:
+        bits[torch.as_tensor(r.integers(0, bits.numel(),
+                                        max(1, bits.numel() // 50)))] = val
+    return p, x, arg, d
+
+
+@pytest.mark.parametrize("shape", POOL_SHAPES + [(16, 8, 16, 16, 8, 1)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", [1, 67])
+def test_maxpool_vector_backward_bit_equal(cuda, shape, dtype, rows):
+    """The backward the wrapper picks (vector on the recipe's shapes and on
+    a 16x8 window's int32 argmax, scalar elsewhere) and the scalar one, bit
+    for bit equal to the plain version: the derivative's own bits at the
+    argmax, -0.0 and NaN payloads included, +0.0 elsewhere and all over a
+    NaN window."""
+    p, x, arg, d = _routed_derivative(shape, rows, dtype, cuda)
+    kind = mp.backward_kernel(p, dtype, d.data_ptr(), arg.data_ptr())
+    assert kind == ("vector" if shape[5] == 1 and shape[2] % (
+        16 // dtype.itemsize) == 0 else "scalar")
+    counter = (mp.maxpool3d_backward if kind == "vector"
+               else mp.maxpool3d_backward_scalar)
+    before = (counter.launches, mp.maxpool3d_backward_scalar.launches)
+    dx = mp.maxpool3d_backward(d, arg, p)
+    dxs = mp.maxpool3d_backward_scalar(d, arg, p)
+    want = mp.maxpool3d_backward_reference(d, arg, p)
+    torch.cuda.synchronize()
+    if kind == "vector":
+        assert (counter.launches, mp.maxpool3d_backward_scalar.launches) \
+            == (before[0] + 1, before[1] + 1)
+    else:
+        assert counter.launches == before[0] + 2
+    assert arg.dtype == mp.argmax_dtype(p)
+    assert int(arg.max()) == mp.window(p)         # a NaN window
+    assert _bits(d).eq(_bits(d.new_tensor(-0.0))).any()
+    assert dx.dtype == dtype and dx.shape == want.shape
+    assert torch.equal(_bits(dx), _bits(want))
+    assert torch.equal(_bits(dxs), _bits(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["out_deriv", "argmax"])
+def test_maxpool_misaligned_backward_takes_the_scalar_kernel(cuda, dtype,
+                                                             which):
+    """A derivative or an argmax that is not 16-byte aligned takes the
+    scalar backward, which moves its own count and is bit-equal."""
+    p, x, arg, d = _routed_derivative((8, 30, 64, 2, 3, 1), 67, dtype, cuda)
+    t = d if which == "out_deriv" else arg
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    dd, aa = (view, arg) if which == "out_deriv" else (d, view)
+    assert mp.backward_kernel(p, dtype, dd.data_ptr(),
+                              aa.data_ptr()) == "scalar"
+    before = (mp.maxpool3d_backward.launches,
+              mp.maxpool3d_backward_scalar.launches)
+    dx = mp.maxpool3d_backward(dd, aa, p)
+    want = mp.maxpool3d_backward_reference(d, arg, p)
+    torch.cuda.synchronize()
+    assert (mp.maxpool3d_backward.launches,
+            mp.maxpool3d_backward_scalar.launches) == (before[0],
+                                                       before[1] + 1)
+    assert torch.equal(_bits(dx), _bits(want))
+
+
+def test_vector_backward_refuses_what_it_does_not_take(cuda):
+    """The C entry point checks the vector conditions itself (pool_c = 2
+    here) and raises through the wrapper's launch check."""
+    p = mp.Pool3D(4, 6, 8, 2, 3, 2)            # out_dim 2 x 2 x 4
+    d = torch.zeros(4, 16, device=cuda)
+    arg = torch.zeros(4, 16, dtype=torch.int8, device=cuda)
+    with pytest.raises(RuntimeError, match="kcnn_maxpool_bwd_vec"):
+        mp._backward("kcnn_maxpool_bwd_vec", d, arg, p)
 
 
 def test_vector_kernel_refuses_what_it_does_not_take(cuda):

@@ -306,8 +306,9 @@ def test_kernel_wrappers_register_their_launch_counts():
     CUDA graph's replay can add the launches it captured; the counts
     read and restore as a tuple."""
     wrappers = [tmp.maxpool3d, tmp.maxpool3d_scalar, tmp.maxpool3d_backward,
-                tconv.conv2d_maxpool, tconv.conv2d_maxpool_f32,
-                tfbank.fbank_frames, tfbank.fbank_frames_table]
+                tmp.maxpool3d_backward_scalar, tconv.conv2d_maxpool,
+                tconv.conv2d_maxpool_f32, tfbank.fbank_frames,
+                tfbank.fbank_frames_mixed, tfbank.fbank_frames_table]
     assert all(any(f is g for g in common.COUNTED) for f in wrappers)
     saved = common.launch_counts()
     tmp.maxpool3d.launches += 3
